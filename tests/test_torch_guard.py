@@ -1,0 +1,125 @@
+"""Guards of the port: it never imports JAX or the reference package, and
+without CUDA its entry points refuse to run unless asked for the CPU."""
+import ast
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+FORBIDDEN = ("jax", "jaxlib")
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _bad_import(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in FORBIDDEN or name == "repro" or name.startswith("repro.")
+
+
+def test_port_imports_neither_jax_nor_reference():
+    files = _port_files()
+    assert len(files) > 20 and (PORT / "serve" / "engine.py") in files
+    bad = []
+    for f in files:
+        for node in ast.walk(ast.parse(f.read_text(), filename=str(f))):
+            if isinstance(node, ast.Import):
+                bad += [(f, a.name) for a in node.names if _bad_import(a.name)]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                if _bad_import(node.module or ""):
+                    bad.append((f, node.module))
+            elif (isinstance(node, ast.Call) and getattr(node.func, "attr", "")
+                  == "import_module" and node.args
+                  and isinstance(node.args[0], ast.Constant)
+                  and _bad_import(str(node.args[0].value))):
+                bad.append((f, node.args[0].value))
+    assert not bad, bad
+
+
+def test_guard_catches_reference_imports():
+    assert _bad_import("repro") and _bad_import("repro.core.future")
+    assert _bad_import("jax.numpy") and _bad_import("jaxlib")
+    assert not _bad_import("repro_torch.core") and not _bad_import("torch")
+
+
+@pytest.fixture()
+def no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("checks behaviour on a machine without CUDA")
+
+
+def test_entry_points_refuse_cpu_without_being_asked(no_cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serve.engine import Engine, ServeConfig
+    from repro_torch.serve.router import Router
+
+    cfg = get_config("starcoder2_3b", smoke=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Model(cfg)
+    model = Model(cfg, device="cpu")
+    params = model.init(0)
+    scfg = ServeConfig(max_batch=1, cache_len=32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Engine(model, params, scfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Router.replicate(model, params, scfg, 1)
+    with pytest.raises(ValueError, match="unsupported device"):
+        Engine(model, params, scfg, device="meta")
+
+
+def test_launcher_refuses_cpu_without_flag(no_cuda):
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+                        "starcoder2_3b", "--smoke", "--requests", "1"],
+                       capture_output=True, text=True, env=env, timeout=120)
+    assert r.returncode != 0 and "CUDA is not available" in r.stderr
+
+
+def test_wrappers_never_fall_back(no_cuda):
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import paged_decode_attention_fwd
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+
+    m = torch.empty(1, 16, 2, 16, device="meta")
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ops.flash_attention(m, m, m)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ops.paged_decode_attention(m[:, 0], m, m, m[:, :, 0, 0].int(),
+                                   m[:, 0, 0, 0].int())
+    x = torch.zeros(1, 16, 2, 16)  # CPU tensors never reach a kernel
+    with pytest.raises(ValueError, match="CUDA device"):
+        flash_attention_fwd(x, x, x)
+    with pytest.raises(ValueError, match="CUDA device"):
+        paged_decode_attention_fwd(x[:, 0], x, x, torch.zeros(1, 1, dtype=torch.int32),
+                                   torch.ones(1, dtype=torch.int32))
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    from repro_torch.kernels import _build
+
+    monkeypatch.setattr(shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(_build.KernelBuildError, match="nvcc not found"):
+        _build.build()
+
+
+def test_chip_smoke_fails_without_cuda(no_cuda, tmp_path):
+    """No card → non-zero exit and no result line, from the checkout and
+    from a directory holding the script alone."""
+    alone = tmp_path / "chip_smoke.py"
+    shutil.copy(ROOT / "chip_smoke.py", alone)
+    for script, cwd in ((ROOT / "chip_smoke.py", ROOT), (alone, tmp_path)):
+        r = subprocess.run([sys.executable, str(script)], cwd=cwd,
+                           capture_output=True, text=True, timeout=120,
+                           env={k: v for k, v in os.environ.items()
+                                if k != "PYTHONPATH"})
+        assert r.returncode != 0, r.stdout
+        assert '"ok": true' not in r.stdout

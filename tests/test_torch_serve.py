@@ -1,0 +1,240 @@
+"""The port's paged continuous-batching serving stack on the CPU: greedy
+token lists equal to the reference's manual greedy decode (fp32, params
+carried across by ``from_reference``), admission churn, per-slot
+divergence, streaming, sampling by its properties, routing and counters.
+
+Greedy parity is exact (token for token): both sides run fp32 and
+``argmax`` takes the first maximal index in both frameworks.  Sampled
+decoding cannot match the reference's ``jax.random`` draws and is checked
+by its properties instead.
+"""
+from dataclasses import replace
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as ref_config
+from repro.dist.plan import get_plan
+from repro.models.model import build_model as ref_build
+from repro_torch.configs import get_config
+from repro_torch.core import counters
+from repro_torch.core.future import ChannelClosed
+from repro_torch.models.model import Model
+from repro_torch.models.params import from_reference
+from repro_torch.serve.engine import (Engine, SamplingParams, ServeConfig,
+                                      sample_logits)
+from repro_torch.serve.router import Router
+
+
+@pytest.fixture(scope="module")
+def port_rt():
+    """The port's own AMT runtime (the root ``rt`` fixture is the
+    reference's)."""
+    import repro_torch.core as core
+
+    runtime = core.init(num_workers=4, policy="local")
+    yield runtime
+    core.finalize()
+
+
+@pytest.fixture(scope="module")
+def served():
+    rcfg = replace(ref_config("starcoder2_3b", smoke=True), dtype="float32")
+    rmodel = ref_build(rcfg, get_plan("futurized"))
+    rparams = rmodel.init(jax.random.PRNGKey(1))
+    cfg = replace(get_config("starcoder2_3b", smoke=True), dtype="float32")
+    model = Model(cfg, device="cpu")
+    params = from_reference({k: np.asarray(v) for k, v in rparams.items()}, cfg, "cpu")
+    cache = {}
+
+    def ref_greedy(prompt, n):
+        """The reference's manual greedy decode (test_serve.py)."""
+        key = (tuple(prompt), n)
+        if key not in cache:
+            pin = {"tokens": jnp.asarray(prompt, jnp.int32)[None, :]}
+            logits, c = jax.jit(rmodel.prefill, static_argnames=("cache_len",))(
+                rparams, pin, cache_len=96)
+            out = [int(jnp.argmax(logits, -1)[0])]
+            dec = jax.jit(rmodel.decode)
+            for _ in range(n):
+                logits, c = dec(rparams, c, jnp.asarray([[out[-1]]], jnp.int32))
+                out.append(int(jnp.argmax(logits, -1)[0]))
+            cache[key] = out
+        return cache[key]
+
+    return cfg, model, params, ref_greedy
+
+
+def _engine(model, params, **kw):
+    return Engine(model, params, ServeConfig(**kw), device="cpu")
+
+
+def test_engine_matches_reference_greedy(port_rt, served):
+    cfg, model, params, ref_greedy = served
+    prompts = [[5, 6, 7, 8], [100, 3, 50, 2, 9, 11], [42]]
+    n = 6
+    eng = _engine(model, params, max_batch=2, cache_len=96, max_new_tokens=n)
+    outs = [f.get(timeout=300) for f in [eng.submit(p) for p in prompts]]
+    for p, o in zip(prompts, outs):
+        assert o == ref_greedy(p, n), f"prompt {p}"
+
+
+def test_engine_more_requests_than_slots(port_rt, served):
+    cfg, model, params, ref_greedy = served
+    eng = _engine(model, params, max_batch=2, cache_len=64, max_new_tokens=3,
+                  name="slots#0")
+    futs = [eng.submit([i + 1, i + 2]) for i in range(7)]
+    outs = [f.get(timeout=300) for f in futs]
+    assert all(len(o) == 4 for o in outs)
+    assert outs[3] == ref_greedy([4, 5], 3)
+
+
+def test_per_slot_length_divergence(port_rt, served):
+    """Requests with different max_new share the batch; every slot matches
+    its own reference decode (per-row lengths in the paged kernel)."""
+    cfg, model, params, ref_greedy = served
+    prompts = [[5, 6, 7, 8], [100, 3, 50, 2, 9, 11], [42, 7]]
+    new = [2, 7, 4]
+    eng = _engine(model, params, max_batch=2, cache_len=96, max_new_tokens=8)
+    futs = [eng.submit(p, max_new=n) for p, n in zip(prompts, new)]
+    for p, n, f in zip(prompts, new, futs):
+        assert f.get(timeout=300) == ref_greedy(p, n), (p, n)
+
+
+def test_per_slot_eos_divergence(port_rt, served):
+    """EOS ends one slot early while its batch-mate continues exactly."""
+    cfg, model, params, ref_greedy = served
+    pa, pb = [5, 6, 7, 8], [100, 3, 50, 2, 9, 11]
+    n = 6
+    ra, rb = ref_greedy(pa, n), ref_greedy(pb, n)
+    k = next(i for i in range(1, n) if ra[i] not in ra[:i])
+    eos = ra[k]
+
+    def cut(toks):
+        return toks[: toks.index(eos) + 1] if eos in toks else toks
+
+    eng = _engine(model, params, max_batch=2, cache_len=96, max_new_tokens=n,
+                  eos_id=eos)
+    fa, fb = eng.submit(pa), eng.submit(pb)
+    assert fa.get(timeout=300) == cut(ra)
+    assert fb.get(timeout=300) == cut(rb)
+    assert len(fa.get()) == k + 1 < n + 1
+
+
+def test_paged_free_list_reuse_under_churn(port_rt, served):
+    """Admission churn cycles pages through the LIFO free list: cumulative
+    allocations exceed pool capacity (reuse) and everything returns."""
+    cfg, model, params, _ = served
+    eng = _engine(model, params, max_batch=2, cache_len=64, max_new_tokens=3,
+                  page_size=16, name="churn#0")
+    kv = eng.kv
+    outs = [f.get(timeout=300)
+            for f in [eng.submit(list(range(1, 2 + i % 17))) for i in range(9)]]
+    assert all(len(o) == 4 for o in outs)
+    assert kv.pages_in_use() == 0 and kv.free_pages() == kv.num_pages - 1
+    assert eng.load() == 0
+    assert counters.get_value("/serve{churn#0}/pages/allocated") > kv.num_pages - 1
+    assert (counters.get_value("/serve{churn#0}/pages/allocated")
+            == counters.get_value("/serve{churn#0}/pages/freed"))
+    assert (kv.page_table == 0).all() and (kv.pos == 0).all()
+
+
+def test_stream_channel_order_and_close(port_rt, served):
+    """Streamed tokens arrive in generation order, the first before the
+    request completes, and the channel closes on finish."""
+    cfg, model, params, _ = served
+    eng = _engine(model, params, max_batch=2, cache_len=96, max_new_tokens=48)
+    ch, fut = eng.submit_stream([5, 6, 7, 8])
+    first = ch.get(timeout=300)
+    assert not fut.is_ready(), "first token must stream before completion"
+    rest = list(ch)
+    assert [first] + rest == fut.get(timeout=300)
+    with pytest.raises(ChannelClosed):
+        ch.get(timeout=1)
+
+
+def test_greedy_sampling_equivalence_and_top_k(port_rt, served):
+    """temperature=0 is exact argmax whatever top-k/top-p say; top_k=1 is
+    the greedy sequence at any temperature; hot sampling stays in vocab."""
+    cfg, model, params, ref_greedy = served
+    eng = _engine(model, params, max_batch=2, cache_len=96, max_new_tokens=4)
+    p = [5, 6, 7, 8]
+    want = ref_greedy(p, 4)
+    assert eng.submit(p, sampling=SamplingParams(0.0, 7, 0.5)).get(timeout=300) == want
+    assert eng.submit(p, sampling=SamplingParams(0.7, 1)).get(timeout=300) == want
+    hot = eng.submit(p, sampling=SamplingParams(1.2, 20)).get(timeout=300)
+    assert len(hot) == 5 and all(0 <= t < cfg.vocab_size for t in hot)
+
+
+def test_sample_logits_properties():
+    """Per-row controls: greedy rows are argmax, top-k rows draw only from
+    their k largest logits, tiny top-p keeps only the argmax."""
+    gen = torch.Generator().manual_seed(0)
+    rng = np.random.default_rng(0)
+    B, V, k = 4, 300, 5
+    logits = torch.from_numpy(rng.standard_normal((B, V)).astype(np.float32))
+    temp = torch.tensor([0.0, 1.5, 1.5, 1.0])
+    topk = torch.tensor([3, k, 0, 0])
+    topp = torch.tensor([1.0, 1.0, 1.0, 1e-6])
+    topset = set(torch.topk(logits[1], k).indices.tolist())
+    seen = set()
+    for _ in range(200):
+        s = sample_logits(logits, gen, temp, topk, topp)
+        assert int(s[0]) == int(logits[0].argmax())
+        assert int(s[1]) in topset
+        assert int(s[3]) == int(logits[3].argmax())
+        seen.add(int(s[1]))
+    assert len(seen) > 1  # it does sample
+    assert torch.equal(sample_logits(logits, gen, torch.zeros(B), topk, topp),
+                       logits.argmax(-1))
+
+
+def test_router_least_loaded_dispatch(port_rt, served):
+    cfg, model, params, ref_greedy = served
+    router = Router.replicate(model, params,
+                              ServeConfig(max_batch=2, cache_len=64, max_new_tokens=2),
+                              2, device="cpu")
+    e0, e1 = router.engines
+    assert [e.scfg.name for e in router.engines] == ["engine#0", "engine#1"]
+    assert e0.params is not params and e0.params["blk/wq"] is e1.params["blk/wq"]
+    before = counters.get_value("/serve{router}/dispatch/engine#1")
+    assert router.pick() == 0  # ties → first
+    e0.c_sub.increment(3)  # fake 3 in-flight requests on replica 0
+    try:
+        assert e0.load() == 3 and e1.load() == 0
+        assert router.pick() == 1
+        assert router.submit([4, 5, 6]).get(timeout=300) == ref_greedy([4, 5, 6], 2)
+    finally:
+        e0.c_sub.increment(-3)
+    assert counters.get_value("/serve{router}/dispatch/engine#1") == before + 1
+
+
+def test_serve_counters(port_rt, served):
+    cfg, model, params, _ = served
+    eng = _engine(model, params, max_batch=2, cache_len=64, max_new_tokens=3,
+                  name="count#0")
+    outs = [f.get(timeout=300) for f in [eng.submit([1, 2, 3]), eng.submit([9] * 20)]]
+    q = dict(counters.query("/serve{count#0}/*"))
+    assert q["/serve{count#0}/requests/submitted"] == 2
+    assert q["/serve{count#0}/requests/completed"] == 2
+    assert q["/serve{count#0}/tokens/generated"] == sum(map(len, outs)) == 8
+    assert q["/serve{count#0}/pages/capacity"] == eng.kv.num_pages - 1
+    assert q["/serve{count#0}/pages/allocated"] == q["/serve{count#0}/pages/freed"] >= 3
+    assert q["/serve{count#0}/pages/in_use"] == 0
+    assert q["/serve{count#0}/step/duration"] > 0
+    assert eng.step_count >= 3 and eng.prefill_count == 2
+
+
+def test_engine_bf16_serves(port_rt, served):
+    """The default compute dtype (bf16) runs end to end on the CPU path."""
+    _, _, params, _ = served
+    model = Model(get_config("starcoder2_3b", smoke=True), device="cpu")
+    eng = _engine(model, params, max_batch=2, cache_len=64, max_new_tokens=5,
+                  name="bf16#0")
+    assert eng.params["blk/wq"].dtype == torch.bfloat16
+    assert eng.params["final_ln"].dtype == torch.float32
+    out = eng.submit([3, 1, 4, 1, 5]).get(timeout=300)
+    assert len(out) == 6 and all(0 <= t < 512 for t in out)
