@@ -9,9 +9,11 @@ Phases (any failure exits non-zero; no phase catches its own failure):
 2. Build — the CUDA kernels from ``src/repro_torch/kernels/csrc``, timed.
 3. Kernels — each kernel against its plain PyTorch version on the card, at
    the serving path's shapes (H=24, KV=2, Dh=128; prefill S ∈ {128, 512,
-   1000}; decode B=8 with mixed lengths, pages of 16) and at the sweeps of
-   ``tests/test_kernels.py``, in fp32 and bf16, tolerance
-   ``test_kernels.py::_tol`` × 4; then each kernel timed (CUDA events,
+   1000}, also with a window and with valid_len < S; decode B=8 with mixed
+   lengths, pages of 16) and at the sweeps of ``tests/test_kernels.py``, in
+   fp32 and bf16: absolute tolerance ``test_kernels.py::_tol`` × 4 and a
+   tight limit on each output row's relative error (``ROW_TOL``), which
+   an off-by-one mask bound is shown to break; then each kernel timed (CUDA events,
    L2 flushed, median of 25) beside its plain version, its bound and, for
    flash attention, ``F.scaled_dot_product_attention`` as a yardstick.
 4. Path parity — starcoder2_3b at full width and 2 layers, the same params
@@ -36,6 +38,7 @@ last is ``{"ok": true, "device": {...}}``.  A fuller report is written to
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -49,6 +52,18 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12                                  # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}       # dense, no sparsity
 TOL = {"float32": 2e-5 * 4, "bfloat16": 2e-2 * 4}         # test_kernels._tol × 4
+# The tight limit of phase 3: the worst output row's relative error,
+# ‖o − e‖₂ / ‖e‖₂ over each row of Dh, against the plain version run in
+# fp32 on the same inputs.  In bf16, rounding the output costs at most
+# 2⁻⁸ ≈ 3.9e-3 of a row (the plain version's own bf16 output reads ~2.3e-3
+# at these shapes); the flash tensor-core kernel also rounds P to bf16 for
+# P·V, about as much again.  fp32 differs only in summation order.  A
+# window, valid_len or length bound that is off by one moves some row by
+# 0.5 or more, and phase 3 checks that it moves it past the limit.
+ROW_TOL = {("flash_attention", "float32"): 1e-5,
+           ("flash_attention", "bfloat16"): 1e-2,
+           ("paged_decode_attention", "float32"): 1e-5,
+           ("paged_decode_attention", "bfloat16"): 5e-3}
 PARITY_ATOL = {"float32": 2e-3, "bfloat16": 1.5e-1}       # see phase_parity
 REPORT = {}
 
@@ -117,6 +132,12 @@ def _bound(nbytes: float, flops: float, dtype: str):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def _row_err(o, e) -> float:
+    """The worst row's ‖o − e‖₂ / ‖e‖₂, rows along the last dim."""
+    o, e = o.float(), e.float()
+    return ((o - e).norm(dim=-1) / e.norm(dim=-1).clamp_min(1e-12)).max().item()
+
+
 def _flash_inputs(torch, gen, B, S, H, KV, Dh, dtype):
     mk = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(dtype)  # noqa: E731
     return mk(B, S, H, Dh), mk(B, S, KV, Dh), mk(B, S, KV, Dh)
@@ -142,27 +163,48 @@ def phase_kernels(torch, np):
     from repro_torch.kernels.flash_attention import (flash_attention_fwd,
                                                      flash_attention_plain)
 
+    torch.backends.cuda.matmul.allow_tf32 = False  # fp32 plain versions in fp32
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rng = np.random.default_rng(SEED)
     checks = []
-    worst = {"flash_attention": 0.0, "paged_decode_attention": 0.0}
+    worst = {k: {"abs": 0.0, "row": 0.0, "off_by_one": math.inf}
+             for k in ("flash_attention", "paged_decode_attention")}
 
-    def record(kind, shape, dtype, err):
+    def record(kind, shape, dtype, o, e, e32, off_by_one):
+        """o: the kernel's output; e: its plain version on the same inputs;
+        e32: the plain version in fp32 on them; off_by_one: the fp32 plain
+        version with one bound moved by one (None where the case has none)."""
         name = "float32" if dtype == torch.float32 else "bfloat16"
-        ok = err <= TOL[name]
+        err = (o.float() - e.float()).abs().max().item()
+        row, row_tol = _row_err(o, e32), ROW_TOL[kind, name]
+        moved = None if off_by_one is None else _row_err(off_by_one, e32)
+        ok = err <= TOL[name] and row <= row_tol and (moved is None or moved > row_tol)
         checks.append({"kernel": kind, "shape": shape, "dtype": name,
-                       "max_abs_err": err, "tol": TOL[name], "ok": ok})
-        worst[kind] = max(worst[kind], err)
-        check(ok, f"{kind} {shape} {name}: max abs err {err} > {TOL[name]}")
+                       "max_abs_err": err, "tol": TOL[name], "max_row_err": row,
+                       "row_tol": row_tol, "off_by_one_row_err": moved, "ok": ok})
+        w = worst[kind]
+        w["abs"], w["row"] = max(w["abs"], err), max(w["row"], row)
+        if moved is not None:
+            w["off_by_one"] = min(w["off_by_one"], moved)
+        check(ok, f"{kind} {shape} {name}: max abs err {err} (tol {TOL[name]}), "
+                  f"row err {row} (tol {row_tol}), off-by-one bound moves {moved}")
 
-    flash_cases = [((1, S, 24, 2, 128), True, 0) for S in (128, 512, 1000)]
-    flash_cases += [(shape, causal, 0)
+    # (B, S, H, KV, Dh), causal, window, valid_len
+    slice_shape = (1, 512, 24, 2, 128)
+    flash_cases = [((1, S, 24, 2, 128), True, 0, 0) for S in (128, 512, 1000)]
+    # the slice's shapes with a window (both kernels' tile skip) and with
+    # K positions masked past valid_len, causal and not
+    flash_cases += [(slice_shape, True, 128, 0), ((1, 1000, 24, 2, 128), True, 200, 0)]
+    flash_cases += [(slice_shape, causal, 0, 300) for causal in (True, False)]
+    flash_cases += [((2, 200, 4, 2, 64), causal, 0, 150) for causal in (True, False)]
+    flash_cases += [(shape, causal, 0, 0)
                     for shape in [(1, 128, 4, 4, 64), (2, 256, 4, 2, 64),
                                   (1, 384, 8, 1, 32), (2, 200, 4, 2, 64)]
                     for causal in (True, False)]
-    flash_cases += [((2, 256, 4, 2, 64), True, 64)]
+    flash_cases += [((2, 256, 4, 2, 64), True, 64, 0)]
     # both sides of the bf16 dispatch (tensor cores up to head_dim 128)
-    flash_cases += [((1, 100, 2, 1, 16), True, 0), ((1, 130, 2, 2, 256), True, 0)]
+    flash_cases += [((1, 100, 2, 1, 16), True, 0, 0), ((1, 130, 2, 2, 256), True, 0, 0),
+                    ((1, 130, 2, 2, 256), False, 0, 70)]
     slice_lens = rng.integers(1, 577, size=8).tolist()
     paged_cases = [(slice_lens, 24, 2, 128, 16, 64)]
     for (B, H, KV, Dh, page, maxp) in [(3, 4, 2, 64, 32, 8), (2, 8, 8, 32, 16, 4),
@@ -170,23 +212,36 @@ def phase_kernels(torch, np):
         paged_cases.append((rng.integers(1, page * maxp + 1, size=B).tolist(),
                             H, KV, Dh, page, maxp))
     for dtype in (torch.float32, torch.bfloat16):
-        for (B, S, H, KV, Dh), causal, window in flash_cases:
+        for (B, S, H, KV, Dh), causal, window, vl in flash_cases:
             q, k, v = _flash_inputs(torch, gen, B, S, H, KV, Dh, dtype)
-            o = flash_attention_fwd(q, k, v, causal=causal, window=window)
+            masks = {"causal": causal, "window": window, "valid_len": vl}
+            o = flash_attention_fwd(q, k, v, **masks)
             torch.cuda.synchronize()
-            e = flash_attention_plain(q, k, v, causal=causal, window=window)
-            record("flash_attention", [B, S, H, KV, Dh, int(causal), window], dtype,
-                   (o.float() - e.float()).abs().max().item())
+            f32 = [x.float() for x in (q, k, v)]
+            moved = None
+            if window or vl:
+                key = "window" if window else "valid_len"
+                moved = flash_attention_plain(*f32, **{**masks, key: masks[key] - 1})
+            record("flash_attention", [B, S, H, KV, Dh, int(causal), window, vl], dtype,
+                   o, flash_attention_plain(q, k, v, **masks),
+                   flash_attention_plain(*f32, **masks), moved)
         for lens, H, KV, Dh, page, maxp in paged_cases:
-            args = _paged_inputs(torch, gen, lens, H, KV, Dh, page, maxp, dtype)
-            o = paged_decode_attention_fwd(*args)
+            q, kp, vp, pt, lengths = _paged_inputs(torch, gen, lens, H, KV, Dh, page,
+                                                   maxp, dtype)
+            o = paged_decode_attention_fwd(q, kp, vp, pt, lengths)
             torch.cuda.synchronize()
-            e = paged_decode_attention_plain(*args)
+            f32 = [x.float() for x in (q, kp, vp)]
             record("paged_decode_attention", [len(lens), H, KV, Dh, page, maxp], dtype,
-                   (o.float() - e.float()).abs().max().item())
+                   o, paged_decode_attention_plain(q, kp, vp, pt, lengths),
+                   paged_decode_attention_plain(*f32, pt, lengths),
+                   paged_decode_attention_plain(*f32, pt, (lengths - 1).clamp_min(1)))
     REPORT["kernel_checks"] = checks
-    log(f"[kernels] {len(checks)} checks within tolerance; worst abs err "
-        f"flash {worst['flash_attention']:.3g}, paged {worst['paged_decode_attention']:.3g}")
+    fw, pw = worst["flash_attention"], worst["paged_decode_attention"]
+    log(f"[kernels] {len(checks)} checks within tolerance; worst abs err flash "
+        f"{fw['abs']:.3g}, paged {pw['abs']:.3g} (tol {TOL}); worst row err flash "
+        f"{fw['row']:.3g}, paged {pw['row']:.3g} (tol {ROW_TOL}); an off-by-one bound "
+        f"moves a row by at least {fw['off_by_one']:.3g} (flash), "
+        f"{pw['off_by_one']:.3g} (paged)")
 
     # timings at the serving path's shapes, bf16
     flush = torch.empty(16 * 1024 * 1024, dtype=torch.float32, device="cuda")

@@ -54,11 +54,15 @@ def _route(t: torch.Tensor, what: str) -> bool:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q: (B,S,H,Dh), k/v: (B,S,KV,Dh) → (B,S,H,Dh). GQA via H % KV == 0."""
+                    causal: bool = True, window: int = 0,
+                    valid_len: int = 0) -> torch.Tensor:
+    """q: (B,S,H,Dh), k/v: (B,S,KV,Dh) → (B,S,H,Dh). GQA via H % KV == 0.
+    ``valid_len`` (0 means S) masks K positions at or past it."""
     if not _route(q, "flash_attention"):
-        return flash_attention_plain(q, k, v, causal=causal, window=window)
-    o = flash_attention_fwd(q, k, v, causal=causal, window=window)
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     valid_len=valid_len)
+    o = flash_attention_fwd(q, k, v, causal=causal, window=window,
+                            valid_len=valid_len)
     _count("flash_attention")
     return o
 

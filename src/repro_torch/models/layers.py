@@ -182,14 +182,21 @@ def embed(cfg: ModelConfig, table: torch.Tensor, tokens: torch.Tensor) -> torch.
     return rows.to(cdtype(cfg)).reshape(*tokens.shape, table.shape[-1])
 
 
-def unembed(cfg: ModelConfig, x: torch.Tensor, table: torch.Tensor,
-            transpose: bool) -> torch.Tensor:
-    """x @ W_out → logits fp32.  As in the reference, the table is cast to
-    the compute dtype and the product accumulates into fp32 (products of
-    compute-dtype values are exact in fp32).  Padded vocab columns are
-    masked to −1e30 so softmax/argmax semantics match the unpadded vocab."""
+def unembed_weight(cfg: ModelConfig, table: torch.Tensor, transpose: bool) -> torch.Tensor:
+    """W_out as the (D, Vp) fp32 matrix :func:`unembed` multiplies by.  As in
+    the reference, the table is cast to the compute dtype; it is held in
+    fp32 so that the product accumulates into fp32 (products of
+    compute-dtype values are exact in fp32).  A view when the table is
+    already fp32."""
     w = table.to(cdtype(cfg)).float()
-    logits = x.float() @ (w.t() if transpose else w)
+    return w.t() if transpose else w
+
+
+def unembed(cfg: ModelConfig, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ W_out → logits fp32; ``w`` from :func:`unembed_weight`.  Padded
+    vocab columns are masked to −1e30 so softmax/argmax semantics match
+    the unpadded vocab."""
+    logits = x.float() @ w
     Vp = logits.shape[-1]
     if Vp != cfg.vocab_size:
         logits[..., cfg.vocab_size:] = NEG

@@ -20,8 +20,9 @@ from repro_torch.models.params import ParamSpec, TensorSpec
 Params = Dict[str, torch.Tensor]
 
 # params the reference reads in fp32 (norm scales, ``scale.astype(f32)``);
-# every other param it casts to the compute dtype at each use
-_FP32_PARAMS = ("final_ln", "blk/ln1", "blk/ln2")
+# every other param it casts to the compute dtype at each use.  ``unembed``
+# is no param of the reference: compute_params adds it, already converted
+_FP32_PARAMS = ("final_ln", "blk/ln1", "blk/ln2", "unembed")
 
 
 # ------------------------------------------------------------------- specs
@@ -74,9 +75,16 @@ def compute_params(cfg: ModelConfig, params: Params) -> Params:
     """The params as the compute sees them, made once: everything the
     reference casts to ``cfg.dtype`` at each use is cast here, the norm
     scales stay fp32.  For frozen weights this is bit-identical to casting
-    at every use, and it saves re-reading the fp32 masters every step."""
+    at every use, and it saves re-reading the fp32 masters every step.
+    ``unembed`` is the unembedding's fp32 weight, made here once rather
+    than cast from the table at every step (``Lx.unembed_weight``).
+    Idempotent: the engine may get params the router already converted."""
     dt = Lx.cdtype(cfg)
-    return {k: (v if k in _FP32_PARAMS else v.to(dt)) for k, v in params.items()}
+    out = {k: (v if k in _FP32_PARAMS else v.to(dt)) for k, v in params.items()}
+    if "unembed" not in out:
+        table = out["tok_embed"] if cfg.tie_embeddings else out["lm_head"]
+        out["unembed"] = Lx.unembed_weight(cfg, table, transpose=cfg.tie_embeddings)
+    return out
 
 
 # ------------------------------------------------------------------ blocks
@@ -98,8 +106,11 @@ def _layer_body(cfg: ModelConfig, x: torch.Tensor, lp: Params,
 
 def _logits(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
     x = Lx.norm(cfg, x, params["final_ln"])
-    table = params["tok_embed"] if cfg.tie_embeddings else params["lm_head"]
-    return Lx.unembed(cfg, x, table, transpose=cfg.tie_embeddings)
+    w = params.get("unembed")
+    if w is None:  # the fp32 masters, not yet through compute_params
+        table = params["tok_embed"] if cfg.tie_embeddings else params["lm_head"]
+        w = Lx.unembed_weight(cfg, table, transpose=cfg.tie_embeddings)
+    return Lx.unembed(cfg, x, w)
 
 
 # ------------------------------------------------------------------ forward

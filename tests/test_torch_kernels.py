@@ -15,6 +15,7 @@ import torch
 
 from repro.kernels import ops as rops
 from repro.kernels import ref as rref
+from repro.kernels.flash_attention import flash_attention_fwd as r_flash_fwd
 from repro_torch.kernels import ops, ref
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -66,6 +67,36 @@ def test_flash_attention_window():
     _close(o, rops.flash_attention(*map(jnp.asarray, (q, k, v)), causal=True,
                                    window=64), 1e-4)
     _close(o, rref.mha(*map(jnp.asarray, (q, k, v)), causal=True, window=64), 1e-4)
+
+
+@pytest.mark.parametrize("S,valid_len", [(256, 200), (256, 130)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_valid_len_matches_reference(S, valid_len, dtype, causal):
+    """K positions at or past ``valid_len`` are masked, as in the reference's
+    TPU kernel called with ``valid_len`` directly (its wrapper only uses it
+    for padding).  The reference takes (B·H, S, Dh) with K/V repeated per
+    GQA group; every row keeps key 0, so no row is fully masked."""
+    B, H, KV, Dh = 1, 4, 2, 64
+    rng = np.random.default_rng(2)
+    q = rng.standard_normal((B, S, H, Dh), np.float32)
+    k = rng.standard_normal((B, S, KV, Dh), np.float32)
+    v = rng.standard_normal((B, S, KV, Dh), np.float32)
+    qt, kt, vt = (_pair(x, dtype)[1] for x in (q, k, v))
+    o = ops.flash_attention(qt, kt, vt, causal=causal, valid_len=valid_len)
+
+    def rows(x):  # (B, S, heads, Dh) → (B·H, S, Dh), K/V heads repeated
+        x = np.repeat(x, H // x.shape[2], axis=2)
+        return _pair(x.transpose(0, 2, 1, 3).reshape(B * H, S, Dh), dtype)[0]
+
+    want = r_flash_fwd(rows(q), rows(k), rows(v), causal=causal, valid_len=valid_len,
+                       interpret=True)
+    want = np.asarray(want, np.float32).reshape(B, H, S, Dh).transpose(0, 2, 1, 3)
+    _close(o, want, _tol(dtype))
+    # the mask is live: attending to all S keys moves some output by more
+    # than twice the loosest tolerance
+    full = ops.flash_attention(qt, kt, vt, causal=causal)
+    assert (full.float() - o.float()).abs().max().item() > 2 * _tol("bfloat16")
 
 
 def _paged_inputs(B, H, KV, Dh, page, maxp, seed=8):

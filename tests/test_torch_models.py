@@ -207,9 +207,16 @@ def test_compute_params_cast_all_but_norms(ref_params):
     _, tcfg = _cfgs("xla", "bfloat16")
     tp = from_reference(ref_params, tcfg, "cpu")
     cp = TT.compute_params(tcfg, tp)
+    assert set(cp) == set(tp) | {"unembed"}
     for k, v in cp.items():
-        want = torch.float32 if k.endswith(("ln1", "ln2", "final_ln")) else torch.bfloat16
-        assert v.dtype == want, k
+        fp32 = k.endswith(("ln1", "ln2", "final_ln", "unembed"))
+        assert v.dtype == (torch.float32 if fp32 else torch.bfloat16), k
+    # the unembedding: the bf16 table's values, held in fp32, as (D, Vp)
+    table = cp["tok_embed"] if tcfg.tie_embeddings else cp["lm_head"].t()
+    torch.testing.assert_close(cp["unembed"], table.float().t(), rtol=0, atol=0)
+    # idempotent (the router converts, then the engine converts again)
+    again = TT.compute_params(tcfg, cp)
+    assert all(again[k] is cp[k] for k in cp)
     toks = torch.randint(1, tcfg.vocab_size, (1, 8), generator=torch.Generator().manual_seed(0))
     a, _ = TT.forward(tcfg, tp, toks)
     b, _ = TT.forward(tcfg, cp, toks)
