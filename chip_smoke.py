@@ -7,15 +7,23 @@ Phases (any failure exits non-zero; no phase catches its own failure):
 
 1. Device — the card's name and power limit (``nvidia-smi``); no CUDA → exit 2.
 2. Build — the CUDA kernels from ``src/repro_torch/kernels/csrc``, timed.
-3. Kernels — each kernel against its plain PyTorch version on the card, at
-   the serving path's shapes (H=24, KV=2, Dh=128; prefill S ∈ {128, 512,
-   1000}, also with a window and with valid_len < S; decode B=8 with mixed
-   lengths, pages of 16) and at the sweeps of ``tests/test_kernels.py``, in
-   fp32 and bf16: absolute tolerance ``test_kernels.py::_tol`` × 4 and a
-   tight limit on each output row's relative error (``ROW_TOL``), which
-   an off-by-one mask bound is shown to break; then each kernel timed (CUDA events,
-   L2 flushed, median of 25) beside its plain version, its bound and, for
-   flash attention, ``F.scaled_dot_product_attention`` as a yardstick.
+3. Kernels — each kernel against its plain PyTorch version on the card, in
+   fp32 and bf16, at the sweeps of ``tests/test_kernels.py`` and at full
+   widths: flash and paged decode at the serving path's shapes (H=24,
+   KV=2, Dh=128; prefill S ∈ {128, 512, 1000}, also with a window and with
+   valid_len < S; decode B=8 with mixed lengths, pages of 16); dense decode
+   at starcoder2_3b's cache (B=8, T=1024; per-row, scalar and clamped
+   lengths; a row of length 0) and recurrentgemma_2b's local attention
+   (B=4, T=2048, H=10, KV=1, Dh=256); the SSD scan at mamba2_780m (S=2048,
+   H=48, P=64, N=128, chunk 256; ragged S=2000; a steep decay); the RG-LRU
+   scan at recurrentgemma_2b (S=2048, W=2560); the triad at N = 2²⁷.
+   Limits: absolute ``test_kernels.py::_tol`` × 4 (SSD × 8 with rtol
+   1e-2; the triad exact) and a tight limit on each output row's relative
+   error (``ROW_TOL``), which an off-by-one length is shown to break; then
+   each kernel timed (CUDA events, L2 flushed, median of 25, device time
+   only: see ``_time_ms``) beside its plain version, its bound and, where
+   one PyTorch call computes the same function, that call as a yardstick;
+   the triad at N = 2²⁷ in fp32 and bf16 gives STREAM's GB/s.
 4. Path parity — starcoder2_3b at full width and 2 layers, the same params
    on the card and on the CPU: prefill + 4 paged decode steps; fp32 (TF32
    off) logits and greedy tokens, then bf16 logits.
@@ -24,11 +32,21 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    page 16): 16 greedy requests with prompts of 16–512 tokens and 2
    sampled ones (T=0.8, top-k 40), 64 new tokens each.  Checks lengths,
    token ids and that the kernels launched exactly 30 × prefills and
-   30 × decode steps; reports tokens/s, TTFT p50, decode-step p50 and peak
-   device memory.
+   30 × decode steps (and the other four kernels never); reports
+   tokens/s, TTFT p50, decode-step p50 and peak device memory.
 6. Profile — where one decode step (B=8) and one 512-token prefill spend
    their time: wall vs device kernel time (``torch.profiler``), outside
    the engine's threads.
+7. Ops and STREAM — the reference's single-source kernel API
+   (``repro_torch.kernels.ops``) at full widths, once each:
+   ``decode_attention`` on starcoder2_3b's dense cache, ``ssd_scan`` at
+   mamba2_780m, ``rglru_scan`` at recurrentgemma_2b and ``stream_triad``
+   at N = 2²⁷ in fp32 and bf16.  Checks each output against its plain
+   version (the absolute limit, and ``ROW_TOL`` against the plain version
+   in fp32; the triad bit-equal) and that each kernel launched exactly
+   once per call.  Reports STREAM (HPX.Compute) from phase 3's triad
+   timings: GB/s (2 reads + 1 write) beside torch's native fp32
+   ``torch.add(a, b, alpha=3.0)`` and their ratio.
 
 The second-to-last line of standard output is the ``kernels`` JSON; the
 last is ``{"ok": true, "device": {...}}``.  A fuller report is written to
@@ -37,6 +55,7 @@ last is ``{"ok": true, "device": {...}}``.  A fuller report is written to
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import statistics
@@ -51,7 +70,7 @@ ROOT = Path(__file__).resolve().parent
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12                                  # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}       # dense, no sparsity
-TOL = {"float32": 2e-5 * 4, "bfloat16": 2e-2 * 4}         # test_kernels._tol × 4
+                                                          # (bf16 on tensor cores)
 # The tight limit of phase 3: the worst output row's relative error,
 # ‖o − e‖₂ / ‖e‖₂ over each row of Dh, against the plain version run in
 # fp32 on the same inputs.  In bf16, rounding the output costs at most
@@ -60,10 +79,29 @@ TOL = {"float32": 2e-5 * 4, "bfloat16": 2e-2 * 4}         # test_kernels._tol ×
 # P·V, about as much again.  fp32 differs only in summation order.  A
 # window, valid_len or length bound that is off by one moves some row by
 # 0.5 or more, and phase 3 checks that it moves it past the limit.
+# The scans: the RG-LRU kernel and its plain version do the same rounded
+# product and sum per step (fp32 equal); the SSD's in-chunk cumsum of
+# dt·A (|cum| up to ~200) runs in another order on each side, which moves
+# exp(cum_i − cum_j) by up to ~1e-4 relative; the triad is bit-equal.
 ROW_TOL = {("flash_attention", "float32"): 1e-5,
            ("flash_attention", "bfloat16"): 1e-2,
            ("paged_decode_attention", "float32"): 1e-5,
-           ("paged_decode_attention", "bfloat16"): 5e-3}
+           ("paged_decode_attention", "bfloat16"): 5e-3,
+           ("decode_attention", "float32"): 1e-5,
+           ("decode_attention", "bfloat16"): 5e-3,
+           ("ssd_scan", "float32"): 1e-3,
+           ("ssd_scan", "bfloat16"): 5e-3,
+           ("rglru_scan", "float32"): 1e-6,
+           ("rglru_scan", "bfloat16"): 5e-3,
+           ("stream_triad", "float32"): 0.0,
+           ("stream_triad", "bfloat16"): 5e-3}
+# the absolute limit against the plain version in the kernel's own dtype
+ABS_TOL = {name: {"float32": 2e-5 * m, "bfloat16": 2e-2 * m}
+           for name, m in (("flash_attention", 4), ("paged_decode_attention", 4),
+                           ("decode_attention", 4), ("ssd_scan", 8),
+                           ("rglru_scan", 4))}
+ABS_TOL["stream_triad"] = {"float32": 0.0, "bfloat16": 0.0}
+SSD_RTOL = 1e-2                                            # test_kernels.py
 PARITY_ATOL = {"float32": 2e-3, "bfloat16": 1.5e-1}       # see phase_parity
 REPORT = {}
 
@@ -109,16 +147,39 @@ def phase_build():
 
 
 # ------------------------------------------------------------------ phase 3
+@functools.lru_cache(maxsize=None)
+def _spin_cycles_per_ms(torch) -> float:
+    """Clock cycles per ms of ``torch.cuda._sleep``'s spin kernel."""
+    cycles = 10_000_000
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(cycles)
+    start.record()
+    torch.cuda._sleep(cycles)
+    end.record()
+    torch.cuda.synchronize()
+    return cycles / start.elapsed_time(end)
+
+
 def _time_ms(torch, fn, flush, reps=25, warmup=3):
     """Median device time of one call: CUDA events around each call, L2
-    flushed (64 MB written) before each, outside the events."""
+    flushed (64 MB written) before each, outside the events.  Between the
+    flush and the start event a spin kernel runs for twice the host's
+    enqueue time of one call (measured in the warm-up) plus 50 µs, so the
+    device is still busy while the host checks inputs, allocates and
+    launches: the window holds the call's device work, not a wait for the
+    host."""
+    enqueue = []
     for _ in range(warmup):
+        t0 = time.perf_counter()
         fn()
-    torch.cuda.synchronize()
+        enqueue.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    spin = int((2e3 * max(enqueue[1:] or enqueue) + 0.05) * _spin_cycles_per_ms(torch))
     ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
           for _ in range(reps)]
     for start, end in ev:
         flush.zero_()
+        torch.cuda._sleep(spin)
         start.record()
         fn()
         end.record()
@@ -126,10 +187,14 @@ def _time_ms(torch, fn, flush, reps=25, warmup=3):
     return statistics.median(s.elapsed_time(e) for s, e in ev)
 
 
-def _bound(nbytes: float, flops: float, dtype: str):
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dtype]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+def _ops_ms(flops: dict) -> float:
+    """Least time for {dtype: flops}, each at its dtype's peak rate."""
+    return sum(n / PEAK_FLOPS[dtype] for dtype, n in flops.items()) * 1e3
+
+
+def _bound(nbytes: float, flops: dict):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, _ops_ms(flops)
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def _row_err(o, e) -> float:
@@ -158,6 +223,7 @@ def _paged_inputs(torch, gen, lens, H, KV, Dh, page, maxp, dtype):
 def phase_kernels(torch, np):
     import torch.nn.functional as F
 
+    from repro_torch.kernels import ops
     from repro_torch.kernels.decode_attention import (paged_decode_attention_fwd,
                                                       paged_decode_attention_plain)
     from repro_torch.kernels.flash_attention import (flash_attention_fwd,
@@ -167,27 +233,32 @@ def phase_kernels(torch, np):
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rng = np.random.default_rng(SEED)
     checks = []
-    worst = {k: {"abs": 0.0, "row": 0.0, "off_by_one": math.inf}
-             for k in ("flash_attention", "paged_decode_attention")}
+    worst = {k: {"abs": 0.0, "row": 0.0, "off_by_one": math.inf} for k in ops.KERNELS}
 
     def record(kind, shape, dtype, o, e, e32, off_by_one):
         """o: the kernel's output; e: its plain version on the same inputs;
         e32: the plain version in fp32 on them; off_by_one: the fp32 plain
         version with one bound moved by one (None where the case has none)."""
         name = "float32" if dtype == torch.float32 else "bfloat16"
-        err = (o.float() - e.float()).abs().max().item()
+        atol = ABS_TOL[kind][name]
+        rtol = SSD_RTOL if kind == "ssd_scan" else 0.0
+        diff = (o.float() - e.float()).abs()
+        err = diff.max().item()
+        within = bool((diff <= atol + rtol * e.float().abs()).all().item())
         row, row_tol = _row_err(o, e32), ROW_TOL[kind, name]
         moved = None if off_by_one is None else _row_err(off_by_one, e32)
-        ok = err <= TOL[name] and row <= row_tol and (moved is None or moved > row_tol)
+        ok = within and row <= row_tol and (moved is None or moved > row_tol)
         checks.append({"kernel": kind, "shape": shape, "dtype": name,
-                       "max_abs_err": err, "tol": TOL[name], "max_row_err": row,
-                       "row_tol": row_tol, "off_by_one_row_err": moved, "ok": ok})
+                       "max_abs_err": err, "tol": atol, "rtol": rtol,
+                       "max_row_err": row, "row_tol": row_tol,
+                       "off_by_one_row_err": moved, "ok": ok})
         w = worst[kind]
         w["abs"], w["row"] = max(w["abs"], err), max(w["row"], row)
         if moved is not None:
             w["off_by_one"] = min(w["off_by_one"], moved)
-        check(ok, f"{kind} {shape} {name}: max abs err {err} (tol {TOL[name]}), "
-                  f"row err {row} (tol {row_tol}), off-by-one bound moves {moved}")
+        check(ok, f"{kind} {shape} {name}: max abs err {err} (tol {atol}, rtol "
+                  f"{rtol}), row err {row} (tol {row_tol}), off-by-one bound "
+                  f"moves {moved}")
 
     # (B, S, H, KV, Dh), causal, window, valid_len
     slice_shape = (1, 512, 24, 2, 128)
@@ -235,13 +306,14 @@ def phase_kernels(torch, np):
                    o, paged_decode_attention_plain(q, kp, vp, pt, lengths),
                    paged_decode_attention_plain(*f32, pt, lengths),
                    paged_decode_attention_plain(*f32, pt, (lengths - 1).clamp_min(1)))
+    _check_ops_kernels(torch, gen, rng, record)
     REPORT["kernel_checks"] = checks
-    fw, pw = worst["flash_attention"], worst["paged_decode_attention"]
-    log(f"[kernels] {len(checks)} checks within tolerance; worst abs err flash "
-        f"{fw['abs']:.3g}, paged {pw['abs']:.3g} (tol {TOL}); worst row err flash "
-        f"{fw['row']:.3g}, paged {pw['row']:.3g} (tol {ROW_TOL}); an off-by-one bound "
-        f"moves a row by at least {fw['off_by_one']:.3g} (flash), "
-        f"{pw['off_by_one']:.3g} (paged)")
+    REPORT["kernel_worst"] = worst
+    log(f"[kernels] {len(checks)} checks within tolerance")
+    for name, w in worst.items():
+        log(f"[kernels] {name}: worst abs err {w['abs']:.3g} (tol {ABS_TOL[name]}), "
+            f"worst row err {w['row']:.3g}; an off-by-one length moves a row by at "
+            f"least {w['off_by_one']:.3g}")
 
     # timings at the serving path's shapes, bf16
     flush = torch.empty(16 * 1024 * 1024, dtype=torch.float32, device="cuda")
@@ -251,44 +323,30 @@ def phase_kernels(torch, np):
         B, H, KV, Dh = 1, 24, 2, 128
         q, k, v = _flash_inputs(torch, gen, B, S, H, KV, Dh, bf16)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        err = (flash_attention_fwd(q, k, v).float()
-               - flash_attention_plain(q, k, v).float()).abs().max().item()
-        nbytes = 2 * (2 * B * S * H * Dh + 2 * B * S * KV * Dh)  # q, o, k, v
-        flops = 4 * Dh * H * B * S * (S + 1) / 2                   # causal pairs
-        bound_ms, bound_by = _bound(nbytes, flops, "bfloat16")
-        timings["flash_attention"].append({
-            "shape": {"B": B, "S": S, "H": H, "KV": KV, "Dh": Dh, "dtype": "bfloat16",
-                      "causal": True},
-            "max_abs_err": err,
-            "ms": _time_ms(torch, lambda: flash_attention_fwd(q, k, v), flush),
-            "plain_ms": _time_ms(torch, lambda: flash_attention_plain(q, k, v), flush),
-            "library_ms": _time_ms(torch, lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True), flush),
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "bytes": nbytes, "flops": flops})
-    for B in (8,):
-        H, KV, Dh, page, maxp = 24, 2, 128, 16, 64
-        lens = rng.integers(16, 577, size=B).tolist()   # prompts 16–512 + 64 new
-        args = _paged_inputs(torch, gen, lens, H, KV, Dh, page, maxp, bf16)
-        err = (paged_decode_attention_fwd(*args).float()
-               - paged_decode_attention_plain(*args).float()).abs().max().item()
-        tokens = sum(lens)
-        npages = sum(-(-n // page) for n in lens)
-        nbytes = (2 * 2 * B * H * Dh            # q and o
-                  + 2 * 2 * tokens * KV * Dh    # live K and V
-                  + 4 * npages + 4 * B)         # page-table entries walked, lengths
-        flops = 4 * Dh * H * tokens
-        bound_ms, bound_by = _bound(nbytes, flops, "bfloat16")
-        timings["paged_decode_attention"].append({
-            "shape": {"B": B, "H": H, "KV": KV, "Dh": Dh, "page": page, "maxp": maxp,
-                      "lengths": lens, "dtype": "bfloat16"},
-            "max_abs_err": err,
-            "ms": _time_ms(torch, lambda: paged_decode_attention_fwd(*args), flush),
-            "plain_ms": _time_ms(torch, lambda: paged_decode_attention_plain(*args),
-                                 flush),
-            "library_ms": None,  # no single PyTorch call does paged attention
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "bytes": nbytes, "flops": flops})
+        timings["flash_attention"].append(_timing(
+            torch, flush, {"B": B, "S": S, "H": H, "KV": KV, "Dh": Dh,
+                           "dtype": "bfloat16", "causal": True},
+            lambda: flash_attention_fwd(q, k, v), lambda: flash_attention_plain(q, k, v),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                   enable_gqa=True),
+            2 * (2 * B * S * H * Dh + 2 * B * S * KV * Dh),  # q, o, k, v
+            {"bfloat16": 4 * Dh * H * B * S * (S + 1) / 2}))  # causal pairs
+    B, H, KV, Dh, page, maxp = 8, 24, 2, 128, 16, 64
+    lens = rng.integers(16, 577, size=B).tolist()   # prompts 16–512 + 64 new
+    args = _paged_inputs(torch, gen, lens, H, KV, Dh, page, maxp, bf16)
+    tokens = sum(lens)
+    npages = sum(-(-n // page) for n in lens)
+    timings["paged_decode_attention"].append(_timing(
+        torch, flush, {"B": B, "H": H, "KV": KV, "Dh": Dh, "page": page, "maxp": maxp,
+                       "lengths": lens, "dtype": "bfloat16"},
+        lambda: paged_decode_attention_fwd(*args),
+        lambda: paged_decode_attention_plain(*args),
+        None,  # no single PyTorch call does paged attention
+        (2 * 2 * B * H * Dh            # q and o
+         + 2 * 2 * tokens * KV * Dh    # live K and V
+         + 4 * npages + 4 * B),        # page-table entries walked, lengths
+        {"bfloat16": 4 * Dh * H * tokens}))
+    timings.update(_time_ops_kernels(torch, F, gen, flush))
     REPORT["kernel_timings"] = timings
     for name, rows in timings.items():
         for r in rows:
@@ -296,6 +354,199 @@ def phase_kernels(torch, np):
                 f"{r['plain_ms']:.4f}, library {r['library_ms']}, bound "
                 f"{r['bound_ms']:.4f} by {r['bound_by']})")
     return timings
+
+
+# full widths of the configurations whose math the four ops kernels carry
+# (src/repro/configs): starcoder2_3b's dense cache, recurrentgemma_2b's
+# local attention (window 2048) and RG-LRU width, mamba2_780m's SSD heads
+STARCODER_CACHE = (8, 1024, 24, 2, 128)                   # B, T, H, KV, Dh
+STARCODER_LENS = [1, 17, 300, 511, 512, 700, 1000, 1024]
+GRIFFIN_LOCAL = (4, 2048, 10, 1, 256)
+GRIFFIN_LRU = (1, 2048, 2560)                             # B, S, W
+MAMBA = (1, 2048, 48, 64, 1, 128)                         # B, S, H, P, G, N
+MAMBA_CHUNK = 256
+STREAM_N = 2 ** 27            # 512 MiB per fp32 array, > 4× the 50 MB L2
+
+
+def _decode_inputs(torch, gen, B, T, H, KV, Dh, dtype):
+    mk = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(dtype)  # noqa: E731
+    return mk(B, H, Dh), mk(B, T, KV, Dh), mk(B, T, KV, Dh)
+
+
+def _ssd_inputs(torch, gen, B, S, H, P, G, N, dtype, steep=False):
+    """test_kernels.py's draws; ``steep``: dt·A in [−65, −55] every step."""
+    mk = lambda *s: torch.randn(*s, generator=gen, device="cuda")  # noqa: E731
+    x = mk(B, S, H, P) * 0.5
+    dt = torch.nn.functional.softplus(mk(B, S, H))
+    A = -torch.exp(mk(H) * 0.3)
+    if steep:
+        dt = 55.0 + 10.0 * torch.rand(B, S, H, generator=gen, device="cuda")
+        A = -torch.ones(H, device="cuda")
+    Bm, Cm = mk(B, S, G, N) * 0.3, mk(B, S, G, N) * 0.3
+    return x.to(dtype), dt.to(dtype), A, Bm.to(dtype), Cm.to(dtype)
+
+
+def _rglru_inputs(torch, gen, B, S, W, dtype):
+    a = torch.sigmoid(torch.randn(B, S, W, generator=gen, device="cuda"))
+    b = torch.randn(B, S, W, generator=gen, device="cuda") * 0.1
+    return a.to(dtype), b.to(dtype)
+
+
+def _triad_inputs(torch, gen, N, dtype):
+    return tuple(torch.randn(N, generator=gen, device="cuda").to(dtype)
+                 for _ in range(2))
+
+
+def _ssd_flops(S, H, P, N, B, chunk, dtype):
+    """The SSD's operations, {dtype: flops}, by the cheaper of two ways to
+    compute it (at the peak rates), and both ways.  The recurrence: per
+    step and head, decay the fp32 (N, P) state, add dt·x ⊗ B and read
+    C·state: 5·N·P flops, fp32.  The chunked dual form: C·Bᵀ over j ≤ i
+    (both operands in the input dtype, so bf16 runs on tensor cores), then
+    scores·x, the carried state's C·S and the state update in fp32."""
+    recurrence = {"float32": 5 * N * P * S * H * B}
+    cb = rest = 0
+    for t0 in range(0, S, chunk):
+        q = min(chunk, S - t0)
+        cb += q * (q + 1) // 2 * N * 2
+        rest += (q * (q + 1) // 2 * P + 2 * q * N * P) * 2
+    dual = {dtype: B * H * cb}
+    dual["float32"] = dual.get("float32", 0) + B * H * rest
+    ways = {"recurrence": recurrence, "chunked": dual}
+    return min(ways.values(), key=_ops_ms), ways
+
+
+def _check_ops_kernels(torch, gen, rng, record):
+    """Phase 3 for the kernels behind ops.decode_attention, ops.ssd_scan,
+    ops.rglru_scan and ops.stream_triad: full widths, then the sweeps of
+    tests/test_kernels.py."""
+    from repro_torch.kernels.decode_attention import (decode_attention_fwd,
+                                                      decode_attention_plain,
+                                                      lengths_for)
+    from repro_torch.kernels.rglru_scan import rglru_scan_fwd, rglru_scan_plain
+    from repro_torch.kernels.ssd_scan import ssd_scan_fwd, ssd_scan_plain
+    from repro_torch.kernels.stream import stream_triad_fwd, stream_triad_plain
+
+    decode_cases = [(STARCODER_CACHE, STARCODER_LENS), (STARCODER_CACHE, 1024),
+                    (STARCODER_CACHE, 2000),  # clamped to T
+                    (GRIFFIN_LOCAL, rng.integers(1, 2049, size=4).tolist()),
+                    ((4, 1024, 24, 2, 128), [0, 5, 300, 1024]),  # a row of length 0
+                    ((2, 512, 4, 2, 64), 300), ((1, 1024, 8, 8, 32), 1024),
+                    ((3, 300, 4, 1, 64), 17), ((4, 256, 4, 2, 64), [1, 17, 100, 256])]
+    ssd_cases = [(MAMBA, MAMBA_CHUNK, False), ((1, 2000, 48, 64, 1, 128), 256, False),
+                 ((1, 512, 48, 64, 1, 128), 256, True),
+                 ((1, 128, 2, 16, 1, 16), 32, False), ((2, 96, 4, 16, 2, 32), 32, False),
+                 ((1, 100, 2, 8, 2, 16), 64, False)]
+    rglru_cases = [GRIFFIN_LRU, (2, 130, 100), (1, 256, 128), (1, 64, 256)]
+    triad_cases = [STREAM_N, 70000, 65536, 1000]
+    for dtype in (torch.float32, torch.bfloat16):
+        for (B, T, H, KV, Dh), length in decode_cases:
+            q, k, v = _decode_inputs(torch, gen, B, T, H, KV, Dh, dtype)
+            if isinstance(length, list):
+                length = torch.tensor(length, dtype=torch.int32, device="cuda")
+            o = decode_attention_fwd(q, k, v, length)
+            torch.cuda.synchronize()
+            f32 = [x.float() for x in (q, k, v)]
+            shorter = (lengths_for(length, B, T, q.device) - 1).clamp_min(0)
+            record("decode_attention", [B, T, H, KV, Dh, length if isinstance(length, int)
+                                        else length.tolist()], dtype,
+                   o, decode_attention_plain(q, k, v, length),
+                   decode_attention_plain(*f32, length),
+                   decode_attention_plain(*f32, shorter))
+        for (B, S, H, P, G, N), chunk, steep in ssd_cases:
+            args = _ssd_inputs(torch, gen, B, S, H, P, G, N, dtype, steep)
+            y = ssd_scan_fwd(*args, chunk=chunk)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(y).all().item()), f"ssd_scan {B, S, H}: not finite")
+            f32 = [x.float() for x in args]
+            record("ssd_scan", [B, S, H, P, G, N, chunk] + (["steep"] if steep else []),
+                   dtype, y, ssd_scan_plain(*args, chunk=chunk),
+                   ssd_scan_plain(*f32, chunk=chunk), None)
+        for B, S, W in rglru_cases:
+            a, b = _rglru_inputs(torch, gen, B, S, W, dtype)
+            h = rglru_scan_fwd(a, b)
+            torch.cuda.synchronize()
+            record("rglru_scan", [B, S, W], dtype, h, rglru_scan_plain(a, b),
+                   rglru_scan_plain(a.float(), b.float()), None)
+        for N in triad_cases:
+            a, b = _triad_inputs(torch, gen, N, dtype)
+            o = stream_triad_fwd(a, b, 3.0)
+            torch.cuda.synchronize()
+            record("stream_triad", [N], dtype, o, stream_triad_plain(a, b, 3.0),
+                   stream_triad_plain(a.float(), b.float(), 3.0), None)
+            del a, b, o
+
+
+def _timing(torch, flush, shape, kernel, plain, library, nbytes, flops):
+    """One timing row: the kernel, its plain version and the library call
+    (None where there is none) on the same inputs, and the bound
+    (``flops``: {dtype: count}, each at its dtype's peak)."""
+    bound_ms, bound_by = _bound(nbytes, flops)
+    err = (kernel().float() - plain().float()).abs().max().item()
+    return {"shape": shape, "max_abs_err": err,
+            "ms": _time_ms(torch, kernel, flush),
+            "plain_ms": _time_ms(torch, plain, flush),
+            "library_ms": None if library is None else _time_ms(torch, library, flush),
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": flops}
+
+
+def _time_ops_kernels(torch, F, gen, flush):
+    """The four ops kernels at the full widths of phase 7, bf16; the triad
+    in fp32, as STREAM counts it, and in bf16."""
+    from repro_torch.kernels.decode_attention import (decode_attention_fwd,
+                                                      decode_attention_plain)
+    from repro_torch.kernels.rglru_scan import rglru_scan_fwd, rglru_scan_plain
+    from repro_torch.kernels.ssd_scan import ssd_scan_fwd, ssd_scan_plain
+    from repro_torch.kernels.stream import stream_triad_fwd, stream_triad_plain
+
+    bf16 = torch.bfloat16
+    out = {}
+    B, T, H, KV, Dh = STARCODER_CACHE
+    q, k, v = _decode_inputs(torch, gen, B, T, H, KV, Dh, bf16)
+    lens = torch.tensor(STARCODER_LENS, dtype=torch.int32, device="cuda")
+    qs = q[:, :, None]                                        # (B, H, 1, Dh)
+    ks, vs = (x.transpose(1, 2).contiguous() for x in (k, v))  # (B, KV, T, Dh)
+    mask = (torch.arange(T, device="cuda")[None, :]
+            < lens.long()[:, None])[:, None, None, :]
+    tokens = sum(STARCODER_LENS)
+    out["decode_attention"] = [_timing(
+        torch, flush, {"B": B, "T": T, "H": H, "KV": KV, "Dh": Dh,
+                       "lengths": STARCODER_LENS, "dtype": "bfloat16"},
+        lambda: decode_attention_fwd(q, k, v, lens),
+        lambda: decode_attention_plain(q, k, v, lens),
+        lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                               enable_gqa=True),
+        2 * 2 * B * H * Dh + 2 * 2 * tokens * KV * Dh + 4 * B,  # q, o, live K/V
+        {"bfloat16": 4 * Dh * H * tokens})]
+    B, S, H, P, G, N = MAMBA
+    args = _ssd_inputs(torch, gen, B, S, H, P, G, N, bf16)
+    flops, ways = _ssd_flops(S, H, P, N, B, MAMBA_CHUNK, "bfloat16")
+    out["ssd_scan"] = [_timing(
+        torch, flush, {"B": B, "S": S, "H": H, "P": P, "G": G, "N": N,
+                       "chunk": MAMBA_CHUNK, "dtype": "bfloat16"},
+        lambda: ssd_scan_fwd(*args, chunk=MAMBA_CHUNK),
+        lambda: ssd_scan_plain(*args, chunk=MAMBA_CHUNK), None,
+        2 * (2 * B * S * H * P + B * S * H + 2 * B * S * G * N) + 4 * H, flops)]
+    out["ssd_scan"][0]["ops_ms_by_way"] = {k: _ops_ms(f) for k, f in ways.items()}
+    B, S, W = GRIFFIN_LRU
+    a, b = _rglru_inputs(torch, gen, B, S, W, bf16)
+    out["rglru_scan"] = [_timing(
+        torch, flush, {"B": B, "S": S, "W": W, "dtype": "bfloat16"},
+        lambda: rglru_scan_fwd(a, b), lambda: rglru_scan_plain(a, b), None,
+        3 * 2 * B * S * W, {"float32": 2 * B * S * W})]
+    out["stream_triad"] = []
+    for dtype in (torch.float32, bf16):
+        ta, tb = _triad_inputs(torch, gen, STREAM_N, dtype)
+        # torch.add(alpha=) rounds once (an FMA), a + α·b twice: the same
+        # function only in fp32, so the yardstick is timed there alone
+        out["stream_triad"].append(_timing(
+            torch, flush, {"N": STREAM_N, "dtype": str(dtype)[6:], "alpha": 3.0},
+            lambda: stream_triad_fwd(ta, tb, 3.0),
+            lambda: stream_triad_plain(ta, tb, 3.0),
+            (lambda: torch.add(ta, tb, alpha=3.0)) if dtype == torch.float32 else None,
+            3 * ta.element_size() * STREAM_N, {"float32": 2 * STREAM_N}))
+        del ta, tb
+    return out
 
 
 # ------------------------------------------------------------------ phase 4
@@ -364,7 +615,8 @@ def phase_parity(torch, np):
         gpu_logits, gpu_tok = _path(torch, c, params, "cuda", prompts, steps,
                                     forced=ref_tok)
         counts = ops.launch_counts()
-        check(counts == {"flash_attention": 2, "paged_decode_attention": 2 * steps},
+        check(counts == {**dict.fromkeys(ops.KERNELS, 0), "flash_attention": 2,
+                         "paged_decode_attention": 2 * steps},
               f"parity: launches {counts}")
         errs = [(a - b).abs().max().item() for a, b in zip(gpu_logits, ref_logits)]
         scale = max(b.abs().max().item() for b in ref_logits)
@@ -457,6 +709,9 @@ def phase_serve(torch, np, card):
               f"serve: flash launches {launches['flash_attention']} != {L}×{prefills}")
         check(launches["paged_decode_attention"] == L * steps,
               f"serve: paged launches {launches['paged_decode_attention']} != {L}×{steps}")
+        others = {k: n for k, n in launches.items()
+                  if k not in ("flash_attention", "paged_decode_attention")}
+        check(not any(others.values()), f"serve: other kernels launched {others}")
 
         evs = trace.events()
         begins = {e[5]: e[3] for e in evs if e[0] == "b" and e[1] == "request"}
@@ -573,6 +828,88 @@ def phase_profile(torch, np, eng, card):
     REPORT["profile"] = out
 
 
+# ------------------------------------------------------------------ phase 7
+def phase_ops(torch, np, card, timings):
+    """The reference's single-source kernel API at full widths, then
+    STREAM from phase 3's triad timings: ops.stream_triad against torch's
+    native fp32 triad."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.decode_attention import decode_attention_plain
+    from repro_torch.kernels.rglru_scan import rglru_scan_plain
+    from repro_torch.kernels.ssd_scan import ssd_scan_plain
+    from repro_torch.kernels.stream import stream_triad_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    bf16 = torch.bfloat16
+    B, T, H, KV, Dh = STARCODER_CACHE
+    q, k, v = _decode_inputs(torch, gen, B, T, H, KV, Dh, bf16)
+    lens = torch.tensor(STARCODER_LENS, dtype=torch.int32, device="cuda")
+    ssd_args = _ssd_inputs(torch, gen, *MAMBA, bf16)
+    a, b = _rglru_inputs(torch, gen, *GRIFFIN_LRU, bf16)
+    triads = {"float32": _triad_inputs(torch, gen, STREAM_N, torch.float32),
+              "bfloat16": _triad_inputs(torch, gen, STREAM_N, bf16)}
+    torch.cuda.synchronize()
+
+    ops.reset_launch_counts()  # ← this slice's path starts here
+    o = ops.decode_attention(q, k, v, lens)
+    y = ops.ssd_scan(*ssd_args, chunk=MAMBA_CHUNK)
+    h = ops.rglru_scan(a, b)
+    triad_out = {name: ops.stream_triad(ta, tb, 3.0) for name, (ta, tb) in triads.items()}
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()  # ← and ends here
+
+    want = {"flash_attention": 0, "paged_decode_attention": 0, "decode_attention": 1,
+            "ssd_scan": 1, "rglru_scan": 1, "stream_triad": 2}
+    check(launches == want, f"ops: launches {launches} != {want}")
+    check(o.shape == q.shape and y.shape == ssd_args[0].shape and h.shape == a.shape,
+          "ops: output shapes")
+    f32 = lambda xs: [x.float() for x in xs]  # noqa: E731
+    plain = {  # (the plain version in bf16, in fp32) on the same inputs
+        "decode_attention": (decode_attention_plain(q, k, v, lens),
+                             decode_attention_plain(*f32((q, k, v)), lens)),
+        "ssd_scan": (ssd_scan_plain(*ssd_args, chunk=MAMBA_CHUNK),
+                     ssd_scan_plain(*f32(ssd_args), chunk=MAMBA_CHUNK)),
+        "rglru_scan": (rglru_scan_plain(a, b), rglru_scan_plain(*f32((a, b)))),
+    }
+    errs = {}
+    for name, out in (("decode_attention", o), ("ssd_scan", y), ("rglru_scan", h)):
+        e, e32 = plain[name]
+        check(bool(torch.isfinite(out).all().item()), f"ops: {name} not finite")
+        diff = (out.float() - e.float()).abs()
+        rtol = SSD_RTOL if name == "ssd_scan" else 0.0
+        row = _row_err(out, e32)
+        errs[name] = {"max_abs_err": diff.max().item(), "max_row_err": row}
+        check(bool((diff <= ABS_TOL[name]["bfloat16"] + rtol * e.float().abs()).all()),
+              f"ops: {name} max abs err {errs[name]['max_abs_err']}")
+        check(row <= ROW_TOL[name, "bfloat16"],
+              f"ops: {name} row err {row} (tol {ROW_TOL[name, 'bfloat16']})")
+    for name, (ta, tb) in triads.items():
+        check(torch.equal(triad_out[name], stream_triad_plain(ta, tb, 3.0)),
+              f"ops: stream_triad {name} differs from a + 3·b")
+
+    fp32_row, bf16_row = timings["stream_triad"]
+    rate = lambda nbytes, ms: nbytes / ms / 1e6  # noqa: E731  (GB/s)
+    stream = {"card": card, "N": STREAM_N, "from": "phase 3 timings",
+              "float32": {"ms": fp32_row["ms"], "GB_per_s": rate(fp32_row["bytes"],
+                                                                 fp32_row["ms"])},
+              "bfloat16": {"ms": bf16_row["ms"], "GB_per_s": rate(bf16_row["bytes"],
+                                                                  bf16_row["ms"])},
+              "native_float32": {"ms": fp32_row["library_ms"],
+                                 "GB_per_s": rate(fp32_row["bytes"],
+                                                  fp32_row["library_ms"])}}
+    stream["ratio_float32"] = (stream["float32"]["GB_per_s"]
+                               / stream["native_float32"]["GB_per_s"])
+    REPORT["ops"] = {"launches": launches, "bf16_errors": errs}
+    REPORT["stream"] = stream
+    log(f"[ops] launches {launches}; bf16 errors vs plain {errs}")
+    log(f"[stream] {card}: N = 2^27, triad fp32 {stream['float32']['GB_per_s']:.1f} GB/s "
+        f"({stream['float32']['ms']:.4f} ms), bf16 {stream['bfloat16']['GB_per_s']:.1f} GB/s "
+        f"({stream['bfloat16']['ms']:.4f} ms); native torch.add fp32 "
+        f"{stream['native_float32']['GB_per_s']:.1f} GB/s; ratio "
+        f"{stream['ratio_float32']:.4f}")
+    return launches
+
+
 # --------------------------------------------------------------------- main
 def main() -> int:
     import numpy as np
@@ -589,17 +926,23 @@ def main() -> int:
     timings = phase_kernels(torch, np)
     phase_parity(torch, np)
     launches = phase_serve(torch, np, card)
+    launches.update({k: n for k, n in phase_ops(torch, np, card, timings).items()
+                     if k not in ("flash_attention", "paged_decode_attention")})
 
     kernels = []
+    csrc, ref = "src/repro_torch/kernels/csrc/", "src/repro/kernels/"
     for name, source, replaces in (
-            ("flash_attention", "src/repro_torch/kernels/csrc/flash_attention.cu",
-             "src/repro/kernels/flash_attention.py:90"),
-            ("paged_decode_attention",
-             "src/repro_torch/kernels/csrc/paged_decode_attention.cu",
-             "src/repro/kernels/decode_attention.py:156")):
+            ("flash_attention", "flash_attention.cu", "flash_attention.py:90"),
+            ("paged_decode_attention", "paged_decode_attention.cu",
+             "decode_attention.py:156"),
+            ("decode_attention", "decode_attention.cu", "decode_attention.py:85"),
+            ("ssd_scan", "ssd_scan.cu", "ssd_scan.py:69"),
+            ("rglru_scan", "rglru_scan.cu", "rglru_scan.py:43"),
+            ("stream_triad", "stream.cu", "stream.py:24")):
         main_shape = timings[name][1 if name == "flash_attention" else 0]
         kernels.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "name": name, "route": "cuda", "source": csrc + source,
+            "replaces": ref + replaces,
             "launches": launches[name], "max_abs_err": main_shape["max_abs_err"],
             "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
             "bound_ms": main_shape["bound_ms"], "bound_by": main_shape["bound_by"],

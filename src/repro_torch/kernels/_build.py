@@ -27,8 +27,9 @@ from typing import Dict, List, Optional
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("flash_attention.cu", "paged_decode_attention.cu")
-HEADERS = ("common.cuh",)
+SOURCES = ("flash_attention.cu", "paged_decode_attention.cu", "decode_attention.cu",
+           "ssd_scan.cu", "rglru_scan.cu", "stream.cu")
+HEADERS = ("common.cuh", "decode_attention.cuh")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                        "-Xptxas", "-v"]
@@ -47,6 +48,14 @@ _SIGNATURES = {
     # q, k_pages, v_pages, page_table, lengths, o, B, H, KV, Dh, page, maxp,
     # dtype, stream
     "repro_paged_decode_attention_fwd": [_P] * 6 + [_I] * 7 + [_P],
+    # q, k, v, lengths, o, B, T, H, KV, Dh, dtype, stream
+    "repro_decode_attention_fwd": [_P] * 5 + [_I] * 6 + [_P],
+    # x, dt, A, Bm, Cm, y, B, S, H, P, G, N, chunk, dtype, stream
+    "repro_ssd_scan_fwd": [_P] * 6 + [_I] * 8 + [_P],
+    # a, b, h, B, S, W, dtype, stream
+    "repro_rglru_scan_fwd": [_P] * 3 + [_I] * 4 + [_P],
+    # a, b, o, n, alpha, dtype, stream
+    "repro_stream_triad": [_P] * 3 + [ctypes.c_longlong, ctypes.c_float, _I, _P],
 }
 
 
@@ -139,6 +148,32 @@ def library() -> ctypes.CDLL:
             lib.repro_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
+
+
+def check_tensors(what: str, like: torch.Tensor, named, dtype=None) -> None:
+    """Raise unless every (name, tensor) is contiguous on ``like``'s CUDA
+    device and, where ``dtype`` is given, has that dtype (a float dtype
+    must be one the kernels are instantiated for)."""
+    for name, t in named:
+        if t.device.type != "cuda" or t.device != like.device:
+            raise ValueError(f"{what}: {name} must be on the CUDA device of the "
+                             f"first input, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+        if dtype is not None and (t.dtype != dtype or (dtype.is_floating_point
+                                                       and dtype not in DTYPES)):
+            raise TypeError(f"{what}: {name} has dtype {t.dtype}; expected "
+                            f"{dtype} (floats: float32 or bfloat16)")
+
+
+def launch(entry: str, what: str, like: torch.Tensor, *args) -> None:
+    """Call the C entry point with ``args`` and PyTorch's current stream,
+    on ``like``'s device; raise if the launch returned a CUDA error."""
+    lib = library()
+    with torch.cuda.device(like.device):
+        err = getattr(lib, entry)(*args,
+                                  torch.cuda.current_stream(like.device).cuda_stream)
+    check(err, what)
 
 
 def check(err: int, what: str) -> None:

@@ -15,6 +15,9 @@ constexpr float kNegInf = -1e30f;
 constexpr int kFloat32 = 0;
 constexpr int kBFloat16 = 1;
 
+// Dynamic shared memory one block may opt into on Hopper (sm_90): 227 KB.
+constexpr size_t kMaxSmemBytes = 232448;
+
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 

@@ -89,13 +89,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q: (B,S,H,Dh), k/v: (B,S,KV,Dh), contiguous, on one CUDA device."""
     check_inputs(q, k, v, window, valid_len)
     B, S, H, Dh = q.shape
-    lib = _build.library()
     o = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.repro_flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            B, S, H, k.shape[2], Dh, int(causal), window, valid_len or S,
-            _build.DTYPES[q.dtype], stream)
-    _build.check(err, "flash_attention_fwd")
+    _build.launch("repro_flash_attention_fwd", "flash_attention_fwd", q,
+                  q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                  B, S, H, k.shape[2], Dh, int(causal), window, valid_len or S,
+                  _build.DTYPES[q.dtype])
     return o

@@ -1,4 +1,5 @@
-"""Public wrappers around the attention kernels.
+"""Public wrappers around the kernels: the port's counterpart of the
+reference's single-source kernel API, ``repro.kernels.ops``.
 
 Each wrapper dispatches on the device of the tensors it is given: a CPU
 tensor goes to the kernel's plain PyTorch version, a CUDA tensor to the
@@ -8,6 +9,11 @@ from one to the other.
 Every kernel wrapper counts its launches (:func:`launch_counts`), so a run
 can show that its main path went through the kernels; plain-version calls
 are not counted.
+
+The wrappers keep the reference's shapes and semantics but drop its TPU
+tile arguments (``block_q``, ``block_k``, ``block_s``, ``block_w``,
+``block``) and ``interpret``: the tiles never changed a result, and the
+kernels here choose their own.
 """
 
 from __future__ import annotations
@@ -17,12 +23,18 @@ from typing import Dict, Tuple
 
 import torch
 
-from repro_torch.kernels.decode_attention import (paged_decode_attention_fwd,
+from repro_torch.kernels.decode_attention import (decode_attention_fwd,
+                                                  decode_attention_plain,
+                                                  paged_decode_attention_fwd,
                                                   paged_decode_attention_plain)
 from repro_torch.kernels.flash_attention import (flash_attention_fwd,
                                                  flash_attention_plain)
+from repro_torch.kernels.rglru_scan import rglru_scan_fwd, rglru_scan_plain
+from repro_torch.kernels.ssd_scan import ssd_scan_fwd, ssd_scan_plain
+from repro_torch.kernels.stream import stream_triad_fwd, stream_triad_plain
 
-KERNELS = ("flash_attention", "paged_decode_attention")
+KERNELS = ("flash_attention", "paged_decode_attention", "decode_attention",
+           "ssd_scan", "rglru_scan", "stream_triad")
 _launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
 _launch_lock = threading.Lock()  # prefill and decode launch from different threads
 
@@ -67,6 +79,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return o
 
 
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     length) -> torch.Tensor:
+    """One-token decode over a dense cache.
+
+    q: (B,H,Dh), k/v: (B,T,KV,Dh) → (B,H,Dh).  ``length`` is the valid
+    cache prefix: an int or 0-d tensor (uniform fill) or a (B,) tensor
+    (every slot at its own depth), clamped to T.  A slot of length 0 gives
+    zeros, as the reference's kernel does.  The kernel reads each K/V head
+    once for its G query heads; nothing is repeated or padded."""
+    if not _route(q, "decode_attention"):
+        return decode_attention_plain(q, k, v, length)
+    o = decode_attention_fwd(q, k, v, length)
+    _count("decode_attention")
+    return o
+
+
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, page_table: torch.Tensor,
                            lengths: torch.Tensor) -> torch.Tensor:
@@ -81,6 +109,41 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                                             lengths)
     o = paged_decode_attention_fwd(q, k_pages, v_pages, page_table, lengths)
     _count("paged_decode_attention")
+    return o
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int = 256) -> torch.Tensor:
+    """Mamba-2 SSD scan.  x: (B,S,H,P), dt: (B,S,H), A: (H,) float32,
+    Bm/Cm: (B,S,G,N) → y (B,S,H,P).
+
+    ``chunk`` (clipped to S, as the reference does) is where the fp32 state
+    is carried from one chunk to the next; mamba2_780m sets 256, the
+    kernel takes 1–256."""
+    chunk = min(chunk, x.shape[1])
+    if not _route(x, "ssd_scan"):
+        return ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk)
+    y = ssd_scan_fwd(x, dt, A, Bm, Cm, chunk=chunk)
+    _count("ssd_scan")
+    return y
+
+
+def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t·h_{t-1} + b_t from h_0 = 0, fp32 carry.
+    a/b: (B,S,W) → (B,S,W) in a's dtype."""
+    if not _route(a, "rglru_scan"):
+        return rglru_scan_plain(a, b)
+    h = rglru_scan_fwd(a, b)
+    _count("rglru_scan")
+    return h
+
+
+def stream_triad(a: torch.Tensor, b: torch.Tensor, alpha: float = 3.0) -> torch.Tensor:
+    """STREAM triad a + alpha·b over (N,), rounded as ``a + alpha * b``."""
+    if not _route(a, "stream_triad"):
+        return stream_triad_plain(a, b, alpha)
+    o = stream_triad_fwd(a, b, alpha)
+    _count("stream_triad")
     return o
 
 

@@ -1,50 +1,58 @@
-"""Plain PyTorch oracles for the attention kernels (the ground truth in
-tests), ported from the reference's ``kernels/ref.py``.
+"""Plain PyTorch oracles (the ground truth in tests), ported from the
+reference's ``kernels/ref.py``.
 
-Deliberately naive: quadratic attention, fp32 math, ``-inf`` masks.
+Deliberately naive: O(S) sequential recurrences in fp32, no blocking
+tricks.  The attention kernels' oracles are their plain versions
+(``flash_attention_plain``, ``decode_attention_plain``), held against the
+reference's ``ref.mha`` and ``ref.decode_mha`` in the tests.
 """
 
 from __future__ import annotations
 
-import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 
-def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
-        window: int = 0) -> torch.Tensor:
-    """q: (B,S,H,Dh), k/v: (B,S,KV,Dh), GQA via H % KV == 0. fp32 math."""
-    B, S, H, Dh = q.shape
-    KV = k.shape[2]
-    G = H // KV
-    qf = q.float().reshape(B, S, KV, G, Dh)
-    s = torch.einsum("bqkgd,btkd->bkgqt", qf, k.float()) / math.sqrt(Dh)
-    if causal:
-        qpos = torch.arange(S, device=q.device)[:, None]
-        kpos = torch.arange(S, device=q.device)[None, :]
-        ok = kpos <= qpos
-        if window > 0:
-            ok &= kpos > qpos - window
-        s = s.masked_fill(~ok, float("-inf"))
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgqt,btkd->bqkgd", p, v.float())
-    return o.reshape(B, S, H, Dh).to(q.dtype)
+def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+        Cm: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sequential SSD recurrence (the O(S) definition).
+
+    x: (B,S,H,P), dt: (B,S,H), A: (H,) negative, Bm/Cm: (B,S,G,N).
+    h_t = h_{t-1}·exp(dt_t·A) + dt_t·B_t⊗x_t ;  y_t = C_t·h_t
+    Returns (y (B,S,H,P) in x's dtype, final state (B,H,P,N) fp32).
+    """
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    rep = H // G
+    xf, dtf, Af = x.float(), dt.float(), A.float()
+    Bf = Bm.float().repeat_interleave(rep, dim=2)
+    Cf = Cm.float().repeat_interleave(rep, dim=2)
+    h = torch.zeros(Bsz, H, P, N, dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(S):
+        decay = torch.exp(dtf[:, t] * Af[None, :])  # (B,H)
+        upd = torch.einsum("bh,bhn,bhp->bhpn", dtf[:, t], Bf[:, t], xf[:, t])
+        h = h * decay[:, :, None, None] + upd
+        ys.append(torch.einsum("bhpn,bhn->bhp", h, Cf[:, t]))
+    return torch.stack(ys, dim=1).to(x.dtype), h
 
 
-def decode_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-               length: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One-token decode. q: (B,H,Dh), k/v: (B,T,KV,Dh); positions >= length
-    masked (length scalar or (B,)). fp32 math."""
-    B, H, Dh = q.shape
-    T, KV = k.shape[1], k.shape[2]
-    G = H // KV
-    qf = q.float().reshape(B, KV, G, Dh)
-    s = torch.einsum("bkgd,btkd->bkgt", qf, k.float()) / math.sqrt(Dh)
-    if length is not None:
-        lens = torch.as_tensor(length, device=q.device).broadcast_to((B,))
-        mask = torch.arange(T, device=q.device)[None, :] < lens[:, None]
-        s = s.masked_fill(~mask[:, None, None, :], float("-inf"))
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgt,btkd->bkgd", p, v.float())
-    return o.reshape(B, H, Dh).to(q.dtype)
+def rglru(a: torch.Tensor, b: torch.Tensor,
+          h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Sequential linear recurrence h_t = a_t·h_{t-1} + b_t, fp32 carry,
+    each h_t written in a's dtype. a/b: (B,S,W)."""
+    B, S, W = a.shape
+    h = (torch.zeros(B, W, dtype=torch.float32, device=a.device) if h0 is None
+         else h0.float())
+    out = torch.empty_like(a)
+    for t in range(S):
+        h = a[:, t].float() * h + b[:, t].float()
+        out[:, t] = h
+    return out
+
+
+def triad(a: torch.Tensor, b: torch.Tensor, alpha: float) -> torch.Tensor:
+    """STREAM triad: a + alpha·b (the product rounded to the dtype, then
+    the sum)."""
+    return a + alpha * b

@@ -1,0 +1,86 @@
+"""Mamba-2 SSD chunked scan: the Hopper kernel's launcher and its plain
+PyTorch version.
+
+The kernel (``csrc/ssd_scan.cu``) replaces the reference's TPU kernel
+``repro/kernels/ssd_scan.py::ssd_scan_fwd``.  It takes the public layouts
+— x (B, S, H, P), dt (B, S, H), A (H,) fp32, B/C (B, S, G, N) — reads A by
+head and B/C by group (h // (H/G)), and masks the ragged last chunk, so
+nothing is tiled, repeated or padded as the reference's wrapper does.
+
+Per chunk of ``chunk`` steps, with cum the inclusive cumsum of dt·A in
+the chunk and S the fp32 (N, P) state carried across chunks:
+    y_i = Σ_{j≤i} (C_i·B_j)·exp(cum_i − cum_j)·dt_j·x_j + exp(cum_i)·C_i·S
+    S  ← S·exp(cum_end) + Σ_j exp(cum_end − cum_j)·dt_j·B_j ⊗ x_j
+The chunk decides where the state is carried, so it changes the sums'
+order (not the function): the plain version uses the same chunks.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+
+MAX_CHUNK = 256  # csrc: one scan element per thread
+
+
+def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                   Bm: torch.Tensor, Cm: torch.Tensor, *,
+                   chunk: int = 256) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: the same chunked dual form in
+    fp32, all (batch, head) rows at once.  → y (B,S,H,P) in x's dtype."""
+    B, S, H, P = x.shape
+    G = Bm.shape[2]
+    rep = H // G
+    xf, dtf, Af = x.float(), dt.float(), A.float()
+    Bf = Bm.float().repeat_interleave(rep, dim=2)  # (B,S,H,N)
+    Cf = Cm.float().repeat_interleave(rep, dim=2)
+    state = torch.zeros(B, H, Bm.shape[3], P, dtype=torch.float32, device=x.device)
+    ys = []
+    for t0 in range(0, S, chunk):
+        sl = slice(t0, min(t0 + chunk, S))
+        d = dtf[:, sl].transpose(1, 2)                     # (B,H,Q)
+        cum = torch.cumsum(d * Af[None, :, None], dim=-1)  # (B,H,Q)
+        Q = cum.shape[-1]
+        later = torch.ones(Q, Q, dtype=torch.bool, device=x.device).triu(1)
+        # exp(cum_i − cum_j) only for j ≤ i; above the diagonal exp(−inf) = 0
+        L = (cum[..., :, None] - cum[..., None, :]).masked_fill(later, -torch.inf).exp()
+        scores = torch.einsum("bihn,bjhn->bhij", Cf[:, sl], Bf[:, sl]) * L * d[..., None, :]
+        y = torch.einsum("bhij,bjhp->bihp", scores, xf[:, sl])
+        y = y + torch.exp(cum).transpose(1, 2)[..., None] * torch.einsum(
+            "bihn,bhnp->bihp", Cf[:, sl], state)
+        w = torch.exp(cum[..., -1:] - cum) * d             # (B,H,Q)
+        state = state * torch.exp(cum[..., -1])[..., None, None] + torch.einsum(
+            "bhj,bjhn,bjhp->bhnp", w, Bf[:, sl], xf[:, sl])
+        ys.append(y)
+    return torch.cat(ys, dim=1).to(x.dtype)
+
+
+def ssd_scan_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 Bm: torch.Tensor, Cm: torch.Tensor, *,
+                 chunk: int = 256) -> torch.Tensor:
+    """Launch the CUDA kernel on PyTorch's current stream.  x (B,S,H,P),
+    dt (B,S,H), Bm/Cm (B,S,G,N) in one dtype, A (H,) float32, all
+    contiguous on one CUDA device; 1 ≤ chunk ≤ 256.  A state (N, P) too
+    large for one block's shared memory makes the launch raise."""
+    what = "ssd_scan_fwd"
+    _build.check_tensors(what, x, (("x", x), ("dt", dt), ("Bm", Bm), ("Cm", Cm)),
+                         x.dtype)
+    _build.check_tensors(what, x, (("A", A),), torch.float32)
+    if x.dim() != 4 or Bm.dim() != 4 or Bm.shape != Cm.shape:
+        raise ValueError(f"{what}: bad shapes x {tuple(x.shape)}, Bm "
+                         f"{tuple(Bm.shape)}, Cm {tuple(Cm.shape)}")
+    B, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    if tuple(dt.shape) != (B, S, H) or tuple(A.shape) != (H,) \
+            or Bm.shape[:2] != (B, S) or H % G != 0:
+        raise ValueError(f"{what}: x {tuple(x.shape)}, dt {tuple(dt.shape)}, A "
+                         f"{tuple(A.shape)}, Bm {tuple(Bm.shape)} do not fit together")
+    if not 1 <= chunk <= MAX_CHUNK or B > 65535:
+        raise ValueError(f"{what}: chunk {chunk} (1–{MAX_CHUNK}) or batch {B} out "
+                         f"of range")
+    y = torch.empty_like(x)
+    _build.launch("repro_ssd_scan_fwd", what, x, x.data_ptr(), dt.data_ptr(),
+                  A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), y.data_ptr(), B, S, H,
+                  P, G, N, chunk, _build.DTYPES[x.dtype])
+    return y

@@ -85,21 +85,42 @@ def test_launcher_refuses_cpu_without_flag(no_cuda):
 
 def test_wrappers_never_fall_back(no_cuda):
     from repro_torch.kernels import ops
-    from repro_torch.kernels.decode_attention import paged_decode_attention_fwd
+    from repro_torch.kernels.decode_attention import (decode_attention_fwd,
+                                                      paged_decode_attention_fwd)
     from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.rglru_scan import rglru_scan_fwd
+    from repro_torch.kernels.ssd_scan import ssd_scan_fwd
+    from repro_torch.kernels.stream import stream_triad_fwd
 
     m = torch.empty(1, 16, 2, 16, device="meta")
+    h = torch.empty(2, device="meta")
     with pytest.raises(ValueError, match="no kernel for device"):
         ops.flash_attention(m, m, m)
     with pytest.raises(ValueError, match="no kernel for device"):
         ops.paged_decode_attention(m[:, 0], m, m, m[:, :, 0, 0].int(),
                                    m[:, 0, 0, 0].int())
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ops.decode_attention(m[:, 0], m, m, 3)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ops.ssd_scan(m, m[..., 0], h, m, m)
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ops.rglru_scan(m[0], m[0])
+    with pytest.raises(ValueError, match="no kernel for device"):
+        ops.stream_triad(m[0, 0, 0], m[0, 0, 0])
     x = torch.zeros(1, 16, 2, 16)  # CPU tensors never reach a kernel
     with pytest.raises(ValueError, match="CUDA device"):
         flash_attention_fwd(x, x, x)
     with pytest.raises(ValueError, match="CUDA device"):
         paged_decode_attention_fwd(x[:, 0], x, x, torch.zeros(1, 1, dtype=torch.int32),
                                    torch.ones(1, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA device"):
+        decode_attention_fwd(x[:, 0], x, x, 3)
+    with pytest.raises(ValueError, match="CUDA device"):
+        ssd_scan_fwd(x, x[..., 0], torch.zeros(2), x, x)
+    with pytest.raises(ValueError, match="CUDA device"):
+        rglru_scan_fwd(x[0], x[0])
+    with pytest.raises(ValueError, match="CUDA device"):
+        stream_triad_fwd(x[0, 0, 0], x[0, 0, 0])
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

@@ -16,7 +16,9 @@ import torch
 from repro.kernels import ops as rops
 from repro.kernels import ref as rref
 from repro.kernels.flash_attention import flash_attention_fwd as r_flash_fwd
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ops
+from repro_torch.kernels.decode_attention import decode_attention_plain
+from repro_torch.kernels.flash_attention import flash_attention_plain
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -52,9 +54,8 @@ def test_flash_attention_matches_reference(B, S, H, KV, Dh, dtype, causal):
     o = ops.flash_attention(qt, kt, vt, causal=causal)
     assert o.shape == (B, S, H, Dh) and o.dtype == qt.dtype
     _close(o, rops.flash_attention(qj, kj, vj, causal=causal), _tol(dtype))
-    _close(o, rref.mha(qj, kj, vj, causal=causal), _tol(dtype))
-    _close(ref.mha(qt, kt, vt, causal=causal), rref.mha(qj, kj, vj, causal=causal),
-           _tol(dtype))
+    _close(flash_attention_plain(qt, kt, vt, causal=causal),
+           rref.mha(qj, kj, vj, causal=causal), _tol(dtype))
 
 
 def test_flash_attention_window():
@@ -138,7 +139,8 @@ def test_paged_decode_attention_matches_reference(B, H, KV, Dh, page, maxp, dtyp
     _close(o, rops.paged_decode_attention(qj, kpj, vpj, jnp.asarray(perm),
                                           jnp.asarray(lens)), _tol(dtype))
     _close(o, rref.decode_mha(qj, kj, vj, length=jnp.asarray(lens)), _tol(dtype))
-    _close(ref.decode_mha(qt, kt, vt, length=torch.from_numpy(lens)),
+    # the paged plain version is the dense one on the gathered pages
+    _close(decode_attention_plain(qt, kt, vt, torch.from_numpy(lens)),
            rref.decode_mha(qj, kj, vj, length=jnp.asarray(lens)), _tol(dtype))
 
 
@@ -162,4 +164,11 @@ def test_cpu_wrappers_count_no_launches():
     ops.reset_launch_counts()
     x = torch.zeros(1, 16, 2, 16)
     ops.flash_attention(x, x, x)
-    assert ops.launch_counts() == {"flash_attention": 0, "paged_decode_attention": 0}
+    ops.decode_attention(x[:, 0], x, x, 3)
+    ops.ssd_scan(x, x[..., 0], torch.zeros(2), x, x)
+    ops.rglru_scan(x[0], x[0])
+    ops.stream_triad(x[0, 0, 0], x[0, 0, 0])
+    assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
+    assert set(ops.KERNELS) == {"flash_attention", "paged_decode_attention",
+                                "decode_attention", "ssd_scan", "rglru_scan",
+                                "stream_triad"}
