@@ -1,0 +1,151 @@
+#!/usr/bin/env python3
+"""Paired timing of two checkouts of the repo on one GPU, in turns.
+
+    python3 chip_pair.py A B              # turns A, B, B, A
+    python3 chip_pair.py A B --rounds 2   # A, B, B, A, A, B, B, A
+    python3 chip_pair.py A B --serve      # ... each also serving (phases 5-6)
+    python3 chip_pair.py A B --sweep      # ... B's turns also sweep split counts
+
+A and B are roots of two checkouts (for example a parent commit unpacked
+with ``git archive`` beside this one).  Each turn runs in its own process
+from that checkout's root and with that checkout's own ``chip_smoke.py``
+helpers: it builds the checkout's kernels, then times the port's three
+attention kernels at the serving path's shapes (bf16; ``_time_ms``: CUDA
+events, L2 flushed, median of 25, device time only): flash at S=512, paged
+decode at B=8 with lengths 16-576 and pages of 16, dense decode at
+starcoder2_3b's cache with ``STARCODER_LENS``; and each one's host time
+per call (the median over 5 batches of 200 calls enqueued back to back).
+With ``--serve`` it also runs phase 5 (the 18-request serving run) and
+phase 6 (the decode-step profile).  With ``--sweep``, each turn whose
+checkout chooses its decode split count in
+``decode_attention.split_plan`` also times the paged kernel with that
+count forced to 1, 4, 8, 16, 32 and 64 (each made whole: no split left
+empty by the extent) at the serving shape and at a 16,384-token context,
+and with every length 0 (every block empty: the call's fixed cost).  Two
+versions are compared only within one such call, since cards differ in
+power limit and neighbours.
+
+Prints one JSON line per turn, then a JSON summary as the last line; the
+summary is also written to ``chiprun_out/chip_pair.json``.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+TURN = r"""
+import json, statistics, sys, time, torch, numpy as np
+sys.path[:0] = [".", "src"]
+import chip_smoke as c
+from repro_torch.kernels import decode_attention as da
+from repro_torch.kernels.decode_attention import (decode_attention_fwd,
+                                                  paged_decode_attention_fwd)
+from repro_torch.kernels.flash_attention import flash_attention_fwd
+
+card = c.phase_device(torch)
+c.phase_build()
+gen = torch.Generator(device="cuda").manual_seed(c.SEED)
+rng = np.random.default_rng(c.SEED)
+flush = torch.empty(16 * 1024 * 1024, dtype=torch.float32, device="cuda")
+bf16 = torch.bfloat16
+out = {"card": card}
+
+
+def enqueue_us(fn, n=200, batches=5):
+    per = []
+    for _ in range(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        per.append((time.perf_counter() - t0) / n * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(per)
+
+
+q, k, v = c._flash_inputs(torch, gen, 1, 512, 24, 2, 128, bf16)
+out["flash_s512_ms"] = c._time_ms(torch, lambda: flash_attention_fwd(q, k, v), flush)
+out["flash_enqueue_us"] = enqueue_us(lambda: flash_attention_fwd(q, k, v))
+serving = rng.integers(16, 577, size=8).tolist()
+args = c._paged_inputs(torch, gen, serving, 24, 2, 128, 16, 64, bf16)
+out["paged_b8_ms"] = c._time_ms(torch, lambda: paged_decode_attention_fwd(*args), flush)
+out["paged_enqueue_us"] = enqueue_us(lambda: paged_decode_attention_fwd(*args))
+q, k, v = c._decode_inputs(torch, gen, 8, 1024, 24, 2, 128, bf16)
+lens = torch.tensor(c.STARCODER_LENS, dtype=torch.int32, device="cuda")
+out["dense_b8_t1024_ms"] = c._time_ms(torch, lambda: decode_attention_fwd(q, k, v, lens),
+                                      flush)
+out["dense_enqueue_us"] = enqueue_us(lambda: decode_attention_fwd(q, k, v, lens))
+if SERVE:
+    del q, k, v, args
+    c.phase_serve(torch, np, card)
+    serve, step = c.REPORT["serve"], c.REPORT["profile"]["decode_step_b8"]
+    out.update(tokens_per_s=serve["tokens_per_s"],
+               decode_step_p50_ms=serve["decode_step_p50_s"] * 1e3,
+               step_wall_ms=step["wall_ms"], step_device_ms=step["device_ms"],
+               step_kernels=step.get("kernels_per_call"))
+if SWEEP and hasattr(da, "split_plan"):
+    plan = da.split_plan
+    for name, lens, maxp in (("serving", serving, 64), ("long", [c.LONG_CONTEXT] * 8,
+                                                         c.LONG_CONTEXT // 16),
+                             ("lengths_0", [0] * 8, 64)):
+        a = c._paged_inputs(torch, gen, lens, 24, 2, 128, 16, maxp, bf16)
+        fn = lambda: paged_decode_attention_fwd(*a)  # noqa: E731
+        row = {"chosen_splits": c._splits(torch, 8, 24, 2, maxp, 16),
+               "ms": c._time_ms(torch, fn, flush)}
+        if name != "lengths_0":
+            for want in (1, 4, 8, 16, 32, 64):
+                tps = da.tiles_per_split(maxp, want)
+                n = -(-maxp // tps)
+                da.split_plan = lambda *_, n=n, tps=tps: (n, tps)
+                row[f"ms_at_{n}_splits"] = c._time_ms(torch, fn, flush)
+            da.split_plan = plan
+        out[f"sweep_paged_{name}"] = row
+        del a
+print(json.dumps(out))
+"""
+
+
+def main() -> int:
+    argv = sys.argv[1:]
+    rounds = 1
+    if "--rounds" in argv:
+        i = argv.index("--rounds")
+        rounds = int(argv[i + 1])
+        del argv[i:i + 2]
+    args = [a for a in argv if not a.startswith("--")]
+    serve, sweep = "--serve" in argv, "--sweep" in argv
+    if len(args) != 2 or rounds < 1:
+        print(__doc__, file=sys.stderr)
+        return 2
+    roots = {"A": Path(args[0]).resolve(), "B": Path(args[1]).resolve()}
+    turns = []
+    for name in "ABBA" * rounds:
+        root = roots[name]
+        r = subprocess.run([sys.executable, "-c",
+                            f"SERVE = {serve}\nSWEEP = {sweep}\n" + TURN],
+                           cwd=root, capture_output=True, text=True, timeout=1200)
+        if r.returncode != 0:
+            print(r.stdout[-4000:], r.stderr[-4000:], sep="\n", file=sys.stderr)
+            return 1
+        turn = {"turn": name, "root": str(root), **json.loads(r.stdout.splitlines()[-1])}
+        print(json.dumps(turn), flush=True)
+        turns.append(turn)
+    summary = {"turns": turns}
+    for key in turns[0]:
+        if key.endswith(("_ms", "_us")) or key == "tokens_per_s":
+            a = [t[key] for t in turns if t["turn"] == "A"]
+            b = [t[key] for t in turns if t["turn"] == "B"]
+            if None not in a + b:
+                summary[key] = {"A": a, "B": b, "B_over_A": sum(b) / sum(a)}
+    out = Path(__file__).resolve().parent / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "chip_pair.json").write_text(json.dumps(summary, indent=1))
+    print(json.dumps({k: v for k, v in summary.items() if k != "turns"}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -14,16 +14,26 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    valid_len < S; decode B=8 with mixed lengths, pages of 16); dense decode
    at starcoder2_3b's cache (B=8, T=1024; per-row, scalar and clamped
    lengths; a row of length 0) and recurrentgemma_2b's local attention
-   (B=4, T=2048, H=10, KV=1, Dh=256); the SSD scan at mamba2_780m (S=2048,
-   H=48, P=64, N=128, chunk 256; ragged S=2000; a steep decay); the RG-LRU
-   scan at recurrentgemma_2b (S=2048, W=2560); the triad at N = 2²⁷.
+   (B=4, T=2048, H=10, KV=1, Dh=256); both decode kernels also at their
+   split edges (lengths on an edge of ``decode_splits``'s ranges and ±1, a
+   lone long request, requests all shorter than one split, and a cache
+   small enough for one split), at 20 query heads per KV head (two
+   m-tiles), with pages of 24 and 128 tokens, and with splits that walk
+   4–16 chunks (a batch of 32 at the serving shape, 40 requests of
+   recurrentgemma_2b's local attention, every request at starcoder2_3b's
+   16,384-token context); the SSD scan at
+   mamba2_780m (S=2048, H=48, P=64, N=128, chunk 256; ragged S=2000; a
+   steep decay); the RG-LRU scan at recurrentgemma_2b (S=2048, W=2560);
+   the triad at N = 2²⁷.
    Limits: absolute ``test_kernels.py::_tol`` × 4 (SSD × 8 with rtol
    1e-2; the triad exact) and a tight limit on each output row's relative
    error (``ROW_TOL``), which an off-by-one length is shown to break; then
    each kernel timed (CUDA events, L2 flushed, median of 25, device time
    only: see ``_time_ms``) beside its plain version, its bound and, where
    one PyTorch call computes the same function, that call as a yardstick;
-   the triad at N = 2²⁷ in fp32 and bf16 gives STREAM's GB/s.
+   both decode kernels also at a long context (B=8, every request at
+   starcoder2_3b's 16,384 tokens), and each decode row names its split
+   count; the triad at N = 2²⁷ in fp32 and bf16 gives STREAM's GB/s.
 4. Path parity — starcoder2_3b at full width and 2 layers, the same params
    on the card and on the CPU: prefill + 4 paged decode steps; fp32 (TF32
    off) logits and greedy tokens, then bf16 logits.
@@ -35,8 +45,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    30 × decode steps (and the other four kernels never); reports
    tokens/s, TTFT p50, decode-step p50 and peak device memory.
 6. Profile — where one decode step (B=8) and one 512-token prefill spend
-   their time: wall vs device kernel time (``torch.profiler``), outside
-   the engine's threads.
+   their time: wall vs device kernel time (``torch.profiler``), and the
+   decode-attention kernels' share, outside the engine's threads.
 7. Ops and STREAM — the reference's single-source kernel API
    (``repro_torch.kernels.ops``) at full widths, once each:
    ``decode_attention`` on starcoder2_3b's dense cache, ``ssd_scan`` at
@@ -197,6 +207,13 @@ def _bound(nbytes: float, flops: dict):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def _splits(torch, B, H, KV, extent_tiles, tile) -> int:
+    """The split count the decode wrappers choose for this shape on this card."""
+    from repro_torch.kernels.decode_attention import split_plan
+
+    return split_plan(B, KV, extent_tiles, tile, H // KV, torch.cuda.current_device())[0]
+
+
 def _row_err(o, e) -> float:
     """The worst row's ‖o − e‖₂ / ‖e‖₂, rows along the last dim."""
     o, e = o.float(), e.float()
@@ -225,7 +242,8 @@ def phase_kernels(torch, np):
 
     from repro_torch.kernels import ops
     from repro_torch.kernels.decode_attention import (paged_decode_attention_fwd,
-                                                      paged_decode_attention_plain)
+                                                      paged_decode_attention_plain,
+                                                      split_ranges)
     from repro_torch.kernels.flash_attention import (flash_attention_fwd,
                                                      flash_attention_plain)
 
@@ -282,6 +300,29 @@ def phase_kernels(torch, np):
                                        (1, 8, 1, 64, 64, 4)]:
         paged_cases.append((rng.integers(1, page * maxp + 1, size=B).tolist(),
                             H, KV, Dh, page, maxp))
+    # the split edges at the serving shape (decode_splits: 16 splits of 4
+    # pages on 132 SMs): lengths on an edge and ±1, a lone long request
+    # among length-1 ones, requests all shorter than one split; and a
+    # 4-page table, which takes one split
+    edge = 16 * split_ranges(64, _splits(torch, 8, 24, 2, 64, 16))[0][1]
+    paged_cases += [([edge - 1, edge, edge + 1, 2 * edge - 1, 2 * edge, 2 * edge + 1,
+                      1024 - edge, 1024], 24, 2, 128, 16, 64),
+                    ([1000] + [1] * 7, 24, 2, 128, 16, 64),
+                    ([1, 2, 3, 5, 8, 13, edge - 2, edge - 1], 24, 2, 128, 16, 64),
+                    ([1, 17, 40, 64], 24, 2, 128, 16, 4)]
+    # groups above 16 (two m-tiles, the second partial), pages that do not
+    # divide a 64-token chunk, and pages longer than one
+    paged_cases += [([0, 25, 200, 288], 40, 2, 64, 24, 12),
+                    ([1, 130, 511], 8, 1, 32, 128, 4)]
+    # splits that walk many chunks, so that the in-loop prefetch runs and
+    # the ring of STAGES chunk buffers wraps: a batch of 32 at the serving
+    # shape (4 splits of 256 tokens on 132 SMs) and the long context (16
+    # splits of 1,024 tokens), lengths on and beside split and chunk edges
+    paged_cases += [([1, 63, 64, 65, 255, 256, 257, 511, 512, 513, 767, 768, 769, 1023,
+                      1024] + rng.integers(1, 1025, size=17).tolist(),
+                     24, 2, 128, 16, 64),
+                    ([LONG_CONTEXT, LONG_CONTEXT - 1, 1025, 1024, 9000, 5, 12345, 16000],
+                     24, 2, 128, 16, LONG_CONTEXT // 16)]
     for dtype in (torch.float32, torch.bfloat16):
         for (B, S, H, KV, Dh), causal, window, vl in flash_cases:
             q, k, v = _flash_inputs(torch, gen, B, S, H, KV, Dh, dtype)
@@ -302,7 +343,9 @@ def phase_kernels(torch, np):
             o = paged_decode_attention_fwd(q, kp, vp, pt, lengths)
             torch.cuda.synchronize()
             f32 = [x.float() for x in (q, kp, vp)]
-            record("paged_decode_attention", [len(lens), H, KV, Dh, page, maxp], dtype,
+            splits = _splits(torch, len(lens), H, KV, maxp, page)
+            record("paged_decode_attention", [len(lens), H, KV, Dh, page, maxp, lens,
+                                              f"splits {splits}"], dtype,
                    o, paged_decode_attention_plain(q, kp, vp, pt, lengths),
                    paged_decode_attention_plain(*f32, pt, lengths),
                    paged_decode_attention_plain(*f32, pt, (lengths - 1).clamp_min(1)))
@@ -333,19 +376,11 @@ def phase_kernels(torch, np):
             {"bfloat16": 4 * Dh * H * B * S * (S + 1) / 2}))  # causal pairs
     B, H, KV, Dh, page, maxp = 8, 24, 2, 128, 16, 64
     lens = rng.integers(16, 577, size=B).tolist()   # prompts 16–512 + 64 new
-    args = _paged_inputs(torch, gen, lens, H, KV, Dh, page, maxp, bf16)
-    tokens = sum(lens)
-    npages = sum(-(-n // page) for n in lens)
-    timings["paged_decode_attention"].append(_timing(
-        torch, flush, {"B": B, "H": H, "KV": KV, "Dh": Dh, "page": page, "maxp": maxp,
-                       "lengths": lens, "dtype": "bfloat16"},
-        lambda: paged_decode_attention_fwd(*args),
-        lambda: paged_decode_attention_plain(*args),
-        None,  # no single PyTorch call does paged attention
-        (2 * 2 * B * H * Dh            # q and o
-         + 2 * 2 * tokens * KV * Dh    # live K and V
-         + 4 * npages + 4 * B),        # page-table entries walked, lengths
-        {"bfloat16": 4 * Dh * H * tokens}))
+    timings["paged_decode_attention"].append(_paged_timing(
+        torch, flush, gen, lens, H, KV, Dh, page, maxp))
+    # long context: every request at starcoder2-3b's 16,384 tokens
+    timings["paged_decode_attention"].append(_paged_timing(
+        torch, flush, gen, [LONG_CONTEXT] * B, H, KV, Dh, page, LONG_CONTEXT // page))
     timings.update(_time_ops_kernels(torch, F, gen, flush))
     REPORT["kernel_timings"] = timings
     for name, rows in timings.items():
@@ -361,6 +396,7 @@ def phase_kernels(torch, np):
 # local attention (window 2048) and RG-LRU width, mamba2_780m's SSD heads
 STARCODER_CACHE = (8, 1024, 24, 2, 128)                   # B, T, H, KV, Dh
 STARCODER_LENS = [1, 17, 300, 511, 512, 700, 1000, 1024]
+LONG_CONTEXT = 16384          # starcoder2-3b's context (arXiv:2402.19173)
 GRIFFIN_LOCAL = (4, 2048, 10, 1, 256)
 GRIFFIN_LRU = (1, 2048, 2560)                             # B, S, W
 MAMBA = (1, 2048, 48, 64, 1, 128)                         # B, S, H, P, G, N
@@ -420,9 +456,9 @@ def _check_ops_kernels(torch, gen, rng, record):
     """Phase 3 for the kernels behind ops.decode_attention, ops.ssd_scan,
     ops.rglru_scan and ops.stream_triad: full widths, then the sweeps of
     tests/test_kernels.py."""
-    from repro_torch.kernels.decode_attention import (decode_attention_fwd,
+    from repro_torch.kernels.decode_attention import (DENSE_TILE, decode_attention_fwd,
                                                       decode_attention_plain,
-                                                      lengths_for)
+                                                      lengths_for, split_ranges)
     from repro_torch.kernels.rglru_scan import rglru_scan_fwd, rglru_scan_plain
     from repro_torch.kernels.ssd_scan import ssd_scan_fwd, ssd_scan_plain
     from repro_torch.kernels.stream import stream_triad_fwd, stream_triad_plain
@@ -433,6 +469,32 @@ def _check_ops_kernels(torch, gen, rng, record):
                     ((4, 1024, 24, 2, 128), [0, 5, 300, 1024]),  # a row of length 0
                     ((2, 512, 4, 2, 64), 300), ((1, 1024, 8, 8, 32), 1024),
                     ((3, 300, 4, 1, 64), 17), ((4, 256, 4, 2, 64), [1, 17, 100, 256])]
+    # the split edges at starcoder2_3b's cache (decode_splits: 16 splits of
+    # DENSE_TILE tokens on 132 SMs): on an edge and ±1, a lone long request,
+    # requests all shorter than one split; and a 64-token cache, one split
+    B, T, H, KV, Dh = STARCODER_CACHE
+    edge = DENSE_TILE * split_ranges(T // DENSE_TILE,
+                                     _splits(torch, B, H, KV, T // DENSE_TILE,
+                                             DENSE_TILE))[0][1]
+    decode_cases += [(STARCODER_CACHE, [edge - 1, edge, edge + 1, 2 * edge - 1, 2 * edge,
+                                        2 * edge + 1, T - edge, T]),
+                     (STARCODER_CACHE, [T] + [0] * 7),
+                     (STARCODER_CACHE, [1, 2, 3, 5, 8, 13, edge - 2, edge - 1]),
+                     ((4, 64, 24, 2, 128), [0, 1, 63, 64]),
+                     ((3, 300, 40, 2, 64), [0, 129, 300])]  # two m-tiles
+    # splits that walk many chunks (the prefetch runs, the buffer ring
+    # wraps): a batch of 32 at starcoder2_3b's cache (4 splits of 256
+    # tokens on 132 SMs), the long context (16 splits of 1,024 tokens), and
+    # 40 requests at recurrentgemma_2b's local attention (6 splits of 384
+    # tokens, 12 chunks of 32 in fp32, the last split 128 tokens)
+    decode_cases += [((32, T, H, KV, Dh),
+                      [0, 1, 63, 64, 65, 255, 256, 257, 511, 512, 513, 767, 768, 769,
+                       1023, 1024] + rng.integers(0, T + 1, size=16).tolist()),
+                     ((B, LONG_CONTEXT, H, KV, Dh),
+                      [LONG_CONTEXT, LONG_CONTEXT - 1, 1025, 1024, 9000, 0, 12345, 16000]),
+                     ((40,) + GRIFFIN_LOCAL[1:],
+                      [2048, 2047, 1920, 1919, 384, 385] + rng.integers(
+                          0, 2049, size=34).tolist())]
     ssd_cases = [(MAMBA, MAMBA_CHUNK, False), ((1, 2000, 48, 64, 1, 128), 256, False),
                  ((1, 512, 48, 64, 1, 128), 256, True),
                  ((1, 128, 2, 16, 1, 16), 32, False), ((2, 96, 4, 16, 2, 32), 32, False),
@@ -448,8 +510,9 @@ def _check_ops_kernels(torch, gen, rng, record):
             torch.cuda.synchronize()
             f32 = [x.float() for x in (q, k, v)]
             shorter = (lengths_for(length, B, T, q.device) - 1).clamp_min(0)
+            splits = _splits(torch, B, H, KV, -(-T // DENSE_TILE), DENSE_TILE)
             record("decode_attention", [B, T, H, KV, Dh, length if isinstance(length, int)
-                                        else length.tolist()], dtype,
+                                        else length.tolist(), f"splits {splits}"], dtype,
                    o, decode_attention_plain(q, k, v, length),
                    decode_attention_plain(*f32, length),
                    decode_attention_plain(*f32, shorter))
@@ -490,11 +553,61 @@ def _timing(torch, flush, shape, kernel, plain, library, nbytes, flops):
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": flops}
 
 
+def _paged_timing(torch, flush, gen, lens, H, KV, Dh, page, maxp):
+    """The paged kernel's timing row, bf16; no single PyTorch call does
+    paged attention, so it has no library time."""
+    from repro_torch.kernels.decode_attention import (paged_decode_attention_fwd,
+                                                      paged_decode_attention_plain)
+
+    args = _paged_inputs(torch, gen, lens, H, KV, Dh, page, maxp, torch.bfloat16)
+    B, tokens = len(lens), sum(lens)
+    npages = sum(-(-n // page) for n in lens)
+    row = _timing(
+        torch, flush, {"B": B, "H": H, "KV": KV, "Dh": Dh, "page": page, "maxp": maxp,
+                       "lengths": lens if len(set(lens)) > 1 else f"{B} × {lens[0]}",
+                       "dtype": "bfloat16",
+                       "splits": _splits(torch, B, H, KV, maxp, page)},
+        lambda: paged_decode_attention_fwd(*args),
+        lambda: paged_decode_attention_plain(*args), None,
+        (2 * 2 * B * H * Dh            # q and o
+         + 2 * 2 * tokens * KV * Dh    # live K and V
+         + 4 * npages + 4 * B),        # page-table entries walked, lengths
+        {"bfloat16": 4 * Dh * H * tokens})
+    del args
+    return row
+
+
+def _dense_timing(torch, F, flush, gen, lengths, T, H, KV, Dh):
+    """The dense kernel's timing row, bf16, beside masked SDPA."""
+    from repro_torch.kernels.decode_attention import (DENSE_TILE, decode_attention_fwd,
+                                                      decode_attention_plain)
+
+    B = len(lengths)
+    q, k, v = _decode_inputs(torch, gen, B, T, H, KV, Dh, torch.bfloat16)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    qs = q[:, :, None]                                        # (B, H, 1, Dh)
+    ks, vs = (x.transpose(1, 2).contiguous() for x in (k, v))  # (B, KV, T, Dh)
+    mask = (torch.arange(T, device="cuda")[None, :]
+            < lens.long()[:, None])[:, None, None, :]
+    tokens = sum(lengths)
+    row = _timing(
+        torch, flush, {"B": B, "T": T, "H": H, "KV": KV, "Dh": Dh,
+                       "lengths": lengths if len(set(lengths)) > 1 else f"{B} × {T}",
+                       "dtype": "bfloat16",
+                       "splits": _splits(torch, B, H, KV, -(-T // DENSE_TILE), DENSE_TILE)},
+        lambda: decode_attention_fwd(q, k, v, lens),
+        lambda: decode_attention_plain(q, k, v, lens),
+        lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                               enable_gqa=True),
+        2 * 2 * B * H * Dh + 2 * 2 * tokens * KV * Dh + 4 * B,  # q, o, live K/V
+        {"bfloat16": 4 * Dh * H * tokens})
+    del q, k, v, ks, vs
+    return row
+
+
 def _time_ops_kernels(torch, F, gen, flush):
     """The four ops kernels at the full widths of phase 7, bf16; the triad
     in fp32, as STREAM counts it, and in bf16."""
-    from repro_torch.kernels.decode_attention import (decode_attention_fwd,
-                                                      decode_attention_plain)
     from repro_torch.kernels.rglru_scan import rglru_scan_fwd, rglru_scan_plain
     from repro_torch.kernels.ssd_scan import ssd_scan_fwd, ssd_scan_plain
     from repro_torch.kernels.stream import stream_triad_fwd, stream_triad_plain
@@ -502,22 +615,10 @@ def _time_ops_kernels(torch, F, gen, flush):
     bf16 = torch.bfloat16
     out = {}
     B, T, H, KV, Dh = STARCODER_CACHE
-    q, k, v = _decode_inputs(torch, gen, B, T, H, KV, Dh, bf16)
-    lens = torch.tensor(STARCODER_LENS, dtype=torch.int32, device="cuda")
-    qs = q[:, :, None]                                        # (B, H, 1, Dh)
-    ks, vs = (x.transpose(1, 2).contiguous() for x in (k, v))  # (B, KV, T, Dh)
-    mask = (torch.arange(T, device="cuda")[None, :]
-            < lens.long()[:, None])[:, None, None, :]
-    tokens = sum(STARCODER_LENS)
-    out["decode_attention"] = [_timing(
-        torch, flush, {"B": B, "T": T, "H": H, "KV": KV, "Dh": Dh,
-                       "lengths": STARCODER_LENS, "dtype": "bfloat16"},
-        lambda: decode_attention_fwd(q, k, v, lens),
-        lambda: decode_attention_plain(q, k, v, lens),
-        lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
-                                               enable_gqa=True),
-        2 * 2 * B * H * Dh + 2 * 2 * tokens * KV * Dh + 4 * B,  # q, o, live K/V
-        {"bfloat16": 4 * Dh * H * tokens})]
+    # starcoder2_3b's cache, then every request at its 16,384-token context
+    out["decode_attention"] = [
+        _dense_timing(torch, F, flush, gen, STARCODER_LENS, T, H, KV, Dh),
+        _dense_timing(torch, F, flush, gen, [LONG_CONTEXT] * B, LONG_CONTEXT, H, KV, Dh)]
     B, S, H, P, G, N = MAMBA
     args = _ssd_inputs(torch, gen, B, S, H, P, G, N, bf16)
     flops, ways = _ssd_flops(S, H, P, N, B, MAMBA_CHUNK, "bfloat16")
@@ -750,8 +851,10 @@ def phase_serve(torch, np, card):
 # ------------------------------------------------------------------ phase 6
 def _device_profile(torch, fn, n):
     """Wall time of ``n`` calls of ``fn`` (each ends in a synchronize),
-    then the same under torch.profiler with its device kernel time; device
-    time None if the profiler saw none."""
+    then the same under torch.profiler with its device kernel time and the
+    decode-attention kernels' share of it (the split and combine kernels of
+    ``csrc/decode_attention.cuh``); device time None if the profiler saw
+    none."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -776,7 +879,10 @@ def _device_profile(torch, fn, n):
         return {**out, "device_ms": None}
     device_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    decode = [e for e in kernels if "repro_torch::decode::" in e.key]
     return {**out, "device_ms": device_us / 1e3 / n,
+            "decode_attention_ms": sum(e.self_device_time_total for e in decode) / 1e3 / n,
+            "decode_attention_kernels": sum(e.count for e in decode) / n,
             "busy_share": device_us / 1e6 / wall_plain,
             "kernels_per_call": sum(e.count for e in kernels) / n,
             "top": [(e.key[:60], e.self_device_time_total / 1e3 / n, e.count / n)
@@ -822,7 +928,9 @@ def phase_profile(torch, np, eng, card):
             busy = ("device time not measured (the profiler saw none)"
                     if r["device_ms"] is None else
                     f"device busy {r['device_ms']:.2f} ms ({100 * r['busy_share']:.1f}%), "
-                    f"{r['kernels_per_call']:.0f} kernels")
+                    f"{r['kernels_per_call']:.0f} kernels; decode attention "
+                    f"{r['decode_attention_ms']:.3f} ms in "
+                    f"{r['decode_attention_kernels']:.0f} kernels")
             log(f"[profile] {name}: wall {r['wall_ms']:.2f} ms (profiled "
                 f"{r['profiled_wall_ms']:.2f} ms), {busy}")
     REPORT["profile"] = out

@@ -29,7 +29,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("flash_attention.cu", "paged_decode_attention.cu", "decode_attention.cu",
            "ssd_scan.cu", "rglru_scan.cu", "stream.cu")
-HEADERS = ("common.cuh", "decode_attention.cuh")
+HEADERS = ("common.cuh", "mma.cuh", "decode_attention.cuh")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                        "-Xptxas", "-v"]
@@ -45,11 +45,11 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # q, k, v, o, B, S, H, KV, Dh, causal, window, valid_len, dtype, stream
     "repro_flash_attention_fwd": [_P, _P, _P, _P] + [_I] * 9 + [_P],
-    # q, k_pages, v_pages, page_table, lengths, o, B, H, KV, Dh, page, maxp,
-    # dtype, stream
-    "repro_paged_decode_attention_fwd": [_P] * 6 + [_I] * 7 + [_P],
-    # q, k, v, lengths, o, B, T, H, KV, Dh, dtype, stream
-    "repro_decode_attention_fwd": [_P] * 5 + [_I] * 6 + [_P],
+    # q, k_pages, v_pages, page_table, lengths, ws, o, B, H, KV, Dh, page,
+    # maxp, splits, tps, dtype, stream
+    "repro_paged_decode_attention_fwd": [_P] * 7 + [_I] * 9 + [_P],
+    # q, k, v, lengths, ws, o, B, T, H, KV, Dh, splits, tps, dtype, stream
+    "repro_decode_attention_fwd": [_P] * 6 + [_I] * 8 + [_P],
     # x, dt, A, Bm, Cm, y, B, S, H, P, G, N, chunk, dtype, stream
     "repro_ssd_scan_fwd": [_P] * 6 + [_I] * 8 + [_P],
     # a, b, h, B, S, W, dtype, stream
@@ -154,14 +154,16 @@ def check_tensors(what: str, like: torch.Tensor, named, dtype=None) -> None:
     """Raise unless every (name, tensor) is contiguous on ``like``'s CUDA
     device and, where ``dtype`` is given, has that dtype (a float dtype
     must be one the kernels are instantiated for)."""
+    # device indices, not torch.device objects: this runs on every launch
+    dev = like.get_device()
+    bad_dtype = dtype is not None and dtype.is_floating_point and dtype not in DTYPES
     for name, t in named:
-        if t.device.type != "cuda" or t.device != like.device:
+        if not t.is_cuda or t.get_device() != dev:
             raise ValueError(f"{what}: {name} must be on the CUDA device of the "
                              f"first input, got {t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
-        if dtype is not None and (t.dtype != dtype or (dtype.is_floating_point
-                                                       and dtype not in DTYPES)):
+        if dtype is not None and (t.dtype != dtype or bad_dtype):
             raise TypeError(f"{what}: {name} has dtype {t.dtype}; expected "
                             f"{dtype} (floats: float32 or bfloat16)")
 

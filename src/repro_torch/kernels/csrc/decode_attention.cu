@@ -11,29 +11,26 @@
 // once per KV head, and zero-fills the ragged last tile in shared memory
 // instead of reading past the cache.
 //
-// The block body, what bounds it and what its design does about it are in
-// decode_attention.cuh; here a tile is `tile` consecutive tokens of the
-// cache: 64 where shared memory allows, halved until it fits (fp32 with
-// head_dim 256).
+// The body, what bounds it and what its design does about it are in
+// decode_attention.cuh; here a tile (the split granule) is DENSE_TILE
+// consecutive tokens of the cache.
 
 #include "decode_attention.cuh"
 
 // q/o: (B, H, Dh); k/v: (B, T, KV, Dh); lengths: (B,) int32 (clamped to T
-// here too).  All contiguous.  Returns cudaGetLastError() after the launch.
+// here too); ws: fp32 workspace of B·H·splits·(Dh + 2) floats, unused (may
+// be null) when splits == 1.  All contiguous.  splits × tps tiles of
+// DENSE_TILE tokens cover ⌈T / DENSE_TILE⌉, none of the splits empty
+// (decode_attention.py::split_plan).  Returns cudaGetLastError() after the
+// launches.
 extern "C" int repro_decode_attention_fwd(const void* q, const void* k,
                                           const void* v, const void* lengths,
-                                          void* o, int B, int T, int H, int KV,
-                                          int Dh, int dtype, void* stream) {
+                                          void* ws, void* o, int B, int T, int H,
+                                          int KV, int Dh, int splits, int tps,
+                                          int dtype, void* stream) {
   using namespace repro_torch::decode;
-  if (B <= 0 || T <= 0 || KV <= 0 || H % KV != 0 ||
-      warps_for(H / KV) > MAX_WARPS)
-    return cudaErrorInvalidValue;
-  const int elem = dtype == repro_torch::kFloat32 ? 4 : 2;
-  int tile = MAX_TILE;
-  const size_t limit = repro_torch::kMaxSmemBytes;
-  while (tile > 16 && smem_bytes(H / KV, Dh, tile, elem) > limit) tile /= 2;
-  if (smem_bytes(H / KV, Dh, tile, elem) > limit) return cudaErrorInvalidValue;
-  return dispatch_dtype<true>(dtype, Dh, q, k, v, nullptr,
-                              static_cast<const int*>(lengths), o, B, H, KV,
-                              tile, T, static_cast<cudaStream_t>(stream));
+  if (T <= 0) return cudaErrorInvalidValue;
+  return run<true>(dtype, Dh, q, k, v, nullptr, static_cast<const int*>(lengths), ws,
+                   o, B, H, KV, DENSE_TILE, (T + DENSE_TILE - 1) / DENSE_TILE, T,
+                   splits, tps, static_cast<cudaStream_t>(stream));
 }

@@ -17,20 +17,117 @@ does.
   ``paged_decode_attention_fwd``: a block pool k/v_pages (P, page, KV, Dh)
   walked through each request's row of a page table.
 
-Both share one block body, ``csrc/decode_attention.cuh``.
+Both share one body, ``csrc/decode_attention.cuh``.  At serving shapes it
+is not bound by memory: a B=8 step reads a few MB of K/V, under a
+microsecond of HBM time, and one block per (request, KV head) would leave
+most of the 132 SMs idle while each block walked its request alone.  So
+the body splits each request's walk across blocks (flash-decoding): the
+grid is (KV heads × m-tiles of 16 query heads, B, splits), each block
+scores one contiguous range of whole tiles on the tensor cores (bf16), and
+a second kernel combines the blocks' fp32 partials (m, l, acc) by
+log-sum-exp in split order.  :func:`decode_splits` chooses the split count
+from static shapes only — never from the lengths, which would wait for
+the device — and :func:`split_plan` memoizes it with the cut per shape;
+the partials' workspace is a ``torch.empty`` kept per stream, so a call in
+the decode loop makes no allocator call and no sync.
 """
 
 from __future__ import annotations
 
+import functools
 import math
+import threading
+from typing import Dict, List, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-MAX_PAGE = 64        # csrc: two tokens per lane
-MAX_GROUP = 128      # csrc: 32 warps of 4 query rows
+MAX_GROUP = 128      # csrc: query heads per KV head, 8 m-tiles of 16
+DENSE_TILE = 64      # csrc: the dense cache's split granule (tokens)
+CHUNK = 64           # csrc: tokens a block scores per step (4 warps × 16)
+BLOCKS_PER_SM = 2    # the split chooser's aim
+
+
+def decode_splits(B: int, KV: int, extent_tiles: int, sm_count: int, tile: int,
+                  group: int) -> int:
+    """How many blocks share one request's walk over ``extent_tiles`` tiles
+    of ``tile`` tokens (pages, or ``DENSE_TILE`` tokens of a dense cache).
+
+    From static shapes only: about ``BLOCKS_PER_SM`` blocks per SM over the
+    grid of B × KV × ⌈group / 16⌉ blocks per split (``group``: query heads
+    per KV head), no split shorter than one chunk of ``CHUNK`` tokens where
+    the extent allows, and no split left empty by the extent (see
+    :func:`split_ranges`)."""
+    blocks = B * KV * -(-group // 16)
+    want = max(1, BLOCKS_PER_SM * sm_count // blocks)
+    most = max(1, extent_tiles // -(-CHUNK // tile))
+    splits = min(want, most)
+    return -(-extent_tiles // tiles_per_split(extent_tiles, splits))
+
+
+def tiles_per_split(extent_tiles: int, splits: int) -> int:
+    """The split cut: ⌈extent / splits⌉ tiles per split, the last split what
+    is left.  The launchers pass it to the kernel, which has no cut of its
+    own."""
+    return -(-extent_tiles // splits)
+
+
+def split_ranges(extent_tiles: int, splits: int) -> List[Tuple[int, int]]:
+    """The tile range [start, end) each split walks."""
+    tps = tiles_per_split(extent_tiles, splits)
+    return [(s * tps, min((s + 1) * tps, extent_tiles)) for s in range(splits)]
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """The SM count of a CUDA device (what :func:`decode_splits` is given)."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def split_plan(B: int, KV: int, extent_tiles: int, tile: int, group: int,
+               device_index: int) -> Tuple[int, int]:
+    """(splits, tiles per split) of a launch on CUDA device ``device_index``,
+    memoized per static shape: a call in the decode loop does no split
+    arithmetic and no device query."""
+    splits = decode_splits(B, KV, extent_tiles, sm_count(device_index), tile, group)
+    return splits, tiles_per_split(extent_tiles, splits)
+
+
+# (device index, raw stream, thread) -> the splits' fp32 partials
+_workspaces: Dict[Tuple[int, int, int], torch.Tensor] = {}
+
+
+def _workspace(device_index: int, stream: int, numel: int) -> int:
+    """A pointer to ``numel`` fp32 floats for the splits' partials: one
+    ``torch.empty`` per (device, stream, thread), kept and grown as the
+    shapes need it, so the decode loop makes no allocator call.  Reuse is
+    safe: the launches on one stream run in order, so a call's combine
+    reads its own partials before the next call's split kernel writes
+    there, and each thread has its own buffer, since two threads' launches
+    on one stream may interleave."""
+    key = (device_index, stream, threading.get_ident())
+    ws = _workspaces.get(key)
+    if ws is None or ws.numel() < numel:
+        ws = torch.empty(numel, dtype=torch.float32, device=f"cuda:{device_index}")
+        _workspaces[key] = ws
+    return ws.data_ptr()
+
+
+def _launch(entry: str, what: str, q: torch.Tensor, splits: int, numel: int,
+            before: tuple, after: tuple) -> None:
+    """Call the C entry point with ``before``, the workspace of ``numel``
+    floats (a null pointer for one split), ``after`` and PyTorch's current
+    stream on q's device; raise if the launch returned a CUDA error."""
+    dev = q.get_device()
+    fn = getattr(_build.library(), entry)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        ws = _workspace(dev, stream, numel) if splits > 1 else None
+        err = fn(*before, ws, *after, stream)
+    _build.check(err, what)
 
 
 def lengths_for(length, B: int, T: int, device: torch.device) -> torch.Tensor:
@@ -106,22 +203,27 @@ def decode_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if T == 0 or B > 65535 or k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError(f"{what}: empty cache, batch {B} above 65535, or k/v "
                          f"not 16-byte aligned (the kernel copies 16-byte chunks)")
-    lens = lengths_for(length, B, T, q.device)
+    lens = length
+    if not (torch.is_tensor(length) and length.dtype == torch.int32
+            and tuple(length.shape) == (B,) and length.device == q.device
+            and length.is_contiguous()):
+        lens = lengths_for(length, B, T, q.device)
+    # else as it is, with no clamp kernel: the kernel clamps to T itself
+    splits, tps = split_plan(B, KV, -(-T // DENSE_TILE), DENSE_TILE, H // KV,
+                             q.get_device())
     o = torch.empty_like(q)
-    _build.launch("repro_decode_attention_fwd", what, q, q.data_ptr(), k.data_ptr(),
-                  v.data_ptr(), lens.data_ptr(), o.data_ptr(), B, T, H, KV, Dh,
-                  _build.DTYPES[q.dtype])
+    _launch("repro_decode_attention_fwd", what, q, splits, B * H * splits * (Dh + 2),
+            (q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr()),
+            (o.data_ptr(), B, T, H, KV, Dh, splits, tps, _build.DTYPES[q.dtype]))
     return o
 
 
 def check_paged_inputs(q: torch.Tensor, k_pages: torch.Tensor,
                        v_pages: torch.Tensor, page_table: torch.Tensor,
                        lengths: torch.Tensor) -> None:
-    """Raise on anything the paged kernel does not take, but for shared
-    memory: the launch itself raises where a page of K/V does not fit.  The
-    page table's entries are not read here (that would wait for the
-    device): they must be valid pool indices, which the serving cache
-    guarantees."""
+    """Raise on anything the paged kernel does not take.  The page table's
+    entries are not read here (that would wait for the device): they must
+    be valid pool indices, which the serving cache guarantees."""
     what = "paged_decode_attention_fwd"
     _build.check_tensors(what, q, (("q", q), ("k_pages", k_pages),
                                    ("v_pages", v_pages)), q.dtype)
@@ -138,11 +240,11 @@ def check_paged_inputs(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError(f"{what}: q {tuple(q.shape)}, page_table "
                          f"{tuple(page_table.shape)}, lengths "
                          f"{tuple(lengths.shape)} do not fit together")
-    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
-        raise ValueError(f"{what}: the pools must be 16-byte aligned (the kernel "
-                         f"copies 16-byte chunks)")
-    if page > MAX_PAGE:
-        raise ValueError(f"{what}: page {page} above {MAX_PAGE}")
+    if B > 65535 or page_table.shape[1] == 0 or k_pages.data_ptr() % 16 \
+            or v_pages.data_ptr() % 16:
+        raise ValueError(f"{what}: batch {B} above 65535, an empty page table, or "
+                         f"pools not 16-byte aligned (the kernel copies 16-byte "
+                         f"chunks)")
 
 
 def paged_decode_attention_fwd(q: torch.Tensor, k_pages: torch.Tensor,
@@ -154,9 +256,13 @@ def paged_decode_attention_fwd(q: torch.Tensor, k_pages: torch.Tensor,
     check_paged_inputs(q, k_pages, v_pages, page_table, lengths)
     B, H, Dh = q.shape
     _, page, KV, _ = k_pages.shape
+    maxp = page_table.shape[1]
+    splits, tps = split_plan(B, KV, maxp, page, H // KV, q.get_device())
     o = torch.empty_like(q)
-    _build.launch("repro_paged_decode_attention_fwd", "paged_decode_attention_fwd",
-                  q, q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                  page_table.data_ptr(), lengths.data_ptr(), o.data_ptr(), B, H, KV,
-                  Dh, page, page_table.shape[1], _build.DTYPES[q.dtype])
+    _launch("repro_paged_decode_attention_fwd", "paged_decode_attention_fwd", q, splits,
+            B * H * splits * (Dh + 2),
+            (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
+             lengths.data_ptr()),
+            (o.data_ptr(), B, H, KV, Dh, page, maxp, splits, tps,
+             _build.DTYPES[q.dtype]))
     return o

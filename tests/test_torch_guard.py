@@ -16,7 +16,7 @@ FORBIDDEN = ("jax", "jaxlib")
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + sorted(ROOT.glob("chip_*.py"))
 
 
 def _bad_import(name: str) -> bool:
@@ -27,6 +27,7 @@ def _bad_import(name: str) -> bool:
 def test_port_imports_neither_jax_nor_reference():
     files = _port_files()
     assert len(files) > 20 and (PORT / "serve" / "engine.py") in files
+    assert ROOT / "chip_smoke.py" in files
     bad = []
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), filename=str(f))):

@@ -1,6 +1,9 @@
 """The port's attention kernels (their plain versions, as a CPU tensor runs
 them) against the reference's Pallas kernels in interpret mode and its
-pure-jnp oracles, over the sweeps of ``test_kernels.py``.
+pure-jnp oracles, over the sweeps of ``test_kernels.py``; and the decode
+kernels' split-KV arithmetic (the split chooser, and the exact combine of
+per-split partials written out in plain PyTorch) against the same
+reference kernels.
 
 Inputs are drawn with numpy from a seed and handed to both packages; bf16
 inputs are rounded from the same fp32 draws on both sides (both round to
@@ -17,7 +20,9 @@ from repro.kernels import ops as rops
 from repro.kernels import ref as rref
 from repro.kernels.flash_attention import flash_attention_fwd as r_flash_fwd
 from repro_torch.kernels import ops
-from repro_torch.kernels.decode_attention import decode_attention_plain
+from repro_torch.kernels.decode_attention import (BLOCKS_PER_SM, CHUNK, DENSE_TILE,
+                                                  decode_attention_plain, decode_splits,
+                                                  split_ranges, tiles_per_split)
 from repro_torch.kernels.flash_attention import flash_attention_plain
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -172,3 +177,92 @@ def test_cpu_wrappers_count_no_launches():
     assert set(ops.KERNELS) == {"flash_attention", "paged_decode_attention",
                                 "decode_attention", "ssd_scan", "rglru_scan",
                                 "stream_triad"}
+
+
+# ----------------------------------------------------- split-KV decode
+@pytest.mark.parametrize("B,KV,extent,sm,tile,group", [
+    (8, 2, 64, 132, 16, 12),      # serving: paged, page 16, maxp 64
+    (8, 2, 16, 132, 64, 12),      # starcoder2_3b's dense cache, T = 1024
+    (8, 2, 1024, 132, 16, 12),    # 16,384-token context, paged
+    (4, 1, 32, 132, 64, 10),      # recurrentgemma_2b's local attention
+    (1, 8, 4, 132, 16, 1),        # a 4-page table: one split
+    (300, 2, 64, 132, 16, 12),    # more blocks than the card holds: one split
+    (1, 1, 1000, 132, 24, 128),   # pages of 24 tokens, 8 m-tiles
+    (2, 2, 7, 16, 32, 4),         # a small card, an extent that splits unevenly
+])
+def test_decode_splits_cover_whole_tiles(B, KV, extent, sm, tile, group):
+    splits = decode_splits(B, KV, extent, sm, tile, group)
+    ranges = split_ranges(extent, splits)
+    assert splits >= 1 and len(ranges) == splits
+    # contiguous, in order, whole tiles, none empty, covering the extent
+    assert ranges[0][0] == 0 and ranges[-1][1] == extent
+    assert all(a < b for a, b in ranges)
+    assert all(ranges[i][1] == ranges[i + 1][0] for i in range(splits - 1))
+    # the cut the launchers pass: what the C entry points accept
+    tps = tiles_per_split(extent, splits)
+    assert splits * tps >= extent > (splits - 1) * tps
+    # one chunk of tokens at least, where the extent allows
+    if splits > 1:
+        assert (ranges[0][1] - ranges[0][0]) * tile >= CHUNK
+        assert splits * B * KV * -(-group // 16) <= BLOCKS_PER_SM * sm
+    else:
+        assert extent * tile < 2 * CHUNK or B * KV * -(-group // 16) * 2 > BLOCKS_PER_SM * sm
+
+
+def _split_combine(q, k, v, lens, tile, splits):
+    """The kernels' split-KV arithmetic in plain PyTorch: each split's fp32
+    (m, l, acc) over its tokens below the length (m = −1e30, l = 0, acc = 0
+    where it has none), combined by log-sum-exp in split order."""
+    B, H, Dh = q.shape
+    T, KV = k.shape[1], k.shape[2]
+    qf = q.float().reshape(B, KV, H // KV, Dh)
+    parts = []
+    for t0, t1 in split_ranges(-(-T // tile), splits):
+        lo, hi = t0 * tile, min(t1 * tile, T)
+        s = torch.einsum("bkgd,btkd->bkgt", qf, k[:, lo:hi].float()) / Dh ** 0.5
+        valid = (torch.arange(lo, hi)[None, :] < lens[:, None].long())[:, None, None, :]
+        s = s.masked_fill(~valid, -1e30)
+        m = s.amax(dim=-1)
+        p = torch.exp(s - m[..., None]) * valid
+        parts.append((m, p.sum(dim=-1), torch.einsum("bkgt,btkd->bkgd", p,
+                                                      v[:, lo:hi].float())))
+    big = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    l = sum(torch.exp(m - big) * l for m, l, _ in parts)
+    acc = sum(torch.exp(m - big)[..., None] * a for m, _, a in parts)
+    return (acc / l.clamp_min(1e-20)[..., None]).reshape(B, H, Dh).to(q.dtype)
+
+
+# lengths on the split edges of 32, 64 and 128 tokens and ±1, a row of
+# length 0, rows shorter than one split (the other splits empty), a full row
+SPLIT_LENS = [0, 5, 31, 32, 33, 63, 64, 65, 127, 128, 129, 256]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("splits", [1, 2, 4])
+def test_split_combine_matches_reference_dense(splits, dtype):
+    B, T, H, KV, Dh = len(SPLIT_LENS), 256, 4, 2, 32
+    rng = np.random.default_rng(11)
+    qj, qt = _pair(rng.standard_normal((B, H, Dh), np.float32), dtype)
+    kj, kt = _pair(rng.standard_normal((B, T, KV, Dh), np.float32), dtype)
+    vj, vt = _pair(rng.standard_normal((B, T, KV, Dh), np.float32), dtype)
+    lens = np.asarray(SPLIT_LENS, np.int32)
+    o = _split_combine(qt, kt, vt, torch.from_numpy(lens), DENSE_TILE, splits)
+    want = rops.decode_attention(qj, kj, vj, jnp.asarray(lens))
+    assert not np.asarray(o[0].float()).any()   # length 0: zeros
+    _close(o, want, _tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("splits", [1, 4, 8])
+def test_split_combine_matches_reference_paged(splits, dtype):
+    B, H, KV, Dh, page, maxp = len(SPLIT_LENS), 8, 2, 32, 16, 16
+    q, k, v, kp, vp, perm, _ = _paged_inputs(B, H, KV, Dh, page, maxp, seed=12)
+    lens = np.asarray(SPLIT_LENS, np.int32)
+    qj, qt = _pair(q, dtype)
+    kpj, kpt = _pair(kp, dtype)
+    vpj, vpt = _pair(vp, dtype)
+    kg, vg = ops.gather_paged_kv(kpt, vpt, torch.from_numpy(perm))
+    o = _split_combine(qt, kg, vg, torch.from_numpy(lens), page, splits)
+    want = rops.paged_decode_attention(qj, kpj, vpj, jnp.asarray(perm), jnp.asarray(lens))
+    assert not np.asarray(o[0].float()).any()
+    _close(o, want, _tol(dtype))
