@@ -5,13 +5,15 @@
     python3 chip_pair.py A B --rounds 2   # A, B, B, A, A, B, B, A
     python3 chip_pair.py A B --serve      # ... each also serving (phases 5-6)
     python3 chip_pair.py A B --sweep      # ... B's turns also sweep split counts
+    python3 chip_pair.py A B --modes      # ... and time flash's modes forced
 
 A and B are roots of two checkouts (for example a parent commit unpacked
 with ``git archive`` beside this one).  Each turn runs in its own process
 from that checkout's root and with that checkout's own ``chip_smoke.py``
 helpers: it builds the checkout's kernels, then times the port's three
 attention kernels at the serving path's shapes (bf16; ``_time_ms``: CUDA
-events, L2 flushed, median of 25, device time only): flash at S=512, paged
+events, L2 flushed, median of 25, device time only): flash at S=128, 512
+and 1000 (B=1, H=24, KV=2, Dh=128, causal), paged
 decode at B=8 with lengths 16-576 and pages of 16, dense decode at
 starcoder2_3b's cache with ``STARCODER_LENS``; and each one's host time
 per call (the median over 5 batches of 200 calls enqueued back to back).
@@ -66,9 +68,10 @@ def enqueue_us(fn, n=200, batches=5):
     return statistics.median(per)
 
 
-q, k, v = c._flash_inputs(torch, gen, 1, 512, 24, 2, 128, bf16)
-out["flash_s512_ms"] = c._time_ms(torch, lambda: flash_attention_fwd(q, k, v), flush)
-out["flash_enqueue_us"] = enqueue_us(lambda: flash_attention_fwd(q, k, v))
+for S in (128, 512, 1000):
+    q, k, v = c._flash_inputs(torch, gen, 1, S, 24, 2, 128, bf16)
+    out[f"flash_s{S}_ms"] = c._time_ms(torch, lambda: flash_attention_fwd(q, k, v), flush)
+    out[f"flash_s{S}_enqueue_us"] = enqueue_us(lambda: flash_attention_fwd(q, k, v))
 serving = rng.integers(16, 577, size=8).tolist()
 args = c._paged_inputs(torch, gen, serving, 24, 2, 128, 16, 64, bf16)
 out["paged_b8_ms"] = c._time_ms(torch, lambda: paged_decode_attention_fwd(*args), flush)
@@ -104,6 +107,30 @@ if SWEEP and hasattr(da, "split_plan"):
             da.split_plan = plan
         out[f"sweep_paged_{name}"] = row
         del a
+if MODES:
+    from repro_torch.kernels import flash_attention as fa
+    if "split" in getattr(fa, "FlashPlan", tuple)._fields:
+        plan = fa.flash_plan
+        for B, S in ((1, 128), (1, 256), (1, 512), (1, 1000), (1, 2048), (4, 2048)):
+            q, k, v = c._flash_inputs(torch, gen, B, S, 24, 2, 128, bf16)
+            want = fa.flash_attention_plain(q.float(), k.float(), v.float())
+            chosen = plan(B, S, 24, 2, 128, torch.cuda.current_device())
+            row = {"chosen": "split" if chosen.split else "shared"}
+            for split in (False, True):
+                pos = (64 if split else 64 * chosen.consumers) // chosen.group
+                forced = chosen._replace(split=split, positions=pos,
+                                         ptiles=-(-S // pos),
+                                         blocks=-(-S // pos) * B * 2 * (12 // chosen.group))
+                fa.flash_plan = lambda *_, f=forced: f
+                mode = "split" if split else "shared"
+                row[f"{mode}_ms"] = c._time_ms(torch, lambda: fa.flash_attention_fwd(q, k, v),
+                                               flush)
+                row[f"{mode}_blocks"] = forced.blocks
+                row[f"{mode}_max_abs_err"] = (fa.flash_attention_fwd(q, k, v).float()
+                                              - want).abs().max().item()
+                fa.flash_plan = plan
+            out[f"modes_flash_b{B}_s{S}"] = row
+            del q, k, v, want
 print(json.dumps(out))
 """
 
@@ -116,7 +143,7 @@ def main() -> int:
         rounds = int(argv[i + 1])
         del argv[i:i + 2]
     args = [a for a in argv if not a.startswith("--")]
-    serve, sweep = "--serve" in argv, "--sweep" in argv
+    serve, sweep, modes = "--serve" in argv, "--sweep" in argv, "--modes" in argv
     if len(args) != 2 or rounds < 1:
         print(__doc__, file=sys.stderr)
         return 2
@@ -125,7 +152,7 @@ def main() -> int:
     for name in "ABBA" * rounds:
         root = roots[name]
         r = subprocess.run([sys.executable, "-c",
-                            f"SERVE = {serve}\nSWEEP = {sweep}\n" + TURN],
+                            f"SERVE = {serve}\nSWEEP = {sweep}\nMODES = {modes}\n" + TURN],
                            cwd=root, capture_output=True, text=True, timeout=1200)
         if r.returncode != 0:
             print(r.stdout[-4000:], r.stderr[-4000:], sep="\n", file=sys.stderr)

@@ -11,7 +11,11 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    fp32 and bf16, at the sweeps of ``tests/test_kernels.py`` and at full
    widths: flash and paged decode at the serving path's shapes (H=24,
    KV=2, Dh=128; prefill S ∈ {128, 512, 1000}, also with a window and with
-   valid_len < S; decode B=8 with mixed lengths, pages of 16); dense decode
+   valid_len < S; decode B=8 with mixed lengths, pages of 16); flash also
+   at every head dim 16–256, at 1, 2, 12 and 24 q heads per KV head, at S
+   off the tile (100, 130, 200, 1000), with windows and valid_len one off
+   a K-tile edge on either side, and over a grid of more than one wave
+   (B=4, S=2048); dense decode
    at starcoder2_3b's cache (B=8, T=1024; per-row, scalar and clamped
    lengths; a row of length 0) and recurrentgemma_2b's local attention
    (B=4, T=2048, H=10, KV=1, Dh=256); both decode kernels also at their
@@ -31,6 +35,8 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    each kernel timed (CUDA events, L2 flushed, median of 25, device time
    only: see ``_time_ms``) beside its plain version, its bound and, where
    one PyTorch call computes the same function, that call as a yardstick;
+   flash at S = 128, 512, 1000 and 256 and at recurrentgemma_2b's local
+   attention (S=2048, H=10, KV=1, Dh=256), beside SDPA;
    both decode kernels also at a long context (B=8, every request at
    starcoder2_3b's 16,384 tokens), and each decode row names its split
    count; the triad at N = 2²⁷ in fp32 and bf16 gives STREAM's GB/s.
@@ -46,7 +52,7 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    tokens/s, TTFT p50, decode-step p50 and peak device memory.
 6. Profile — where one decode step (B=8) and one 512-token prefill spend
    their time: wall vs device kernel time (``torch.profiler``), and the
-   decode-attention kernels' share, outside the engine's threads.
+   decode-attention and flash kernels' shares, outside the engine's threads.
 7. Ops and STREAM — the reference's single-source kernel API
    (``repro_torch.kernels.ops``) at full widths, once each:
    ``decode_attention`` on starcoder2_3b's dense cache, ``ssd_scan`` at
@@ -245,7 +251,7 @@ def phase_kernels(torch, np):
                                                       paged_decode_attention_plain,
                                                       split_ranges)
     from repro_torch.kernels.flash_attention import (flash_attention_fwd,
-                                                     flash_attention_plain)
+                                                     flash_attention_plain, flash_plan)
 
     torch.backends.cuda.matmul.allow_tf32 = False  # fp32 plain versions in fp32
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -291,9 +297,28 @@ def phase_kernels(torch, np):
                                   (1, 384, 8, 1, 32), (2, 200, 4, 2, 64)]
                     for causal in (True, False)]
     flash_cases += [((2, 256, 4, 2, 64), True, 64, 0)]
-    # both sides of the bf16 dispatch (tensor cores up to head_dim 128)
+    # every head dim (bf16: the wgmma body at all of them)
     flash_cases += [((1, 100, 2, 1, 16), True, 0, 0), ((1, 130, 2, 2, 256), True, 0, 0),
-                    ((1, 130, 2, 2, 256), False, 0, 70)]
+                    ((1, 130, 2, 2, 256), False, 0, 70), ((1, 200, 4, 2, 32), True, 0, 0),
+                    ((1, 1000, 10, 1, 256), True, 0, 0)]
+    # q heads per KV head G = 1, 2, 12, 24 (1, 2, 4 and 8 heads per tile),
+    # at S off the 64-position tile
+    flash_cases += [((1, S, H, KV, 128), True, 0, 0)
+                    for S, (H, KV) in ((100, (4, 4)), (130, (4, 2)), (200, (24, 2)),
+                                       (1000, (24, 1)))]
+    # windows and valid_len one off a K-tile edge on either side, so each
+    # edge tile's mask and the tile range are both held (each with the
+    # off-by-one check); recurrentgemma_2b's local attention shape too
+    flash_cases += [(slice_shape, True, w, 0) for w in (63, 64, 65, 129)]
+    flash_cases += [(slice_shape, causal, 0, vl) for causal in (True, False)
+                    for vl in (127, 128, 129)]
+    flash_cases += [((1, 300, 10, 1, 256), True, 65, 0), ((1, 300, 10, 1, 256), False, 0, 193)]
+    # a window and valid_len together: rows from 363 on have no unmasked
+    # key and must be zeros, as in the plain version (a row error of
+    # |o| / 1e-12 there otherwise)
+    flash_cases += [(slice_shape, causal, 64, 300) for causal in (True, False)]
+    # a grid of more than one wave (1,536 blocks of 128 rows on 132 SMs)
+    flash_cases += [((4, 2048, 24, 2, 128), True, 0, 0)]
     slice_lens = rng.integers(1, 577, size=8).tolist()
     paged_cases = [(slice_lens, 24, 2, 128, 16, 64)]
     for (B, H, KV, Dh, page, maxp) in [(3, 4, 2, 64, 32, 8), (2, 8, 8, 32, 16, 4),
@@ -362,13 +387,19 @@ def phase_kernels(torch, np):
     flush = torch.empty(16 * 1024 * 1024, dtype=torch.float32, device="cuda")
     bf16 = torch.bfloat16
     timings = {"flash_attention": [], "paged_decode_attention": []}
-    for S in (128, 512, 1000):
-        B, H, KV, Dh = 1, 24, 2, 128
+    # S=128/512/1000 first, in this order (the kernels line reads S=512),
+    # then the serving run's most common bucket and recurrentgemma_2b's
+    # local attention (head_dim 256)
+    for B, S, H, KV, Dh in ((1, 128, 24, 2, 128), (1, 512, 24, 2, 128),
+                            (1, 1000, 24, 2, 128), (1, 256, 24, 2, 128),
+                            (1, 2048) + GRIFFIN_LOCAL[2:]):
         q, k, v = _flash_inputs(torch, gen, B, S, H, KV, Dh, bf16)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         timings["flash_attention"].append(_timing(
             torch, flush, {"B": B, "S": S, "H": H, "KV": KV, "Dh": Dh,
-                           "dtype": "bfloat16", "causal": True},
+                           "dtype": "bfloat16", "causal": True,
+                           "plan": flash_plan(B, S, H, KV, Dh,
+                                              torch.cuda.current_device())._asdict()},
             lambda: flash_attention_fwd(q, k, v), lambda: flash_attention_plain(q, k, v),
             lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
                                                    enable_gqa=True),
@@ -852,9 +883,9 @@ def phase_serve(torch, np, card):
 def _device_profile(torch, fn, n):
     """Wall time of ``n`` calls of ``fn`` (each ends in a synchronize),
     then the same under torch.profiler with its device kernel time and the
-    decode-attention kernels' share of it (the split and combine kernels of
-    ``csrc/decode_attention.cuh``); device time None if the profiler saw
-    none."""
+    attention kernels' share of it (decode: the split and combine kernels
+    of ``csrc/decode_attention.cuh``; flash: ``csrc/flash_attention.cu``);
+    device time None if the profiler saw none."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -880,9 +911,12 @@ def _device_profile(torch, fn, n):
     device_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
     decode = [e for e in kernels if "repro_torch::decode::" in e.key]
+    flash = [e for e in kernels if "flash_fwd" in e.key]
     return {**out, "device_ms": device_us / 1e3 / n,
             "decode_attention_ms": sum(e.self_device_time_total for e in decode) / 1e3 / n,
             "decode_attention_kernels": sum(e.count for e in decode) / n,
+            "flash_attention_ms": sum(e.self_device_time_total for e in flash) / 1e3 / n,
+            "flash_attention_kernels": sum(e.count for e in flash) / n,
             "busy_share": device_us / 1e6 / wall_plain,
             "kernels_per_call": sum(e.count for e in kernels) / n,
             "top": [(e.key[:60], e.self_device_time_total / 1e3 / n, e.count / n)
@@ -930,7 +964,9 @@ def phase_profile(torch, np, eng, card):
                     f"device busy {r['device_ms']:.2f} ms ({100 * r['busy_share']:.1f}%), "
                     f"{r['kernels_per_call']:.0f} kernels; decode attention "
                     f"{r['decode_attention_ms']:.3f} ms in "
-                    f"{r['decode_attention_kernels']:.0f} kernels")
+                    f"{r['decode_attention_kernels']:.0f} kernels; flash "
+                    f"{r['flash_attention_ms']:.3f} ms in "
+                    f"{r['flash_attention_kernels']:.0f} kernels")
             log(f"[profile] {name}: wall {r['wall_ms']:.2f} ms (profiled "
                 f"{r['profiled_wall_ms']:.2f} ms), {busy}")
     REPORT["profile"] = out

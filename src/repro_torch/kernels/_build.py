@@ -29,7 +29,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("flash_attention.cu", "paged_decode_attention.cu", "decode_attention.cu",
            "ssd_scan.cu", "rglru_scan.cu", "stream.cu")
-HEADERS = ("common.cuh", "mma.cuh", "decode_attention.cuh")
+HEADERS = ("common.cuh", "mma.cuh", "wgmma.cuh", "decode_attention.cuh")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                        "-Xptxas", "-v"]
@@ -43,8 +43,9 @@ HEAD_DIMS = (16, 32, 64, 128, 256)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # q, k, v, o, B, S, H, KV, Dh, causal, window, valid_len, dtype, stream
-    "repro_flash_attention_fwd": [_P, _P, _P, _P] + [_I] * 9 + [_P],
+    # q, k, v, o, B, S, H, KV, Dh, causal, window, valid_len, group, split,
+    # dtype, stream
+    "repro_flash_attention_fwd": [_P, _P, _P, _P] + [_I] * 11 + [_P],
     # q, k_pages, v_pages, page_table, lengths, ws, o, B, H, KV, Dh, page,
     # maxp, splits, tps, dtype, stream
     "repro_paged_decode_attention_fwd": [_P] * 7 + [_I] * 9 + [_P],

@@ -1,5 +1,5 @@
-"""Flash attention forward: the Hopper kernel's launcher and its plain
-PyTorch version.
+"""Flash attention forward: the Hopper kernel's launcher, its tile plan and
+its plain PyTorch version.
 
 The kernel (``csrc/flash_attention.cu``) replaces the reference's TPU
 kernel ``repro/kernels/flash_attention.py::flash_attention_fwd``.  Unlike
@@ -10,19 +10,160 @@ repeated per GQA group and nothing is padded.
 
 Both functions compute softmax(q·kᵀ/√Dh + mask)·v with fp32 math and the
 TPU kernel's masks: K positions at or past ``valid_len`` (0 means S),
-causal (kpos ≤ qpos) and sliding window (kpos > qpos − window), each
-masked with −1e30; the output is acc / max(l, 1e-20) in q's dtype.
+causal (kpos ≤ qpos) and sliding window (kpos > qpos − window); the output
+is acc / max(l, 1e-20) in q's dtype.  A row with no unmasked key at all
+(only a window and ``valid_len`` together make one) gives zeros in the
+plain version and in both kernel bodies; the TPU kernel gives the mean of
+v over the tiles it walked there, which depends on its tiling.
+
+The bf16 body packs ``group`` q heads of one KV group into the 64 rows of
+a consumer warpgroup, row r = (position p0 + r // group, head h0 + r %
+group), so each K/V tile it reads serves all of them; a block's two
+consumers (one at head_dim 256) either hold consecutive rows and share
+its K/V tiles, or, where that grid would leave SMs idle, hold the same
+rows, cut its K tiles between them and merge their softmax states.
+What the kernel decides per tile is written out here (:func:`flash_grid`,
+:func:`work_item`, :func:`kv_tiles`, :func:`tile_masked`,
+:func:`split_tiles`, :func:`consumer_tiles`) and mirrored line for line in
+the CUDA source; the CPU tests hold it against :func:`_mask`.
 """
 
 from __future__ import annotations
 
+import functools
 import math
+from typing import List, NamedTuple, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.decode_attention import sm_count
 
 NEG_INF = -1e30
+BK = 64               # csrc: K/V positions per tile
+WG_ROWS = 64          # csrc: rows of one consumer warpgroup (one wgmma M)
+GROUPS = (8, 4, 2, 1)  # heads packed per tile, largest first
+
+
+def consumers(Dh: int) -> int:
+    """Consumer warpgroups per block (csrc ``Cfg::CONSUMERS``): two; at
+    head_dim 256 one, since its 64×256 fp32 output needs more registers
+    than a thread of a 384-thread block has."""
+    return 1 if Dh == 256 else 2
+
+
+class FlashPlan(NamedTuple):
+    """The bf16 body's launch.  A consumer warpgroup holds 64 rows:
+    ``group`` q heads of one KV group at 64 / group consecutive positions,
+    so each K/V tile it reads serves ``group`` heads.  Shared
+    (``split`` False): the block's ``consumers`` warpgroups hold
+    consecutive rows and read the same K/V tiles, ``positions`` =
+    64·consumers / group.  Split: they hold the same 64 rows and cut the
+    block's K tiles between them, ``positions`` = 64 / group.  ``ptiles``
+    position tiles cover S; ``blocks`` is the grid."""
+    group: int
+    consumers: int
+    split: bool
+    positions: int
+    ptiles: int
+    blocks: int
+
+
+def flash_grid(B: int, S: int, H: int, KV: int, Dh: int, sms: int) -> FlashPlan:
+    """The grid of the bf16 body on a card of ``sms`` SMs, from static
+    shapes only.
+
+    ``group`` is the largest of 8, 4, 2, 1 that divides the q heads per KV
+    head.  The block runs shared, where each K/V tile it reads serves
+    twice the rows, unless that leaves SMs without a block (one block fits
+    an SM); then it runs split: twice the blocks, each walking half as
+    far, which is what sets the time when every block runs at once."""
+    G = H // KV
+    group = next(g for g in GROUPS if G % g == 0)
+    n = consumers(Dh)
+    per_ptile = B * KV * (G // group)
+    split = n > 1 and -(-S // (WG_ROWS * n // group)) * per_ptile < sms
+    positions = (WG_ROWS if split else WG_ROWS * n) // group
+    ptiles = -(-S // positions)
+    return FlashPlan(group, n, split, positions, ptiles, ptiles * per_ptile)
+
+
+@functools.lru_cache(maxsize=None)
+def flash_plan(B: int, S: int, H: int, KV: int, Dh: int, device_index: int) -> FlashPlan:
+    """:func:`flash_grid` on CUDA device ``device_index``, memoized per
+    static shape: a call does no plan arithmetic and no device query."""
+    return flash_grid(B, S, H, KV, Dh, sm_count(device_index))
+
+
+def work_item(i: int, B: int, H: int, KV: int, plan: FlashPlan,
+              causal: bool) -> Tuple[int, int, int, int]:
+    """Block ``i`` → (b, kv head, first q head, first position).
+
+    Blocks start in order of index, so the order is heavy first: under a
+    causal mask a later position walks more K tiles, so position tiles run
+    from the last to the first; without one a window's lower edge only
+    shortens the walk of later positions, so they run from the first.  (A
+    causal window with ``valid_len`` < S is the one case where neither
+    order is heaviest first: positions past ``valid_len`` walk fewer
+    tiles.)"""
+    heads = H // KV // plan.group
+    per = B * KV * heads
+    ptile = plan.ptiles - 1 - i // per if causal else i // per
+    r = i % per
+    hg, r = r % heads, r // heads
+    kv, b = r % KV, r // KV
+    return b, kv, kv * (H // KV) + hg * plan.group, ptile * plan.positions
+
+
+def kv_tiles(S: int, first: int, count: int, causal: bool, window: int,
+             valid_len: int) -> Tuple[int, int]:
+    """K tiles [t0, t1) that positions [first, first + count) ∩ [0, S) walk
+    (``valid_len`` already resolved: 0 → S); (0, 0) when none."""
+    last = min(first + count, S) - 1
+    if first >= S:
+        return 0, 0
+    end = min(valid_len, last + 1) if causal else valid_len
+    begin = max(0, first - window + 1) if window > 0 else 0
+    if begin >= end:
+        return 0, 0
+    return begin // BK, -(-end // BK)
+
+
+def tile_masked(S: int, first: int, count: int, t: int, causal: bool, window: int,
+                valid_len: int) -> bool:
+    """Whether K tile ``t`` needs the elementwise mask for positions
+    [first, first + count) ∩ [0, S): False only where every (position, key)
+    pair of the tile is unmasked."""
+    last = min(first + count, S) - 1
+    k0, k1 = t * BK, t * BK + BK - 1
+    inside = k1 < valid_len and (not causal or k1 <= first) and \
+        (window == 0 or k0 > last - window)
+    return not inside
+
+
+def split_tiles(t0: int, t1: int, n: int) -> List[Tuple[int, int]]:
+    """The cut of a block's K tiles [t0, t1) between its ``n`` consumers:
+    consumer w walks [t0 + w·a, min(t0 + (w+1)·a, t1)) with a = ⌈(t1 − t0)
+    / n⌉ (empty where that starts past t1).  The producer loads them in
+    turns — consumer w's j-th tile is ring entry j·n + w — so all walk at
+    once."""
+    a = -(-(t1 - t0) // n)
+    return [(t0 + w * a, max(t0 + w * a, min(t0 + (w + 1) * a, t1))) for w in range(n)]
+
+
+def consumer_tiles(S: int, p0: int, plan: FlashPlan, causal: bool, window: int,
+                   valid_len: int) -> List[Tuple[int, int, int, int]]:
+    """Per consumer of the block at position ``p0``: (first position,
+    positions, t0, t1), the K tiles [t0, t1) it walks; ``valid_len``
+    resolved (0 → S)."""
+    n = plan.consumers
+    if plan.split:
+        t0, t1 = kv_tiles(S, p0, plan.positions, causal, window, valid_len)
+        return [(p0, plan.positions, a, b) for a, b in split_tiles(t0, t1, n)]
+    wpos = plan.positions // n
+    return [(p0 + w * wpos, wpos,
+             *kv_tiles(S, p0 + w * wpos, wpos, causal, window, valid_len))
+            for w in range(n)]
 
 
 def _mask(S: int, causal: bool, window: int, valid_len: int,
@@ -41,45 +182,42 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                           causal: bool = True, window: int = 0,
                           valid_len: int = 0) -> torch.Tensor:
     """Plain PyTorch version of the kernel (same masks, same −1e30, same
-    final division).  q: (B,S,H,Dh), k/v: (B,S,KV,Dh) → (B,S,H,Dh)."""
+    final division; zeros in a row with no unmasked key).
+    q: (B,S,H,Dh), k/v: (B,S,KV,Dh) → (B,S,H,Dh)."""
     B, S, H, Dh = q.shape
     KV = k.shape[2]
     G = H // KV
+    ok = _mask(S, causal, window, valid_len, q.device)
     qf = q.float().reshape(B, S, KV, G, Dh)
     s = torch.einsum("bqkgd,btkd->bkgqt", qf, k.float()) * (1.0 / math.sqrt(Dh))
-    s = s.masked_fill(~_mask(S, causal, window, valid_len, q.device), NEG_INF)
+    s = s.masked_fill(~ok, NEG_INF)
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     l = p.sum(dim=-1).clamp_min(1e-20)  # (B,KV,G,S)
     o = torch.einsum("bkgqt,btkd->bkgqd", p, v.float()) / l[..., None]
+    o = o.masked_fill(~ok.any(dim=-1)[:, None], 0.0)
     return o.permute(0, 3, 1, 2, 4).reshape(B, S, H, Dh).to(q.dtype)
 
 
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  window: int, valid_len: int) -> None:
     """Raise on anything the kernel does not take."""
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device.type != "cuda" or t.device != q.device:
-            raise ValueError(f"flash_attention_fwd: {name} must be on q's CUDA "
-                             f"device, got {t.device}")
-        if t.dtype not in _build.DTYPES or t.dtype != q.dtype:
-            raise TypeError(f"flash_attention_fwd: {name} has dtype {t.dtype}; "
-                            f"q, k and v must share float32 or bfloat16")
-        if t.dim() != 4 or not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"flash_attention_fwd: {name} must be a contiguous, "
-                             f"16-byte aligned 4-d tensor, got shape "
-                             f"{tuple(t.shape)}")
+    what = "flash_attention_fwd"
+    _build.check_tensors(what, q, (("q", q), ("k", k), ("v", v)), q.dtype)
+    if q.dim() != 4 or k.dim() != 4 or any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"{what}: q, k and v must be 16-byte aligned 4-d tensors, "
+                         f"got shapes {tuple(q.shape)}, {tuple(k.shape)}")
     B, S, H, Dh = q.shape
     if k.shape != v.shape or k.shape[:2] != (B, S) or k.shape[3] != Dh:
-        raise ValueError(f"flash_attention_fwd: k/v shape {tuple(k.shape)} does "
-                         f"not match q {tuple(q.shape)}")
+        raise ValueError(f"{what}: k/v shape {tuple(k.shape)} does not match q "
+                         f"{tuple(q.shape)}")
     if H % k.shape[2] != 0:
-        raise ValueError(f"flash_attention_fwd: {H} q heads not a multiple of "
-                         f"{k.shape[2]} kv heads")
+        raise ValueError(f"{what}: {H} q heads not a multiple of {k.shape[2]} kv heads")
     if Dh not in _build.HEAD_DIMS:
-        raise ValueError(f"flash_attention_fwd: head_dim {Dh} not in {_build.HEAD_DIMS}")
-    if not 0 <= valid_len <= S or window < 0 or B * H > 65535:
-        raise ValueError(f"flash_attention_fwd: bad valid_len={valid_len}, "
-                         f"window={window} or B·H={B * H}")
+        raise ValueError(f"{what}: head_dim {Dh} not in {_build.HEAD_DIMS}")
+    if not 0 <= valid_len <= S or window < 0:
+        raise ValueError(f"{what}: bad valid_len={valid_len} or window={window}")
+    if q.dtype == torch.float32 and B * H > 65535:  # the fp32 grid's y extent
+        raise ValueError(f"{what}: float32 takes B·H ≤ 65535, got {B * H}")
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -89,9 +227,11 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q: (B,S,H,Dh), k/v: (B,S,KV,Dh), contiguous, on one CUDA device."""
     check_inputs(q, k, v, window, valid_len)
     B, S, H, Dh = q.shape
+    KV = k.shape[2]
+    plan = flash_plan(B, S, H, KV, Dh, q.get_device())
     o = torch.empty_like(q)
     _build.launch("repro_flash_attention_fwd", "flash_attention_fwd", q,
                   q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                  B, S, H, k.shape[2], Dh, int(causal), window, valid_len or S,
-                  _build.DTYPES[q.dtype])
+                  B, S, H, KV, Dh, int(causal), window, valid_len or S,
+                  plan.group, int(plan.split), _build.DTYPES[q.dtype])
     return o

@@ -23,7 +23,9 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import (BLOCKS_PER_SM, CHUNK, DENSE_TILE,
                                                   decode_attention_plain, decode_splits,
                                                   split_ranges, tiles_per_split)
-from repro_torch.kernels.flash_attention import flash_attention_plain
+from repro_torch.kernels.flash_attention import (BK, WG_ROWS, _mask, consumer_tiles,
+                                                 flash_attention_plain, flash_grid,
+                                                 kv_tiles, tile_masked, work_item)
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -75,6 +77,19 @@ def test_flash_attention_window():
     _close(o, rref.mha(*map(jnp.asarray, (q, k, v)), causal=True, window=64), 1e-4)
 
 
+def _reference_flash(q, k, v, dtype, **masks):
+    """The reference's TPU kernel in interpret mode on (B, S, heads, Dh)
+    numpy inputs: rows (B·H, S, Dh) with K/V heads repeated per group."""
+    B, S, H, Dh = q.shape
+
+    def rows(x):
+        x = np.repeat(x, H // x.shape[2], axis=2)
+        return _pair(x.transpose(0, 2, 1, 3).reshape(B * H, S, Dh), dtype)[0]
+
+    want = r_flash_fwd(rows(q), rows(k), rows(v), interpret=True, **masks)
+    return np.asarray(want, np.float32).reshape(B, H, S, Dh).transpose(0, 2, 1, 3)
+
+
 @pytest.mark.parametrize("S,valid_len", [(256, 200), (256, 130)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [True, False])
@@ -90,19 +105,201 @@ def test_flash_attention_valid_len_matches_reference(S, valid_len, dtype, causal
     v = rng.standard_normal((B, S, KV, Dh), np.float32)
     qt, kt, vt = (_pair(x, dtype)[1] for x in (q, k, v))
     o = ops.flash_attention(qt, kt, vt, causal=causal, valid_len=valid_len)
-
-    def rows(x):  # (B, S, heads, Dh) → (B·H, S, Dh), K/V heads repeated
-        x = np.repeat(x, H // x.shape[2], axis=2)
-        return _pair(x.transpose(0, 2, 1, 3).reshape(B * H, S, Dh), dtype)[0]
-
-    want = r_flash_fwd(rows(q), rows(k), rows(v), causal=causal, valid_len=valid_len,
-                       interpret=True)
-    want = np.asarray(want, np.float32).reshape(B, H, S, Dh).transpose(0, 2, 1, 3)
+    want = _reference_flash(q, k, v, dtype, causal=causal, valid_len=valid_len)
     _close(o, want, _tol(dtype))
     # the mask is live: attending to all S keys moves some output by more
     # than twice the loosest tolerance
     full = ops.flash_attention(qt, kt, vt, causal=causal)
     assert (full.float() - o.float()).abs().max().item() > 2 * _tol("bfloat16")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_row_without_keys_gives_zeros(dtype, causal):
+    """A window and ``valid_len`` together leave the rows at or past
+    valid_len + window − 1 with no unmasked key.  The port gives zeros
+    there (its kernel bodies do too: ``chip_smoke.py`` phase 3 holds them
+    against this plain version), and the reference's output on every other
+    row; the reference's own value in such a row depends on its tiling."""
+    B, S, H, KV, Dh, window, valid_len = 1, 256, 4, 2, 64, 64, 100
+    rng = np.random.default_rng(4)
+    q = rng.standard_normal((B, S, H, Dh), np.float32)
+    k = rng.standard_normal((B, S, KV, Dh), np.float32)
+    v = rng.standard_normal((B, S, KV, Dh), np.float32)
+    qt, kt, vt = (_pair(x, dtype)[1] for x in (q, k, v))
+    masks = {"causal": causal, "window": window, "valid_len": valid_len}
+    o = ops.flash_attention(qt, kt, vt, **masks)
+    empty = ~_mask(S, causal, window, valid_len, torch.device("cpu")).any(-1)
+    assert int(empty.sum()) == S - (valid_len + window - 1)
+    assert (o[:, empty] == 0).all()
+    keep = (~empty).numpy()
+    _close(o[:, ~empty], _reference_flash(q, k, v, dtype, **masks)[:, keep], _tol(dtype))
+
+
+# ------------------------------------------------- flash tile plan
+def _walk(B, S, H, KV, Dh, causal, window, valid_len, sms):
+    """The bf16 flash body's decisions on a card of ``sms`` SMs, as
+    ``flash_attention.py`` writes them out and the kernel mirrors: per
+    block, its work item, the block's K tiles, and per consumer warpgroup
+    its positions, its K tiles and which of them take the elementwise
+    mask."""
+    plan = flash_grid(B, S, H, KV, Dh, sms)
+    vl = valid_len or S
+    for i in range(plan.blocks):
+        b, kv, h0, p0 = work_item(i, B, H, KV, plan, causal)
+        wgs = [(first, count, w0, w1,
+                {t: tile_masked(S, first, count, t, causal, window, vl)
+                 for t in range(w0, w1)})
+               for first, count, w0, w1 in consumer_tiles(S, p0, plan, causal, window, vl)]
+        yield plan, (b, kv, h0, p0), wgs
+
+
+# 1 SM: the grid always covers the card, so blocks run shared; 2^30: never,
+# so they run split (head_dim 256 has one consumer either way)
+SMS = [1, 1 << 30]
+
+
+@pytest.mark.parametrize("sms", SMS)
+@pytest.mark.parametrize("H,KV,Dh", [(24, 2, 128), (4, 4, 64), (4, 1, 32), (10, 1, 256)])
+@pytest.mark.parametrize("vl_kind", ["S", "S-1", "150"])
+@pytest.mark.parametrize("window", [0, 1, 64, 128, 200])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S", [1, 16, 100, 130, 200, 512, 1000])
+def test_flash_tile_plan_covers_the_mask(S, causal, window, vl_kind, H, KV, Dh, sms):
+    """Against ``_mask``: every unmasked (q, k) pair lies in a tile that a
+    consumer warpgroup holding its row walks; a walked tile left without
+    the elementwise mask is wholly unmasked; the blocks' rows cover every
+    (b, head, position) exactly once; split consumers cut the block's tiles
+    in order, none walked twice; rows pack ``group`` heads of one KV group;
+    and the order is heavy first (no block of a whole position tile walks
+    more K tiles than one before it, give or take the one tile a window's
+    edge can add), except for a causal window with ``valid_len`` < S (see
+    ``work_item``)."""
+    B = 2
+    valid_len = {"S": 0, "S-1": S - 1, "150": min(150, S)}[vl_kind]
+    vl = valid_len or S
+    ok = _mask(S, causal, window, valid_len, torch.device("cpu")).expand(S, S).numpy()
+    G = H // KV
+    covered = np.zeros((B, H, S), np.int64)
+    walked = np.zeros((S, -(-S // BK)), bool)  # [position, K tile]
+    work = []
+    for plan, (b, kv, h0, p0), wgs in _walk(B, S, H, KV, Dh, causal, window, valid_len,
+                                            sms):
+        assert plan.split == (sms > 1 and plan.consumers > 1)
+        assert G % plan.group == 0 and len(wgs) == plan.consumers
+        assert plan.positions * plan.group == WG_ROWS * (1 if plan.split else plan.consumers)
+        assert kv * G <= h0 and h0 + plan.group <= (kv + 1) * G
+        assert 0 <= p0 < S and p0 % plan.positions == 0
+        if plan.split:
+            t0, t1 = kv_tiles(S, p0, plan.positions, causal, window, vl)
+            cuts = [(w0, w1) for _, _, w0, w1, _ in wgs]
+            assert cuts[0][0] == t0 and sum(w1 - w0 for w0, w1 in cuts) == t1 - t0
+            assert all(w0 <= w1 for w0, w1 in cuts)
+            assert all(c[1] == d[0] or d[0] == d[1] for c, d in zip(cuts, cuts[1:]))
+        for w, (first, count, w0, w1, masked) in enumerate(wgs):
+            rows = slice(first, min(first + count, S))
+            if not plan.split or w == 0:
+                covered[b, h0:h0 + plan.group, rows] += 1
+            assert w1 <= walked.shape[1]
+            for t, m in masked.items():
+                walked[rows, t] = True
+                if not m:
+                    k0, k1 = t * BK, (t + 1) * BK
+                    assert k1 <= vl and ok[rows, k0:k1].all(), (first, t)
+        spans = [(w0, w1) for _, _, w0, w1, _ in wgs if w0 < w1]
+        if p0 + plan.positions <= S:  # a ragged last position tile may walk fewer
+            work.append(max(e for _, e in spans) - min(a for a, _ in spans) if spans else 0)
+    assert (covered == 1).all()
+    q, k = np.nonzero(ok)
+    assert walked[q, k // BK].all()
+    if not (causal and window and vl < S):
+        # a window's edges fall anywhere in a tile: one tile of jitter
+        later = np.maximum.accumulate(np.asarray(work[::-1] or [0]))[::-1]
+        assert all(w >= m - (1 if window else 0) for w, m in zip(work, later))
+
+
+def _tile_walk(q, k, v, causal, window, valid_len, sms):
+    """The bf16 flash body's arithmetic in plain PyTorch (fp32): each
+    consumer warpgroup walks its K tiles in order with an online softmax,
+    masking only the tiles ``tile_masked`` marks (with −inf; a row max of
+    −inf is taken as 0); split consumers' (m, l, O) are merged; O is
+    divided by max(l, 1e-20)."""
+    B, S, H, Dh = q.shape
+    KV = k.shape[2]
+    scale = 1.0 / Dh ** 0.5
+    inf = float("inf")
+    o = torch.zeros(B, S, H, Dh)
+    ok = _mask(S, causal, window, valid_len, torch.device("cpu")).expand(S, S)  # [q, k]
+    for plan, (b, kv, h0, p0), wgs in _walk(B, S, H, KV, Dh, causal, window, valid_len,
+                                            sms):
+        states = []
+        for first, count, w0, w1, masked in wgs:
+            if first >= S:
+                continue
+            pos = torch.arange(first, min(first + count, S))
+            qs = q[b, pos, h0:h0 + plan.group].float()           # (P, g, Dh)
+            m = torch.full(qs.shape[:2], -inf)
+            l = torch.zeros(qs.shape[:2])
+            acc = torch.zeros(qs.shape)
+            for t in range(w0, w1):
+                keys = torch.arange(t * BK, min((t + 1) * BK, S))
+                s = torch.einsum("pgd,kd->pgk", qs, k[b, keys, kv].float())
+                if masked[t]:
+                    s = s.masked_fill(~ok[pos][:, keys][:, None, :], -inf)
+                m_new = torch.maximum(m, s.amax(-1))
+                m_use = torch.where(m_new == -inf, 0.0, m_new)
+                alpha = torch.exp((m - m_use) * scale)
+                p = torch.exp((s - m_use[..., None]) * scale)
+                l = l * alpha + p.sum(-1)
+                acc = acc * alpha[..., None] + torch.einsum("pgk,kd->pgd", p,
+                                                             v[b, keys, kv].float())
+                m = m_new
+            states.append((pos, m, l, acc))
+        if plan.split:  # one set of rows: merge the consumers' states
+            pos, m, l, acc = states[0]
+            for _, m1, l1, acc1 in states[1:]:
+                m_new = torch.maximum(m, m1)
+                m_use = torch.where(m_new == -inf, 0.0, m_new)
+                w0, w1 = torch.exp((m - m_use) * scale), torch.exp((m1 - m_use) * scale)
+                l, acc = l * w0 + l1 * w1, acc * w0[..., None] + acc1 * w1[..., None]
+                m = m_new
+            states = [(pos, m, l, acc)]
+        for pos, _, l, acc in states:
+            o[b, pos, h0:h0 + plan.group] = acc / l.clamp_min(1e-20)[..., None]
+    return o
+
+
+@pytest.mark.parametrize("sms", SMS)
+@pytest.mark.parametrize("B,S,H,KV,Dh,causal,window,valid_len", [
+    (1, 200, 24, 2, 32, True, 0, 0),     # 4 heads × 16 positions per block
+    (2, 130, 4, 1, 16, False, 0, 70),    # valid_len across a tile edge
+    (1, 300, 10, 1, 16, True, 65, 0),    # 2 heads per block, window off a tile
+    (2, 260, 4, 4, 16, True, 0, 0),      # MHA: 1 head × 64 positions
+    (1, 200, 10, 1, 256, True, 0, 90),   # head_dim 256: one warpgroup per block
+])
+def test_flash_tile_walk_matches_reference(B, S, H, KV, Dh, causal, window, valid_len,
+                                           sms):
+    """The tile walk (edge tiles masked, interior tiles not; consumers
+    sharing K/V tiles, or cutting them and merging) gives the reference's
+    Pallas kernel's output (interpret mode, K/V repeated per
+    GQA group), fp32, at 4 × test_kernels.py's tolerance."""
+    rng = np.random.default_rng(3)
+    q = rng.standard_normal((B, S, H, Dh), np.float32)
+    k = rng.standard_normal((B, S, KV, Dh), np.float32)
+    v = rng.standard_normal((B, S, KV, Dh), np.float32)
+    o = _tile_walk(*map(torch.from_numpy, (q, k, v)), causal, window, valid_len, sms)
+
+    Sp = -(-S // 128) * 128  # the reference takes whole 128-row blocks
+
+    def rows(x):  # (B, S, heads, Dh) → (B·H, Sp, Dh), K/V heads repeated, zero-padded
+        x = np.repeat(x, H // x.shape[2], axis=2).transpose(0, 2, 1, 3)
+        x = np.pad(x, ((0, 0), (0, 0), (0, Sp - S), (0, 0)))
+        return jnp.asarray(x.reshape(B * H, Sp, Dh))
+
+    want = r_flash_fwd(rows(q), rows(k), rows(v), causal=causal, window=window,
+                       valid_len=valid_len or S, interpret=True)
+    want = np.asarray(want, np.float32).reshape(B, H, Sp, Dh)[:, :, :S].transpose(0, 2, 1, 3)
+    _close(o, want, _tol("float32"))
 
 
 def _paged_inputs(B, H, KV, Dh, page, maxp, seed=8):
