@@ -6,6 +6,7 @@
     python3 chip_pair.py A B --serve      # ... each also serving (phases 5-6)
     python3 chip_pair.py A B --sweep      # ... B's turns also sweep split counts
     python3 chip_pair.py A B --modes      # ... and time flash's modes forced
+    python3 chip_pair.py A B --scans      # ... and the SSD and RG-LRU scans
 
 A and B are roots of two checkouts (for example a parent commit unpacked
 with ``git archive`` beside this one).  Each turn runs in its own process
@@ -23,7 +24,12 @@ checkout chooses its decode split count in
 ``decode_attention.split_plan`` also times the paged kernel with that
 count forced to 1, 4, 8, 16, 32 and 64 (each made whole: no split left
 empty by the extent) at the serving shape and at a 16,384-token context,
-and with every length 0 (every block empty: the call's fixed cost).  Two
+and with every length 0 (every block empty: the call's fixed cost).  With
+``--scans``, each turn also times the SSD scan at mamba2_780m (B=1,
+S=2048, H=48, P=64, G=1, N=128, chunk 256) and the RG-LRU scan at
+recurrentgemma_2b (B=1, S=2048, W=2560), bf16, as phase 3 times them,
+with their host time per call and each kernel's device time per call
+(``torch.profiler``, in the turn's ``*_kernels``).  Two
 versions are compared only within one such call, since cards differ in
 power limit and neighbours.
 
@@ -131,6 +137,32 @@ if MODES:
                 fa.flash_plan = plan
             out[f"modes_flash_b{B}_s{S}"] = row
             del q, k, v, want
+if SCANS:
+    import re
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.rglru_scan import rglru_scan_fwd
+    from repro_torch.kernels.ssd_scan import ssd_scan_fwd
+
+    def kernel_us(fn, n=10):
+        # device µs per call of each kernel fn launches, L2 flushed before each
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        return {re.search(r"(\w+)(<|\()", e.key.split("::")[-1]).group(1):
+                e.self_device_time_total / n for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+                and "repro_torch" in e.key}
+
+    ssd = c._ssd_inputs(torch, gen, *c.MAMBA, bf16)
+    lru = c._rglru_inputs(torch, gen, *c.GRIFFIN_LRU, bf16)
+    for name, fn in (("ssd", lambda: ssd_scan_fwd(*ssd, chunk=c.MAMBA_CHUNK)),
+                     ("rglru", lambda: rglru_scan_fwd(*lru))):
+        out[f"{name}_ms"] = c._time_ms(torch, fn, flush)
+        out[f"{name}_enqueue_us"] = enqueue_us(fn)
+        out[f"{name}_kernels"] = kernel_us(fn)
 print(json.dumps(out))
 """
 
@@ -144,6 +176,7 @@ def main() -> int:
         del argv[i:i + 2]
     args = [a for a in argv if not a.startswith("--")]
     serve, sweep, modes = "--serve" in argv, "--sweep" in argv, "--modes" in argv
+    scans = "--scans" in argv
     if len(args) != 2 or rounds < 1:
         print(__doc__, file=sys.stderr)
         return 2
@@ -152,7 +185,8 @@ def main() -> int:
     for name in "ABBA" * rounds:
         root = roots[name]
         r = subprocess.run([sys.executable, "-c",
-                            f"SERVE = {serve}\nSWEEP = {sweep}\nMODES = {modes}\n" + TURN],
+                            f"SERVE = {serve}\nSWEEP = {sweep}\nMODES = {modes}\n"
+                            f"SCANS = {scans}\n" + TURN],
                            cwd=root, capture_output=True, text=True, timeout=1200)
         if r.returncode != 0:
             print(r.stdout[-4000:], r.stderr[-4000:], sep="\n", file=sys.stderr)

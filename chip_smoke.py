@@ -28,7 +28,10 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    16,384-token context); the SSD scan at
    mamba2_780m (S=2048, H=48, P=64, N=128, chunk 256; ragged S=2000; a
    steep decay); the RG-LRU scan at recurrentgemma_2b (S=2048, W=2560);
-   the triad at N = 2²⁷.
+   the triad at N = 2²⁷; both scans also across their chunk edges (S on
+   an edge ± 1, 8 and 32 SSD chunks, a steep decay over 8, B=2 with G=2
+   at mamba2_780m's widths, chunk 40; RG-LRU S below one 64-step chunk,
+   W=2561, B=4, 256 chunks at S=16,384, a slow decay a in (0.9, 1)).
    Limits: absolute ``test_kernels.py::_tol`` × 4 (SSD × 8 with rtol
    1e-2; the triad exact) and a tight limit on each output row's relative
    error (``ROW_TOL``), which an off-by-one length is shown to break; then
@@ -95,9 +98,11 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}       # dense, no sparsity
 # P·V, about as much again.  fp32 differs only in summation order.  A
 # window, valid_len or length bound that is off by one moves some row by
 # 0.5 or more, and phase 3 checks that it moves it past the limit.
-# The scans: the RG-LRU kernel and its plain version do the same rounded
-# product and sum per step (fp32 equal); the SSD's in-chunk cumsum of
-# dt·A (|cum| up to ~200) runs in another order on each side, which moves
+# The scans: the RG-LRU kernel does the same rounded product and sum per
+# step as its plain version, but composes the carry at each 64-step chunk
+# edge in another order (a few ulps, decaying with a < 1: fp32 within
+# ~5e-7 of a row even at a in (0.99, 1)); the SSD's in-chunk cumsum of dt·A
+# (|cum| up to ~200) runs in another order on each side, which moves
 # exp(cum_i − cum_j) by up to ~1e-4 relative; the triad is bit-equal.
 ROW_TOL = {("flash_attention", "float32"): 1e-5,
            ("flash_attention", "bfloat16"): 1e-2,
@@ -453,8 +458,11 @@ def _ssd_inputs(torch, gen, B, S, H, P, G, N, dtype, steep=False):
     return x.to(dtype), dt.to(dtype), A, Bm.to(dtype), Cm.to(dtype)
 
 
-def _rglru_inputs(torch, gen, B, S, W, dtype):
+def _rglru_inputs(torch, gen, B, S, W, dtype, slow=False):
+    """``slow``: a in (0.9, 1), so a carry lives on across chunk edges."""
     a = torch.sigmoid(torch.randn(B, S, W, generator=gen, device="cuda"))
+    if slow:
+        a = 0.9 + 0.1 * a
     b = torch.randn(B, S, W, generator=gen, device="cuda") * 0.1
     return a.to(dtype), b.to(dtype)
 
@@ -465,21 +473,30 @@ def _triad_inputs(torch, gen, N, dtype):
 
 
 def _ssd_flops(S, H, P, N, B, chunk, dtype):
-    """The SSD's operations, {dtype: flops}, by the cheaper of two ways to
-    compute it (at the peak rates), and both ways.  The recurrence: per
+    """The SSD's operations, {dtype: flops}, by the cheapest of three ways
+    to compute it (at the peak rates), and all three.  The recurrence: per
     step and head, decay the fp32 (N, P) state, add dt·x ⊗ B and read
     C·state: 5·N·P flops, fp32.  The chunked dual form: C·Bᵀ over j ≤ i
     (both operands in the input dtype, so bf16 runs on tensor cores), then
-    scores·x, the carried state's C·S and the state update in fp32."""
+    scores·x, the carried state's C·S (no chunk but the first has one) and
+    the state update (no chunk but the last feeds one) in fp32.  The same
+    products as the kernel runs them: bf16 on the tensor cores, an
+    operand split into bf16 hi + lo (the scores, S_in, w ⊙ x) counting
+    twice; fp32 on fp32 FMAs."""
     recurrence = {"float32": 5 * N * P * S * H * B}
-    cb = rest = 0
-    for t0 in range(0, S, chunk):
+    cb = sx = cs = st = 0
+    starts = range(0, S, chunk)
+    for c, t0 in enumerate(starts):
         q = min(chunk, S - t0)
         cb += q * (q + 1) // 2 * N * 2
-        rest += (q * (q + 1) // 2 * P + 2 * q * N * P) * 2
+        sx += q * (q + 1) // 2 * P * 2
+        cs += q * N * P * 2 if c > 0 else 0
+        st += q * N * P * 2 if c < len(starts) - 1 else 0
     dual = {dtype: B * H * cb}
-    dual["float32"] = dual.get("float32", 0) + B * H * rest
-    ways = {"recurrence": recurrence, "chunked": dual}
+    dual["float32"] = dual.get("float32", 0) + B * H * (sx + cs + st)
+    split = 2 if dtype == "bfloat16" else 1
+    kernel = {dtype: B * H * (cb + split * (sx + cs + st))}
+    ways = {"recurrence": recurrence, "chunked": dual, "kernel": kernel}
     return min(ways.values(), key=_ops_ms), ways
 
 
@@ -530,7 +547,25 @@ def _check_ops_kernels(torch, gen, rng, record):
                  ((1, 512, 48, 64, 1, 128), 256, True),
                  ((1, 128, 2, 16, 1, 16), 32, False), ((2, 96, 4, 16, 2, 32), 32, False),
                  ((1, 100, 2, 8, 2, 16), 64, False)]
-    rglru_cases = [GRIFFIN_LRU, (2, 130, 100), (1, 256, 128), (1, 64, 256)]
+    # across the chunk edges of the chunk-parallel kernel: S = 256·k ± 1,
+    # 32 chunks through the state pass, a steep decay over 8 chunks, B=2
+    # with G=2 at mamba2_780m's widths, and chunks of 40 (off the 16-row
+    # tile; 26 of them, the last 10 steps)
+    ssd_cases += [((1, 1023, 48, 64, 1, 128), 256, False),
+                  ((1, 1025, 48, 64, 1, 128), 256, False),
+                  ((1, 8192, 48, 64, 1, 128), 256, False),
+                  (MAMBA, MAMBA_CHUNK, True),
+                  ((2, 1024, 48, 64, 2, 128), 256, False),
+                  ((1, 1010, 48, 64, 1, 128), 40, False)]
+    rglru_cases = [(GRIFFIN_LRU, False), ((2, 130, 100), False), ((1, 256, 128), False),
+                   ((1, 64, 256), False)]
+    # across the 64-step chunks of the split scan: S = 64·k ± 1, S below
+    # one chunk, a ragged W, B=4, 256 chunks through the carry pass, and a
+    # slow decay, whose carries live on across chunk edges
+    rglru_cases += [((1, 2047, 2560), False), ((1, 2049, 2560), False),
+                    ((1, 40, 2560), False), ((1, 2048, 2561), False),
+                    ((4, 2048, 2560), False), ((1, 16384, 2560), False),
+                    (GRIFFIN_LRU, True)]
     triad_cases = [STREAM_N, 70000, 65536, 1000]
     for dtype in (torch.float32, torch.bfloat16):
         for (B, T, H, KV, Dh), length in decode_cases:
@@ -556,12 +591,12 @@ def _check_ops_kernels(torch, gen, rng, record):
             record("ssd_scan", [B, S, H, P, G, N, chunk] + (["steep"] if steep else []),
                    dtype, y, ssd_scan_plain(*args, chunk=chunk),
                    ssd_scan_plain(*f32, chunk=chunk), None)
-        for B, S, W in rglru_cases:
-            a, b = _rglru_inputs(torch, gen, B, S, W, dtype)
+        for (B, S, W), slow in rglru_cases:
+            a, b = _rglru_inputs(torch, gen, B, S, W, dtype, slow)
             h = rglru_scan_fwd(a, b)
             torch.cuda.synchronize()
-            record("rglru_scan", [B, S, W], dtype, h, rglru_scan_plain(a, b),
-                   rglru_scan_plain(a.float(), b.float()), None)
+            record("rglru_scan", [B, S, W] + (["slow"] if slow else []), dtype, h,
+                   rglru_scan_plain(a, b), rglru_scan_plain(a.float(), b.float()), None)
         for N in triad_cases:
             a, b = _triad_inputs(torch, gen, N, dtype)
             o = stream_triad_fwd(a, b, 3.0)

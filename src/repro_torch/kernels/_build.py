@@ -22,7 +22,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -51,10 +51,10 @@ _SIGNATURES = {
     "repro_paged_decode_attention_fwd": [_P] * 7 + [_I] * 9 + [_P],
     # q, k, v, lengths, ws, o, B, T, H, KV, Dh, splits, tps, dtype, stream
     "repro_decode_attention_fwd": [_P] * 6 + [_I] * 8 + [_P],
-    # x, dt, A, Bm, Cm, y, B, S, H, P, G, N, chunk, dtype, stream
-    "repro_ssd_scan_fwd": [_P] * 6 + [_I] * 8 + [_P],
-    # a, b, h, B, S, W, dtype, stream
-    "repro_rglru_scan_fwd": [_P] * 3 + [_I] * 4 + [_P],
+    # x, dt, A, Bm, Cm, ws, y, B, S, H, P, G, N, chunk, chunks, dtype, stream
+    "repro_ssd_scan_fwd": [_P] * 7 + [_I] * 9 + [_P],
+    # a, b, ws, h, B, S, W, chunks, dtype, stream
+    "repro_rglru_scan_fwd": [_P] * 4 + [_I] * 5 + [_P],
     # a, b, o, n, alpha, dtype, stream
     "repro_stream_triad": [_P] * 3 + [ctypes.c_longlong, ctypes.c_float, _I, _P],
 }
@@ -169,13 +169,40 @@ def check_tensors(what: str, like: torch.Tensor, named, dtype=None) -> None:
                             f"{dtype} (floats: float32 or bfloat16)")
 
 
-def launch(entry: str, what: str, like: torch.Tensor, *args) -> None:
+# (device index, raw stream, thread) -> the kernels' fp32 scratch
+_workspaces: Dict[Tuple[int, int, int], torch.Tensor] = {}
+WORKSPACE = object()  # stands in :func:`launch`'s args for the scratch pointer
+
+
+def workspace(device_index: int, stream: int, numel: int) -> int:
+    """A pointer to ``numel`` fp32 floats of scratch: one ``torch.empty``
+    per (device, stream, thread), kept and grown as the shapes need it and
+    shared by every kernel that takes scratch, so a call makes no
+    allocator call.  Reuse is safe: the launches on one stream run in
+    order, so a call's last kernel has read its scratch before the next
+    call's first kernel writes there, and each thread has its own buffer,
+    since two threads' launches on one stream may interleave."""
+    key = (device_index, stream, threading.get_ident())
+    ws = _workspaces.get(key)
+    if ws is None or ws.numel() < numel:
+        ws = torch.empty(numel, dtype=torch.float32, device=f"cuda:{device_index}")
+        _workspaces[key] = ws
+    return ws.data_ptr()
+
+
+def launch(entry: str, what: str, like: torch.Tensor, *args, ws_floats: int = 0) -> None:
     """Call the C entry point with ``args`` and PyTorch's current stream,
-    on ``like``'s device; raise if the launch returned a CUDA error."""
-    lib = library()
-    with torch.cuda.device(like.device):
-        err = getattr(lib, entry)(*args,
-                                  torch.cuda.current_stream(like.device).cuda_stream)
+    on ``like``'s device, with :data:`WORKSPACE` in ``args`` replaced by
+    the :func:`workspace` pointer to ``ws_floats`` floats; raise if the
+    launch returned a CUDA error."""
+    fn = getattr(library(), entry)
+    dev = like.get_device()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if ws_floats:
+            ptr = workspace(dev, stream, ws_floats)
+            args = tuple(ptr if a is WORKSPACE else a for a in args)
+        err = fn(*args, stream)
     check(err, what)
 
 

@@ -1,7 +1,8 @@
 // Warp-level tensor-core helpers for Hopper (sm_90a): ldmatrix and
 // mma.sync m16n8k16 (bf16 in, fp32 accumulate) for the decode body
-// (decode_attention.cuh); smem_addr and pack_bf16 also serve the wgmma
-// helpers (wgmma.cuh) and the flash kernel (flash_attention.cu).
+// (decode_attention.cuh) and the SSD scan (ssd_scan.cu); smem_addr and
+// pack_bf16 also serve the wgmma helpers (wgmma.cuh) and the flash kernel
+// (flash_attention.cu).
 #pragma once
 
 #include <cuda_bf16.h>

@@ -1,7 +1,8 @@
 // Warpgroup tensor-core helpers for Hopper (sm_90a): wgmma.mma_async with
 // fp32 accumulators, shared-memory matrix descriptors, TMA tensor loads and
 // mbarriers, written as raw PTX (no CUTLASS headers, so the library builds
-// in seconds).  Used by the flash kernel (flash_attention.cu).
+// in seconds).  Used by the flash kernel (flash_attention.cu); the SSD
+// scan (ssd_scan.cu) takes its mbarriers.
 //
 // The wgmma wrappers spell out every accumulator register, as the PTX
 // instruction requires; the widths differ in nothing else.

@@ -28,16 +28,16 @@ a second kernel combines the blocks' fp32 partials (m, l, acc) by
 log-sum-exp in split order.  :func:`decode_splits` chooses the split count
 from static shapes only — never from the lengths, which would wait for
 the device — and :func:`split_plan` memoizes it with the cut per shape;
-the partials' workspace is a ``torch.empty`` kept per stream, so a call in
-the decode loop makes no allocator call and no sync.
+the partials live in ``_build.workspace``, a ``torch.empty`` kept per
+(device, stream, thread), so a call in the decode loop makes no allocator
+call and no sync.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-import threading
-from typing import Dict, List, Tuple
+from typing import List, Tuple
 
 import torch
 
@@ -96,38 +96,15 @@ def split_plan(B: int, KV: int, extent_tiles: int, tile: int, group: int,
     return splits, tiles_per_split(extent_tiles, splits)
 
 
-# (device index, raw stream, thread) -> the splits' fp32 partials
-_workspaces: Dict[Tuple[int, int, int], torch.Tensor] = {}
+def _workspace_arg(splits: int):
+    """The partials' scratch pointer (:data:`_build.WORKSPACE`), or a null
+    pointer for one split, which writes the output itself."""
+    return _build.WORKSPACE if splits > 1 else None
 
 
-def _workspace(device_index: int, stream: int, numel: int) -> int:
-    """A pointer to ``numel`` fp32 floats for the splits' partials: one
-    ``torch.empty`` per (device, stream, thread), kept and grown as the
-    shapes need it, so the decode loop makes no allocator call.  Reuse is
-    safe: the launches on one stream run in order, so a call's combine
-    reads its own partials before the next call's split kernel writes
-    there, and each thread has its own buffer, since two threads' launches
-    on one stream may interleave."""
-    key = (device_index, stream, threading.get_ident())
-    ws = _workspaces.get(key)
-    if ws is None or ws.numel() < numel:
-        ws = torch.empty(numel, dtype=torch.float32, device=f"cuda:{device_index}")
-        _workspaces[key] = ws
-    return ws.data_ptr()
-
-
-def _launch(entry: str, what: str, q: torch.Tensor, splits: int, numel: int,
-            before: tuple, after: tuple) -> None:
-    """Call the C entry point with ``before``, the workspace of ``numel``
-    floats (a null pointer for one split), ``after`` and PyTorch's current
-    stream on q's device; raise if the launch returned a CUDA error."""
-    dev = q.get_device()
-    fn = getattr(_build.library(), entry)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        ws = _workspace(dev, stream, numel) if splits > 1 else None
-        err = fn(*before, ws, *after, stream)
-    _build.check(err, what)
+def _workspace_floats(B: int, H: int, Dh: int, splits: int) -> int:
+    """The splits' fp32 partials: acc (Dh) and (m, l) per (row, split)."""
+    return B * H * splits * (Dh + 2) if splits > 1 else 0
 
 
 def lengths_for(length, B: int, T: int, device: torch.device) -> torch.Tensor:
@@ -212,9 +189,10 @@ def decode_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     splits, tps = split_plan(B, KV, -(-T // DENSE_TILE), DENSE_TILE, H // KV,
                              q.get_device())
     o = torch.empty_like(q)
-    _launch("repro_decode_attention_fwd", what, q, splits, B * H * splits * (Dh + 2),
-            (q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr()),
-            (o.data_ptr(), B, T, H, KV, Dh, splits, tps, _build.DTYPES[q.dtype]))
+    _build.launch("repro_decode_attention_fwd", what, q, q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), lens.data_ptr(), _workspace_arg(splits), o.data_ptr(),
+                  B, T, H, KV, Dh, splits, tps, _build.DTYPES[q.dtype],
+                  ws_floats=_workspace_floats(B, H, Dh, splits))
     return o
 
 
@@ -259,10 +237,9 @@ def paged_decode_attention_fwd(q: torch.Tensor, k_pages: torch.Tensor,
     maxp = page_table.shape[1]
     splits, tps = split_plan(B, KV, maxp, page, H // KV, q.get_device())
     o = torch.empty_like(q)
-    _launch("repro_paged_decode_attention_fwd", "paged_decode_attention_fwd", q, splits,
-            B * H * splits * (Dh + 2),
-            (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
-             lengths.data_ptr()),
-            (o.data_ptr(), B, H, KV, Dh, page, maxp, splits, tps,
-             _build.DTYPES[q.dtype]))
+    _build.launch("repro_paged_decode_attention_fwd", "paged_decode_attention_fwd", q,
+                  q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                  page_table.data_ptr(), lengths.data_ptr(), _workspace_arg(splits),
+                  o.data_ptr(), B, H, KV, Dh, page, maxp, splits, tps,
+                  _build.DTYPES[q.dtype], ws_floats=_workspace_floats(B, H, Dh, splits))
     return o

@@ -1,5 +1,5 @@
-"""Mamba-2 SSD chunked scan: the Hopper kernel's launcher and its plain
-PyTorch version.
+"""Mamba-2 SSD chunked scan: the Hopper kernel's launcher, its plan and its
+plain PyTorch version.
 
 The kernel (``csrc/ssd_scan.cu``) replaces the reference's TPU kernel
 ``repro/kernels/ssd_scan.py::ssd_scan_fwd``.  It takes the public layouts
@@ -7,21 +7,60 @@ The kernel (``csrc/ssd_scan.cu``) replaces the reference's TPU kernel
 head and B/C by group (h // (H/G)), and masks the ragged last chunk, so
 nothing is tiled, repeated or padded as the reference's wrapper does.
 
-Per chunk of ``chunk`` steps, with cum the inclusive cumsum of dt·A in
-the chunk and S the fp32 (N, P) state carried across chunks:
-    y_i = Σ_{j≤i} (C_i·B_j)·exp(cum_i − cum_j)·dt_j·x_j + exp(cum_i)·C_i·S
-    S  ← S·exp(cum_end) + Σ_j exp(cum_end − cum_j)·dt_j·B_j ⊗ x_j
+Per chunk c of ``chunk`` steps, with cum the inclusive cumsum of dt·A in
+the chunk and S_in(c) the fp32 (N, P) state entering it:
+    y_i = Σ_{j≤i} (C_i·B_j)·exp(cum_i − cum_j)·dt_j·x_j + exp(cum_i)·C_i·S_in(c)
+    S_in(c+1) = S_in(c)·exp(cum_end) + Σ_j exp(cum_end − cum_j)·dt_j·B_j ⊗ x_j
 The chunk decides where the state is carried, so it changes the sums'
 order (not the function): the plain version uses the same chunks.
+
+The kernel runs the chunks in parallel (:func:`ssd_plan`): every chunk's
+local state, then the one walk over chunks that turns them into S_in(c),
+then every chunk's outputs (bf16: a block per chunk and head; fp32: per
+64 rows of one); the workspace holds the states and the cumsums between
+the launches.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
 
-MAX_CHUNK = 256  # csrc: one scan element per thread
+MAX_CHUNK = 256      # csrc: one scan element per thread
+MAX_N = 128          # csrc: one warp per 16 rows of the state
+MAX_P = 128          # csrc: a warp's accumulators span P
+ROW_TILE = 64        # csrc: chunk rows per fp32 output block (4 warps × 16)
+PASS_THREADS = 256   # csrc: state entries per block of the state pass
+MAX_GRID_YZ = 65535
+
+
+class SSDPlan(NamedTuple):
+    chunks: int       # ⌈S / chunk⌉; the last holds S − (chunks − 1)·chunk steps
+    out_blocks: int   # output blocks per chunk: bf16 1 (16 row tiles of 16 in pairs,
+                      # one per warp), fp32 ⌈chunk / ROW_TILE⌉ (past a ragged end: none)
+    grids: Tuple[Tuple[int, int, int], ...]  # chunk states, state pass (none for one chunk), outputs
+    state_floats: int  # the (N, P) states, B·H·chunks of them
+    ws_floats: int     # + cum_end per (b, h, chunk) and cum per (b, h, step), rounded up
+                       # to 16 bytes; bf16: + S_in as bf16 hi and lo planes
+
+
+@functools.lru_cache(maxsize=None)
+def ssd_plan(B: int, S: int, H: int, P: int, N: int, chunk: int, bf16: bool) -> SSDPlan:
+    """How the kernel cuts (B, S, H) into blocks and what scratch it takes
+    (fp32 floats), for ``chunk`` steps a chunk; ``bf16``: the call's dtype
+    is bfloat16 (the tensor cores take S_in as bf16 planes)."""
+    chunks = -(-S // chunk)
+    out_blocks = 1 if bf16 else -(-chunk // ROW_TILE)
+    grids = ((chunks, H, B),) + (((-(-N * P // PASS_THREADS), H, B),) if chunks > 1 else ()) \
+        + ((out_blocks * chunks, H, B),)
+    state_floats = B * H * chunks * N * P
+    planes_at = -(-(state_floats + B * H * (chunks + S)) // 4) * 4
+    return SSDPlan(chunks, out_blocks, grids, state_floats,
+                   planes_at + (state_floats if bf16 else 0))
 
 
 def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -61,8 +100,7 @@ def ssd_scan_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                  chunk: int = 256) -> torch.Tensor:
     """Launch the CUDA kernel on PyTorch's current stream.  x (B,S,H,P),
     dt (B,S,H), Bm/Cm (B,S,G,N) in one dtype, A (H,) float32, all
-    contiguous on one CUDA device; 1 ≤ chunk ≤ 256.  A state (N, P) too
-    large for one block's shared memory makes the launch raise."""
+    contiguous on one CUDA device; 1 ≤ chunk ≤ 256, N and P at most 128."""
     what = "ssd_scan_fwd"
     _build.check_tensors(what, x, (("x", x), ("dt", dt), ("Bm", Bm), ("Cm", Cm)),
                          x.dtype)
@@ -76,11 +114,15 @@ def ssd_scan_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             or Bm.shape[:2] != (B, S) or H % G != 0:
         raise ValueError(f"{what}: x {tuple(x.shape)}, dt {tuple(dt.shape)}, A "
                          f"{tuple(A.shape)}, Bm {tuple(Bm.shape)} do not fit together")
-    if not 1 <= chunk <= MAX_CHUNK or B > 65535:
-        raise ValueError(f"{what}: chunk {chunk} (1–{MAX_CHUNK}) or batch {B} out "
-                         f"of range")
+    if not 1 <= chunk <= MAX_CHUNK or not 1 <= N <= MAX_N or not 1 <= P <= MAX_P \
+            or B > MAX_GRID_YZ or H > MAX_GRID_YZ or S == 0:
+        raise ValueError(f"{what}: chunk {chunk} (1–{MAX_CHUNK}), N {N} (1–{MAX_N}), "
+                         f"P {P} (1–{MAX_P}), batch {B} or heads {H} (≤ {MAX_GRID_YZ}) "
+                         f"out of range")
+    plan = ssd_plan(B, S, H, P, N, chunk, x.dtype == torch.bfloat16)
     y = torch.empty_like(x)
     _build.launch("repro_ssd_scan_fwd", what, x, x.data_ptr(), dt.data_ptr(),
-                  A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), y.data_ptr(), B, S, H,
-                  P, G, N, chunk, _build.DTYPES[x.dtype])
+                  A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), _build.WORKSPACE,
+                  y.data_ptr(), B, S, H, P, G, N, chunk, plan.chunks,
+                  _build.DTYPES[x.dtype], ws_floats=plan.ws_floats)
     return y

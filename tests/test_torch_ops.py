@@ -1,7 +1,10 @@
 """The port's dense decode, SSD scan, RG-LRU scan and STREAM triad (their
 plain versions, as ``repro_torch.kernels.ops`` runs them for CPU tensors)
 against the reference's ``repro.kernels.ops`` in interpret mode and its
-oracles ``repro.kernels.ref``, over the sweeps of ``test_kernels.py``.
+oracles ``repro.kernels.ref``, over the sweeps of ``test_kernels.py``; and
+the scan kernels' plans (``ssd_plan``, ``rglru_plan``) and their passes,
+written out in plain PyTorch as the plans cut them, against the same
+oracles.
 
 Inputs are drawn with numpy from a seed and handed to both packages; bf16
 inputs are rounded from the same fp32 draws on both sides.  Tolerances
@@ -19,6 +22,11 @@ import torch
 from repro.kernels import ops as rops
 from repro.kernels import ref as rref
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.rglru_scan import CHUNK as RGLRU_CHUNK
+from repro_torch.kernels.rglru_scan import THREADS as RGLRU_THREADS
+from repro_torch.kernels.rglru_scan import rglru_plan
+from repro_torch.kernels.ssd_scan import (MAX_GRID_YZ, PASS_THREADS, ROW_TILE, ssd_plan,
+                                          ssd_scan_plain)
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -149,6 +157,111 @@ def test_ssd_scan_steep_decay_stays_finite():
     _close(y, rref.ssd(*jx)[0], atol=2e-5 * 8, rtol=1e-2)
 
 
+@pytest.mark.parametrize("B,S,H,P,N,chunk", [
+    (1, 512, 4, 64, 128, 256),     # S on a chunk edge
+    (1, 511, 4, 64, 128, 256),     # ... and one off it on either side
+    (1, 513, 4, 64, 128, 256),
+    (1, 100, 2, 8, 16, 256),       # S < chunk: one chunk, no state pass
+    (2, 300, 48, 64, 128, 40),     # B > 1; a chunk off 16, a ragged last chunk
+    (3, 2048, 48, 64, 128, 256),   # mamba2_780m's widths, B = 3
+    (1, 8192, 48, 64, 128, 256),   # 32 chunks through the state pass
+])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_ssd_plan_covers_every_step(B, S, H, P, N, chunk, bf16):
+    """``ssd_plan`` against the kernel's cut: the chunks cover S once (the
+    last one ragged, never empty); the state pass covers every (n, p); the
+    output blocks cover every row of every chunk once (fp32: 64-row tiles,
+    heavy first; bf16: one block a chunk whose 8 warps take the 16-row
+    tiles in pairs (w, 15 − w), none walking more than 17 column tiles);
+    and the scratch holds the states, cum_end, cum and (bf16) S_in's hi and
+    lo planes from a 16-byte boundary."""
+    plan = ssd_plan(B, S, H, P, N, chunk, bf16)
+    C = plan.chunks
+    steps = [t for c in range(C) for t in range(c * chunk, min((c + 1) * chunk, S))]
+    assert steps == list(range(S)) and 0 < S - (C - 1) * chunk <= chunk
+    assert plan.grids[0] == (C, H, B) and plan.grids[-1][1:] == (H, B)
+    assert len(plan.grids) == (3 if C > 1 else 2)
+    if C > 1:
+        blocks = plan.grids[1][0]
+        assert plan.grids[1][1:] == (H, B)
+        assert blocks * PASS_THREADS >= N * P > (blocks - 1) * PASS_THREADS
+    assert all(g[1] <= MAX_GRID_YZ and g[2] <= MAX_GRID_YZ for g in plan.grids)
+    assert plan.grids[-1][0] == plan.out_blocks * C
+    for c in range(C):
+        Qc = min(chunk, S - c * chunk)
+        rows = []
+        if bf16:
+            assert plan.out_blocks == 1 and Qc <= 16 * 16
+            for w in range(8):
+                tiles = [t for t in (w, 15 - w) if 16 * t < Qc]
+                assert sum(t + 1 for t in tiles) <= 17  # column tiles j ≤ i walked
+                rows += [i for t in tiles for i in range(16 * t, min(16 * t + 16, Qc))]
+        else:
+            tiles = plan.out_blocks
+            for x in range(c * tiles, (c + 1) * tiles):  # blockIdx.x → (chunk, row tile)
+                assert x // tiles == c
+                rt = tiles - 1 - x % tiles
+                rows += list(range(ROW_TILE * rt, min(ROW_TILE * rt + ROW_TILE, Qc)))
+        assert sorted(rows) == list(range(Qc))
+    assert plan.state_floats == B * H * C * N * P
+    planes_at = -(-(plan.state_floats + B * H * (C + S)) // 4) * 4
+    assert planes_at % 4 == 0
+    assert plan.ws_floats == planes_at + (plan.state_floats if bf16 else 0)
+
+
+def _ssd_three_passes(x, dt, A, Bm, Cm, chunk):
+    """The kernel's three passes in plain PyTorch, fp32, as ``ssd_plan``
+    cuts them: every chunk's cumsum and local state, the walk that turns
+    them into the states entering each chunk, then every chunk's outputs
+    with exp(cum_i − cum_j) formed for j ≤ i only."""
+    B, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    plan = ssd_plan(B, S, H, P, N, chunk, x.dtype == torch.bfloat16)
+    heads = torch.arange(H) // (H // G)  # the group of each head
+    xf, dtf = x.float(), dt.float()
+    Bf, Cf = Bm.float()[:, :, heads], Cm.float()[:, :, heads]
+    cuts = [slice(c * chunk, min((c + 1) * chunk, S)) for c in range(plan.chunks)]
+    cums, local = [], []
+    for sl in cuts:  # pass 1
+        cum = torch.cumsum(dtf[:, sl] * A[None, None, :], dim=1)   # (B, Qc, H)
+        w = torch.exp(cum[:, -1:] - cum) * dtf[:, sl]
+        cums.append(cum)
+        local.append(torch.einsum("bjh,bjhn,bjhp->bhnp", w, Bf[:, sl], xf[:, sl]))
+    s_in = [torch.zeros(B, H, N, P)]  # pass 2: chunk c reads the state entering it
+    for c in range(1, plan.chunks):
+        s_in.append(s_in[-1] * torch.exp(cums[c - 1][:, -1])[..., None, None] + local[c - 1])
+    ys = []
+    for sl, cum, s in zip(cuts, cums, s_in):  # pass 3
+        Qc = cum.shape[1]
+        below = torch.ones(Qc, Qc, dtype=torch.bool).tril()[None, :, :, None]  # j ≤ i
+        diff = cum[:, :, None, :] - cum[:, None, :, :]                        # (B, i, j, H)
+        decay = torch.where(below, diff, torch.tensor(-torch.inf)).exp()
+        scores = torch.einsum("bihn,bjhn->bijh", Cf[:, sl], Bf[:, sl]) * decay \
+            * dtf[:, sl][:, None]
+        ys.append(torch.einsum("bijh,bjhp->bihp", scores, xf[:, sl])
+                  + torch.exp(cum)[..., None] * torch.einsum("bihn,bhnp->bihp", Cf[:, sl], s))
+    return torch.cat(ys, dim=1).to(x.dtype)
+
+
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk,steep", [
+    (1, 128, 2, 16, 1, 16, 32, False),   # 4 chunks, S on their edge
+    (1, 127, 2, 16, 1, 16, 32, False),   # ... and one off it on either side
+    (1, 129, 2, 16, 1, 16, 32, False),
+    (2, 100, 4, 8, 2, 16, 40, False),    # B > 1, G = 2, chunk off 16, ragged end
+    (1, 20, 2, 8, 1, 16, 32, False),     # S < chunk
+    (1, 96, 2, 16, 1, 16, 32, True),     # dt·A ≈ −60 a step, across 3 chunks
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_three_passes_match_reference(B, S, H, P, G, N, chunk, steep, dtype):
+    args = _ssd_inputs(B, S, H, P, G, N, dtype, 21, steep=steep)
+    jx, tx = zip(*args)
+    y = _ssd_three_passes(*tx, chunk=chunk)
+    assert torch.isfinite(y).all() and y.dtype == tx[0].dtype
+    tol = dict(atol=_tol(dtype) * 8, rtol=1e-2)
+    _close(y, rref.ssd(*jx)[0], **tol)
+    _close(y, ssd_scan_plain(*tx, chunk=chunk).float(), **tol)
+
+
 # -------------------------------------------------------------- RG-LRU scan
 @pytest.mark.parametrize("B,S,W", [(1, 256, 128), (2, 130, 100), (1, 64, 256)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -161,6 +274,81 @@ def test_rglru_scan_matches_reference(B, S, W, dtype):
     assert h.shape == (B, S, W) and h.dtype == at.dtype
     _close(h, rops.rglru_scan(aj, bj), _tol(dtype) * 4)
     _close(h, rref.rglru(aj, bj), _tol(dtype) * 4)
+
+
+@pytest.mark.parametrize("B,S,W", [
+    (1, 2048, 2560),   # recurrentgemma_2b: S on a chunk edge
+    (1, 2047, 2560),   # ... and one off it on either side
+    (1, 2049, 2561),   # ragged W too
+    (1, 63, 100),      # S < CHUNK: the replay alone
+    (1, 64, 128),
+    (1, 65, 128),
+    (4, 130, 100),     # B > 1
+    (1, 16384, 2560),  # 256 chunks through the carry pass
+])
+def test_rglru_plan_covers_every_step(B, S, W):
+    """``rglru_plan`` against the kernel's cut: the chunks cover S once
+    (the last ragged, never empty), the blocks every channel, and the
+    scratch holds (Π a, carry) per (batch, chunk, channel) when there is
+    more than one chunk."""
+    plan = rglru_plan(B, S, W)
+    C = plan.chunks
+    steps = [t for c in range(C) for t in range(c * RGLRU_CHUNK, min((c + 1) * RGLRU_CHUNK, S))]
+    assert steps == list(range(S)) and 0 < S - (C - 1) * RGLRU_CHUNK <= RGLRU_CHUNK
+    wb, chunks, batch = plan.grid
+    assert (chunks, batch) == (C, B) and wb * RGLRU_THREADS >= W > (wb - 1) * RGLRU_THREADS
+    assert plan.ws_floats == (2 * B * C * W if C > 1 else 0)
+
+
+def _rglru_chunked(a, b):
+    """The kernel's three passes in plain PyTorch, as ``rglru_plan`` cuts
+    them: each chunk's map h ↦ (Π a)·h + h_local from h = 0, the carries
+    composed across chunks, then each chunk replayed from its carry; every
+    step a rounded product, then a rounded sum, in fp32."""
+    B, S, W = a.shape
+    plan = rglru_plan(B, S, W)
+    af, bf = a.float(), b.float()
+    cuts = [range(c * RGLRU_CHUNK, min((c + 1) * RGLRU_CHUNK, S)) for c in range(plan.chunks)]
+    maps = []
+    for steps in cuts[:-1]:  # pass 1: the last chunk's map is never needed
+        p, h = torch.ones(B, W), torch.zeros(B, W)
+        for t in steps:
+            h = af[:, t] * h + bf[:, t]
+            p = p * af[:, t]
+        maps.append((p, h))
+    carry = [torch.zeros(B, W)]  # pass 2
+    for p, h in maps:
+        carry.append(p * carry[-1] + h)
+    out = torch.empty_like(a)  # pass 3
+    for steps, h in zip(cuts, carry):
+        for t in steps:
+            h = af[:, t] * h + bf[:, t]
+            out[:, t] = h
+    return out
+
+
+@pytest.mark.parametrize("B,S,W,slow", [
+    (1, 130, 100, False),  # 3 chunks, ragged W
+    (1, 63, 32, False),    # one chunk: the serial chain itself
+    (1, 65, 32, True),     # a chunk edge one step in
+    (2, 192, 64, True),    # B > 1, S on a chunk edge, a slow decay
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rglru_chunked_scan_matches_reference(B, S, W, slow, dtype):
+    """``slow``: a in (0.9, 1), so the carry at a chunk edge lives on for
+    ~100 steps; a = sigmoid(N(0, 1)) forgets it in ~30."""
+    rng = np.random.default_rng(22)
+    a = 1.0 / (1.0 + np.exp(-rng.standard_normal((B, S, W), np.float32)))
+    if slow:
+        a = 0.9 + 0.1 * a
+    b = rng.standard_normal((B, S, W), np.float32) * 0.1
+    (aj, at), (bj, bt) = _pair(a.astype(np.float32), dtype), _pair(b, dtype)
+    h = _rglru_chunked(at, bt)
+    assert h.dtype == at.dtype
+    _close(h, rref.rglru(aj, bj), _tol(dtype) * 4)
+    _close(h, ops.rglru_scan(at, bt).float(), _tol(dtype) * 4)
+    if S <= RGLRU_CHUNK:  # one chunk: bit for bit the serial chain
+        assert torch.equal(h, ops.rglru_scan(at, bt))
 
 
 # ------------------------------------------------------------------- triad
