@@ -31,7 +31,10 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    the triad at N = 2²⁷; both scans also across their chunk edges (S on
    an edge ± 1, 8 and 32 SSD chunks, a steep decay over 8, B=2 with G=2
    at mamba2_780m's widths, chunk 40; RG-LRU S below one 64-step chunk,
-   W=2561, B=4, 256 chunks at S=16,384, a slow decay a in (0.9, 1)).
+   W=2561, B=4, 256 chunks at S=16,384, a slow decay a in (0.9, 1)); the
+   SSD also as the Mamba-2 block calls it, bf16 x, B and C with an fp32
+   dt, at S=2048 and 2000, and its fp32 final state at S = 2048, 2000,
+   1024 ± 1 and 100 (the state after S − 1 steps is the off-by-one).
    Limits: absolute ``test_kernels.py::_tol`` × 4 (SSD × 8 with rtol
    1e-2; the triad exact) and a tight limit on each output row's relative
    error (``ROW_TOL``), which an off-by-one length is shown to break; then
@@ -41,11 +44,20 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    flash at S = 128, 512, 1000 and 256 and at recurrentgemma_2b's local
    attention (S=2048, H=10, KV=1, Dh=256), beside SDPA;
    both decode kernels also at a long context (B=8, every request at
-   starcoder2_3b's 16,384 tokens), and each decode row names its split
-   count; the triad at N = 2²⁷ in fp32 and bf16 gives STREAM's GB/s.
+   starcoder2_3b's 16,384 tokens), dense decode also at recurrentgemma_2b's
+   full ring (B=8, T=2048), and each decode row names its split count; the
+   SSD and the RG-LRU also as the models call them (fp32 dt and the final
+   state; fp32 a and b); the triad at N = 2²⁷ in fp32 and bf16 gives
+   STREAM's GB/s.
 4. Path parity — starcoder2_3b at full width and 2 layers, the same params
    on the card and on the CPU: prefill + 4 paged decode steps; fp32 (TF32
    off) logits and greedy tokens, then bf16 logits.
+4b. The same for the recurrent families in fp32: mamba2_780m at full width
+   and 2 layers (B=2, a 300-token prompt: two SSD chunks, the second
+   ragged) and recurrentgemma_2b at full width, one (rec, rec, attn) group
+   and the 2-layer tail (a 2046-token prompt, so the decode wraps the
+   2048-slot ring); prefill + 4 decode steps through the dense-slot cache,
+   exact launch counts.
 5. Serve — the full 30-layer starcoder2_3b through ``Router.replicate``
    with one engine (random init from seed 0, max_batch 8, cache_len 1024,
    page 16): 16 greedy requests with prompts of 16–512 tokens and 2
@@ -53,6 +65,19 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    token ids and that the kernels launched exactly 30 × prefills and
    30 × decode steps (and the other four kernels never); reports
    tokens/s, TTFT p50, decode-step p50 and peak device memory.
+5b. Serve on the dense slots — through ``Router.replicate`` with one
+   engine, random init from seed 0, full width and depth, each model freed
+   before the next: mamba2_780m and recurrentgemma_2b, 8 greedy requests
+   (prompts of 16–1024 tokens, the hybrid's last one 2030, so its ring
+   wraps; 32 new tokens each), then starcoder2_3b in the seed baseline
+   (``paged=False, pipeline_admission=False``; 4 greedy requests).  Checks
+   lengths, token ids, one decode-step signature and exact launches:
+   mamba2_780m 48 SSD scans a prefill and nothing else; recurrentgemma_2b
+   18 RG-LRU scans and 8 flash launches a prefill and 8 dense decodes a
+   step; the seed baseline 30 flash launches a prefill and 30 dense
+   decodes a step.  Reports tokens/s, TTFT p50, decode-step p50 and peak
+   device memory for each, and profiles one decode step of each engine's
+   model on its own dense slots as phase 6 does.
 6. Profile — where one decode step (B=8) and one 512-token prefill spend
    their time: wall vs device kernel time (``torch.profiler``), and the
    decode-attention and flash kernels' shares, outside the engine's threads.
@@ -67,8 +92,9 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    timings: GB/s (2 reads + 1 write) beside torch's native fp32
    ``torch.add(a, b, alpha=3.0)`` and their ratio.
 
-The second-to-last line of standard output is the ``kernels`` JSON; the
-last is ``{"ok": true, "device": {...}}``.  A fuller report is written to
+The second-to-last line of standard output is the ``kernels`` JSON, each
+kernel's launches summed over the paths of phases 5, 5b and 7; the last
+is ``{"ok": true, "device": {...}}``.  A fuller report is written to
 ``chiprun_out/chip_smoke.json``.
 """
 
@@ -445,8 +471,10 @@ def _decode_inputs(torch, gen, B, T, H, KV, Dh, dtype):
     return mk(B, H, Dh), mk(B, T, KV, Dh), mk(B, T, KV, Dh)
 
 
-def _ssd_inputs(torch, gen, B, S, H, P, G, N, dtype, steep=False):
-    """test_kernels.py's draws; ``steep``: dt·A in [−65, −55] every step."""
+def _ssd_inputs(torch, gen, B, S, H, P, G, N, dtype, steep=False, dt_fp32=False):
+    """test_kernels.py's draws; ``steep``: dt·A in [−65, −55] every step;
+    ``dt_fp32``: dt stays fp32 whatever the dtype, as the Mamba-2 block
+    feeds it (an fp32 softplus beside bf16 x, B and C)."""
     mk = lambda *s: torch.randn(*s, generator=gen, device="cuda")  # noqa: E731
     x = mk(B, S, H, P) * 0.5
     dt = torch.nn.functional.softplus(mk(B, S, H))
@@ -455,7 +483,8 @@ def _ssd_inputs(torch, gen, B, S, H, P, G, N, dtype, steep=False):
         dt = 55.0 + 10.0 * torch.rand(B, S, H, generator=gen, device="cuda")
         A = -torch.ones(H, device="cuda")
     Bm, Cm = mk(B, S, G, N) * 0.3, mk(B, S, G, N) * 0.3
-    return x.to(dtype), dt.to(dtype), A, Bm.to(dtype), Cm.to(dtype)
+    return (x.to(dtype), dt if dt_fp32 else dt.to(dtype), A, Bm.to(dtype),
+            Cm.to(dtype))
 
 
 def _rglru_inputs(torch, gen, B, S, W, dtype, slow=False):
@@ -472,7 +501,7 @@ def _triad_inputs(torch, gen, N, dtype):
                  for _ in range(2))
 
 
-def _ssd_flops(S, H, P, N, B, chunk, dtype):
+def _ssd_flops(S, H, P, N, B, chunk, dtype, final=False):
     """The SSD's operations, {dtype: flops}, by the cheapest of three ways
     to compute it (at the peak rates), and all three.  The recurrence: per
     step and head, decay the fp32 (N, P) state, add dt·x ⊗ B and read
@@ -482,7 +511,8 @@ def _ssd_flops(S, H, P, N, B, chunk, dtype):
     the state update (no chunk but the last feeds one) in fp32.  The same
     products as the kernel runs them: bf16 on the tensor cores, an
     operand split into bf16 hi + lo (the scores, S_in, w ⊙ x) counting
-    twice; fp32 on fp32 FMAs."""
+    twice; fp32 on fp32 FMAs.  ``final``: the call also returns the state
+    after step S, so the last chunk's state update counts too."""
     recurrence = {"float32": 5 * N * P * S * H * B}
     cb = sx = cs = st = 0
     starts = range(0, S, chunk)
@@ -491,7 +521,7 @@ def _ssd_flops(S, H, P, N, B, chunk, dtype):
         cb += q * (q + 1) // 2 * N * 2
         sx += q * (q + 1) // 2 * P * 2
         cs += q * N * P * 2 if c > 0 else 0
-        st += q * N * P * 2 if c < len(starts) - 1 else 0
+        st += q * N * P * 2 if final or c < len(starts) - 1 else 0
     dual = {dtype: B * H * cb}
     dual["float32"] = dual.get("float32", 0) + B * H * (sx + cs + st)
     split = 2 if dtype == "bfloat16" else 1
@@ -604,14 +634,47 @@ def _check_ops_kernels(torch, gen, rng, record):
             record("stream_triad", [N], dtype, o, stream_triad_plain(a, b, 3.0),
                    stream_triad_plain(a.float(), b.float(), 3.0), None)
             del a, b, o
+    _check_ssd_model_form(torch, gen, record, ssd_scan_fwd, ssd_scan_plain)
+
+
+def _check_ssd_model_form(torch, gen, record, ssd_scan_fwd, ssd_scan_plain):
+    """The SSD as the Mamba-2 block calls it, at mamba2_780m's widths: bf16
+    x, B and C with an fp32 dt, and the fp32 final state (B, H, P, N).  y
+    at S = 2048 and a ragged 2000; the final state there and at S on a
+    chunk edge ± 1 (1023, 1024, 1025) and within one chunk (100), each
+    against the plain version's, with the state after S − 1 steps as the
+    off-by-one that must break the row limit."""
+    B, _, H, P, G, N = MAMBA
+    for S in (2048, 2000, 1023, 1024, 1025, 100):
+        args = _ssd_inputs(torch, gen, B, S, H, P, G, N, torch.bfloat16, dt_fp32=True)
+        y, final = ssd_scan_fwd(*args, chunk=MAMBA_CHUNK, return_final_state=True)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(y).all().item() and torch.isfinite(final).all().item()),
+              f"ssd_scan fp32 dt S={S}: not finite")
+        check(final.dtype == torch.float32 and tuple(final.shape) == (B, H, P, N),
+              f"ssd_scan final state {final.dtype} {tuple(final.shape)}")
+        f32 = [t.float() for t in args]
+        ey, efin = ssd_scan_plain(*args, chunk=MAMBA_CHUNK, return_final_state=True)
+        ey32, efin32 = ssd_scan_plain(*f32, chunk=MAMBA_CHUNK, return_final_state=True)
+        shape = [B, S, H, P, G, N, MAMBA_CHUNK, "dt float32"]
+        if S in (2048, 2000):
+            record("ssd_scan", shape, torch.bfloat16, y, ey, ey32, None)
+        _, shorter = ssd_scan_plain(*[t[:, : S - 1] for t in f32[:2]], f32[2],
+                                    *[t[:, : S - 1] for t in f32[3:]],
+                                    chunk=MAMBA_CHUNK, return_final_state=True)
+        record("ssd_scan", shape + ["final state"], torch.bfloat16, final, efin, efin32,
+               shorter)
 
 
 def _timing(torch, flush, shape, kernel, plain, library, nbytes, flops):
     """One timing row: the kernel, its plain version and the library call
     (None where there is none) on the same inputs, and the bound
-    (``flops``: {dtype: count}, each at its dtype's peak)."""
+    (``flops``: {dtype: count}, each at its dtype's peak); ``max_abs_err``
+    is the kernel's against the plain version, over every output."""
     bound_ms, bound_by = _bound(nbytes, flops)
-    err = (kernel().float() - plain().float()).abs().max().item()
+    outs, wants = kernel(), plain()  # a tensor each, or tuples of them
+    pairs = zip(outs, wants) if isinstance(outs, tuple) else ((outs, wants),)
+    err = max((o.float() - w.float()).abs().max().item() for o, w in pairs)
     return {"shape": shape, "max_abs_err": err,
             "ms": _time_ms(torch, kernel, flush),
             "plain_ms": _time_ms(torch, plain, flush),
@@ -682,25 +745,44 @@ def _time_ops_kernels(torch, F, gen, flush):
     out = {}
     B, T, H, KV, Dh = STARCODER_CACHE
     # starcoder2_3b's cache, then every request at its 16,384-token context
+    # then recurrentgemma_2b's ring at its window, 8 requests of a served batch
+    Bg, Tg, Hg, KVg, Dhg = GRIFFIN_LOCAL
     out["decode_attention"] = [
         _dense_timing(torch, F, flush, gen, STARCODER_LENS, T, H, KV, Dh),
-        _dense_timing(torch, F, flush, gen, [LONG_CONTEXT] * B, LONG_CONTEXT, H, KV, Dh)]
+        _dense_timing(torch, F, flush, gen, [LONG_CONTEXT] * B, LONG_CONTEXT, H, KV, Dh),
+        _dense_timing(torch, F, flush, gen, [Tg] * 8, Tg, Hg, KVg, Dhg)]
+    # the SSD in bf16 throughout (row 0, the form timed before the models
+    # called it), then as the Mamba-2 block calls it: fp32 dt and the final
+    # state (row 1)
     B, S, H, P, G, N = MAMBA
-    args = _ssd_inputs(torch, gen, B, S, H, P, G, N, bf16)
-    flops, ways = _ssd_flops(S, H, P, N, B, MAMBA_CHUNK, "bfloat16")
-    out["ssd_scan"] = [_timing(
-        torch, flush, {"B": B, "S": S, "H": H, "P": P, "G": G, "N": N,
-                       "chunk": MAMBA_CHUNK, "dtype": "bfloat16"},
-        lambda: ssd_scan_fwd(*args, chunk=MAMBA_CHUNK),
-        lambda: ssd_scan_plain(*args, chunk=MAMBA_CHUNK), None,
-        2 * (2 * B * S * H * P + B * S * H + 2 * B * S * G * N) + 4 * H, flops)]
-    out["ssd_scan"][0]["ops_ms_by_way"] = {k: _ops_ms(f) for k, f in ways.items()}
+    out["ssd_scan"] = []
+    for model_form in (False, True):
+        args = _ssd_inputs(torch, gen, B, S, H, P, G, N, bf16, dt_fp32=model_form)
+        flops, ways = _ssd_flops(S, H, P, N, B, MAMBA_CHUNK, "bfloat16", final=model_form)
+        nbytes = (2 * (2 * B * S * H * P + 2 * B * S * G * N) + 4 * H
+                  + B * S * H * (4 if model_form else 2)         # dt
+                  + (4 * B * H * P * N if model_form else 0))    # the final state
+        kw = {"chunk": MAMBA_CHUNK, "return_final_state": model_form}
+        out["ssd_scan"].append(_timing(
+            torch, flush, {"B": B, "S": S, "H": H, "P": P, "G": G, "N": N,
+                           "chunk": MAMBA_CHUNK, "dtype": "bfloat16",
+                           "dt": "float32" if model_form else "bfloat16",
+                           "final_state": model_form},
+            lambda: ssd_scan_fwd(*args, **kw), lambda: ssd_scan_plain(*args, **kw), None,
+            nbytes, flops))
+        out["ssd_scan"][-1]["ops_ms_by_way"] = {k: _ops_ms(f) for k, f in ways.items()}
+        del args
+    # the RG-LRU in bf16 (row 0, the form timed before the models called
+    # it), then in fp32 as recurrentgemma_2b's blocks call it (row 1)
     B, S, W = GRIFFIN_LRU
-    a, b = _rglru_inputs(torch, gen, B, S, W, bf16)
-    out["rglru_scan"] = [_timing(
-        torch, flush, {"B": B, "S": S, "W": W, "dtype": "bfloat16"},
-        lambda: rglru_scan_fwd(a, b), lambda: rglru_scan_plain(a, b), None,
-        3 * 2 * B * S * W, {"float32": 2 * B * S * W})]
+    out["rglru_scan"] = []
+    for dtype in (bf16, torch.float32):
+        a, b = _rglru_inputs(torch, gen, B, S, W, dtype)
+        out["rglru_scan"].append(_timing(
+            torch, flush, {"B": B, "S": S, "W": W, "dtype": str(dtype)[6:]},
+            lambda: rglru_scan_fwd(a, b), lambda: rglru_scan_plain(a, b), None,
+            3 * a.element_size() * B * S * W, {"float32": 2 * B * S * W}))
+        del a, b
     out["stream_triad"] = []
     for dtype in (torch.float32, bf16):
         ta, tb = _triad_inputs(torch, gen, STREAM_N, dtype)
@@ -799,13 +881,172 @@ def phase_parity(torch, np):
     REPORT["parity"] = out
 
 
-# ------------------------------------------------------------------ phase 5
-def phase_serve(torch, np, card):
-    import repro_torch.core as core
+# ----------------------------------------------------------------- phase 4b
+# (arch, layers kept, batch, prompt length): mamba2_780m's prompt spans two
+# SSD chunks, the second ragged; recurrentgemma_2b's ends 2 short of its
+# 2048-slot ring, so the third decode step wraps it
+PARITY_FAMILIES = (("mamba2_780m", 2, 2, 300), ("recurrentgemma_2b", 5, 1, 2046))
+
+
+def _recurrent_path(torch, cfg, params, device, tokens, steps, forced=None):
+    """Prefill ``tokens`` at their exact length, then ``steps`` decode steps
+    against the family's own cache (the engine's dense slots), feeding
+    ``forced`` tokens when given; returns the logits per step and the
+    greedy tokens."""
+    from repro_torch.models.model import Model
+
+    model = Model(cfg, device=device)
+    cp = model.compute_params({k: v.to(device) for k, v in params.items()})
+    logits_out, greedy = [], []
+    with torch.inference_mode():
+        lg, cache = model.prefill(cp, {"tokens": tokens.to(device)})
+        for step in range(steps + 1):
+            if step:
+                lg, cache = model.decode(cp, cache, tok[:, None])
+            lg = lg[:, : cfg.vocab_size].float().cpu()
+            logits_out.append(lg)
+            greedy.append(lg.argmax(-1))
+            tok = (forced[step] if forced is not None else greedy[-1]).to(device)
+    return logits_out, greedy
+
+
+def phase_parity_families(torch, np):
+    """Phase 4's check for the ssm and hybrid families: the same params on
+    the card and on the CPU, fp32 with TF32 off (matmul and cuDNN's conv),
+    full width, cut in depth (mamba2_780m: 2 layers; recurrentgemma_2b: one
+    (rec, rec, attn) group and the 2-layer tail).  Prefill + 4 decode
+    steps: logits within phase 4's fp32 limit (the same fp32 math in other
+    summation orders) and equal greedy tokens; exact launch counts."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
     from repro_torch.models.model import Model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    steps, out = 4, {}
+    for arch, layers, B, S in PARITY_FAMILIES:
+        t0 = time.perf_counter()
+        cfg = replace(get_config(arch), num_layers=layers, dtype="float32")
+        params = Model(cfg, device="cpu").init(SEED)
+        rng = np.random.default_rng(SEED + 5)
+        tokens = torch.from_numpy(rng.integers(1, cfg.vocab_size, size=(B, S)))
+        ref_logits, ref_tok = _recurrent_path(torch, cfg, params, "cpu", tokens, steps)
+        ops.reset_launch_counts()
+        gpu_logits, gpu_tok = _recurrent_path(torch, cfg, params, "cuda", tokens, steps,
+                                              forced=ref_tok)
+        launches = ops.launch_counts()
+        if cfg.family == "ssm":
+            want = {"ssd_scan": layers}
+        else:
+            groups = layers // len(cfg.block_pattern)
+            want = {"rglru_scan": layers - groups, "flash_attention": groups,
+                    "decode_attention": groups * steps}
+        _check_launches(f"parity {arch}", launches, want)
+        errs = [(a - b).abs().max().item() for a, b in zip(gpu_logits, ref_logits)]
+        scale = max(b.abs().max().item() for b in ref_logits)
+        same = [bool(torch.equal(a, b)) for a, b in zip(gpu_tok, ref_tok)]
+        out[arch] = {"layers": layers, "batch": B, "prompt": S, "max_abs_err": max(errs),
+                     "per_step": errs, "tol": PARITY_ATOL["float32"],
+                     "max_abs_logit": scale, "greedy_equal": same, "launches": launches,
+                     "seconds": time.perf_counter() - t0}
+        log(f"[parity] {arch} ({layers} layers, B={B}, S={S}) float32: logits max abs err "
+            f"{max(errs):.3g} (tol {PARITY_ATOL['float32']}, |logit| ≤ {scale:.3g}), "
+            f"greedy equal {same}; launches {launches}")
+        check(max(errs) <= PARITY_ATOL["float32"], f"parity {arch}: logits differ")
+        check(all(same), f"parity {arch}: greedy tokens differ")
+        del params
+    REPORT["parity_families"] = out
+
+
+# ------------------------------------------------------------------ phase 5
+def _drive(torch, router, eng, reqs, max_new, card, vocab):
+    """Run ``reqs`` [(prompt, sampling)] through the router, each streamed,
+    with the launch counts set to 0 just before and read just after; check
+    each request's length, vocab range and stream; report tokens/s, TTFT
+    p50, decode-step p50 and peak device memory."""
+    from repro_torch.kernels import ops
     from repro_torch.obs import trace
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trace.enable()
+    trace.clear()
+    base_prefills, base_steps = eng.prefill_count, eng.step_count
+    ops.reset_launch_counts()  # ← the path's run starts here
+    t_run = time.perf_counter()
+    streams = [router.submit_stream(p, sampling=sp) for p, sp in reqs]
+    outs = [None] * len(reqs)
+
+    def drain(i, ch):
+        outs[i] = list(ch)
+
+    threads = [threading.Thread(target=drain, args=(i, ch), daemon=True)
+               for i, (ch, _) in enumerate(streams)]
+    for th in threads:
+        th.start()
+    results = [fut.get(timeout=900) for _, fut in streams]
+    for th in threads:
+        th.join(timeout=60)
+    wall = time.perf_counter() - t_run
+    launches = ops.launch_counts()  # ← and ends here
+    trace.disable()
+    prefills = eng.prefill_count - base_prefills
+    steps = eng.step_count - base_steps
+    peak = torch.cuda.max_memory_allocated()
+
+    for i, (res, streamed) in enumerate(zip(results, outs)):
+        check(len(res) == max_new + 1, f"serve: request {i} has {len(res)} tokens")
+        check(all(0 <= t < vocab for t in res),
+              f"serve: request {i} has a token outside the vocab")
+        check(streamed == res, f"serve: request {i} streamed {streamed} != {res}")
+    check(prefills == len(reqs), f"serve: {prefills} prefills for {len(reqs)} requests")
+    evs = trace.events()
+    begins = {e[5]: e[3] for e in evs if e[0] == "b" and e[1] == "request"}
+    first = {}
+    for e in evs:
+        if e[0] == "n" and e[1] == "token" and e[5] not in first:
+            first[e[5]] = e[3]
+    ttft = [first[a] - begins[a] for a in begins if a in first]
+    step_s = [e[4] for e in evs if e[0] == "X" and e[1] == "decode_step"]
+    prefill_s = [e[4] for e in evs if e[0] == "X" and e[1] == "prefill"]
+    check(len(ttft) == len(reqs), f"serve: {len(ttft)} TTFTs for {len(reqs)} requests")
+    total = sum(len(r) for r in results)
+    return {
+        "card": card, "requests": len(reqs), "generated_tokens": total,
+        "wall_s": wall, "tokens_per_s": total / wall,
+        "ttft_p50_s": statistics.median(ttft),
+        "decode_step_p50_s": statistics.median(step_s),
+        "prefill_p50_s": statistics.median(prefill_s),
+        "decode_steps": steps, "prefills": prefills, "launches": launches,
+        "max_memory_allocated_bytes": peak,
+        "prompt_lengths": [len(p) for p, _ in reqs],
+        "decode_signatures": eng.decode_compile_count(),
+    }
+    check(eng.decode_compile_count() == 1,
+          f"serve: {eng.decode_compile_count()} decode-step signatures, not 1")
+
+
+def _log_serve(tag, serve):
+    log(f"[{tag}] {serve['card']}: {serve['requests']} requests, "
+        f"{serve['generated_tokens']} tokens in {serve['wall_s']:.2f} s = "
+        f"{serve['tokens_per_s']:.1f} tokens/s; TTFT p50 "
+        f"{serve['ttft_p50_s'] * 1e3:.1f} ms; decode step p50 "
+        f"{serve['decode_step_p50_s'] * 1e3:.2f} ms; max_memory_allocated "
+        f"{serve['max_memory_allocated_bytes'] / 2**30:.2f} GiB")
+
+
+def _check_launches(tag, launches, want):
+    """Exact launch counts: ``want`` for the kernels it names, 0 for the rest."""
+    from repro_torch.kernels import ops
+
+    full = {**dict.fromkeys(ops.KERNELS, 0), **want}
+    check(launches == full, f"{tag}: launches {launches} != {full}")
+
+
+def phase_serve(torch, np, card):
+    import repro_torch.core as core
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
     from repro_torch.serve.engine import SamplingParams, ServeConfig
     from repro_torch.serve.router import Router, default_extra_inputs
 
@@ -837,81 +1078,129 @@ def phase_serve(torch, np, card):
                    for n in rng.integers(16, 513, size=2)]
         hot = SamplingParams(temperature=0.8, top_k=40)
         reqs = [(p, None) for p in greedy] + [(p, hot) for p in sampled]
-
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        trace.enable()
-        trace.clear()
-        base_prefills, base_steps = eng.prefill_count, eng.step_count
-        ops.reset_launch_counts()  # ← the main path's run starts here
-        t_run = time.perf_counter()
-        streams = [router.submit_stream(p, sampling=sp) for p, sp in reqs]
-        outs = [None] * len(reqs)
-
-        def drain(i, ch):
-            outs[i] = list(ch)
-
-        threads = [threading.Thread(target=drain, args=(i, ch), daemon=True)
-                   for i, (ch, _) in enumerate(streams)]
-        for th in threads:
-            th.start()
-        results = [fut.get(timeout=900) for _, fut in streams]
-        for th in threads:
-            th.join(timeout=60)
-        wall = time.perf_counter() - t_run
-        launches = ops.launch_counts()  # ← and ends here
-        trace.disable()
-        prefills = eng.prefill_count - base_prefills
-        steps = eng.step_count - base_steps
-        peak = torch.cuda.max_memory_allocated()
-
-        for i, (res, streamed) in enumerate(zip(results, outs)):
-            check(len(res) == max_new + 1, f"serve: request {i} has {len(res)} tokens")
-            check(all(0 <= t < cfg.vocab_size for t in res),
-                  f"serve: request {i} has a token outside the vocab")
-            check(streamed == res, f"serve: request {i} streamed {streamed} != {res}")
+        serve = _drive(torch, router, eng, reqs, max_new, card, cfg.vocab_size)
+        serve["setup_s"] = setup_s
+        launches, prefills, steps = serve["launches"], serve["prefills"], serve["decode_steps"]
         L = cfg.num_layers
-        check(prefills == len(reqs), f"serve: {prefills} prefills for {len(reqs)} requests")
-        check(launches["flash_attention"] == L * prefills,
-              f"serve: flash launches {launches['flash_attention']} != {L}×{prefills}")
-        check(launches["paged_decode_attention"] == L * steps,
-              f"serve: paged launches {launches['paged_decode_attention']} != {L}×{steps}")
-        others = {k: n for k, n in launches.items()
-                  if k not in ("flash_attention", "paged_decode_attention")}
-        check(not any(others.values()), f"serve: other kernels launched {others}")
-
-        evs = trace.events()
-        begins = {e[5]: e[3] for e in evs if e[0] == "b" and e[1] == "request"}
-        first = {}
-        for e in evs:
-            if e[0] == "n" and e[1] == "token" and e[5] not in first:
-                first[e[5]] = e[3]
-        ttft = [first[a] - begins[a] for a in begins if a in first]
-        step_s = [e[4] for e in evs if e[0] == "X" and e[1] == "decode_step"]
-        prefill_s = [e[4] for e in evs if e[0] == "X" and e[1] == "prefill"]
-        check(len(ttft) == len(reqs), f"serve: {len(ttft)} TTFTs for {len(reqs)} requests")
-        total = sum(len(r) for r in results)
-        serve = {
-            "card": card, "requests": len(reqs), "generated_tokens": total,
-            "wall_s": wall, "tokens_per_s": total / wall,
-            "ttft_p50_s": statistics.median(ttft),
-            "decode_step_p50_s": statistics.median(step_s),
-            "prefill_p50_s": statistics.median(prefill_s),
-            "decode_steps": steps, "prefills": prefills, "launches": launches,
-            "max_memory_allocated_bytes": peak, "setup_s": setup_s,
-            "prompt_lengths": [len(p) for p, _ in reqs],
-        }
+        _check_launches("serve", launches, {"flash_attention": L * prefills,
+                                            "paged_decode_attention": L * steps})
         REPORT["serve"] = serve
-        log(f"[serve] {card}: {len(reqs)} requests, {total} tokens in {wall:.2f} s = "
-            f"{total / wall:.1f} tokens/s; TTFT p50 {serve['ttft_p50_s'] * 1e3:.1f} ms; "
-            f"decode step p50 {serve['decode_step_p50_s'] * 1e3:.2f} ms; "
-            f"max_memory_allocated {peak / 2**30:.2f} GiB")
+        _log_serve("serve", serve)
         log(f"[serve] launches {launches} = {L} × {prefills} prefills, "
             f"{L} × {steps} decode steps")
         phase_profile(torch, np, eng, card)
         return launches
     finally:
         core.finalize()
+
+
+# ----------------------------------------------------------------- phase 5b
+def _serve_one(torch, np, card, arch, scfg, prompts, max_new):
+    """Serve ``prompts`` greedily through ``Router.replicate`` with one
+    engine, full width and depth, random init from SEED; a warm-up request
+    runs first, outside the measured run.  The masters are freed once the
+    engine holds its compute copy, and the model and engine once done."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serve.router import Router, default_extra_inputs
+
+    cfg = get_config(arch)
+    t0 = time.perf_counter()
+    model = Model(cfg)  # cuda
+    params = model.init(SEED)
+    router = Router.replicate(model, params, scfg, 1, extra_inputs=default_extra_inputs(cfg))
+    del params
+    torch.cuda.empty_cache()
+    eng = router.engines[0]
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    check(len(router.submit([1] * 16, max_new=2).get(timeout=600)) == 3,
+          f"serve {arch}: warm-up failed")
+    serve = _drive(torch, router, eng, [(p, None) for p in prompts], max_new, card,
+                   cfg.vocab_size)
+    serve.update(setup_s=setup_s, paged=eng.paged,
+                 pipeline_admission=scfg.pipeline_admission)
+    # where a decode step's time goes: the engine's model, params and
+    # dense-slot cache (all max_batch rows, as the engine steps them),
+    # outside the engine's threads
+    tok = torch.ones(scfg.max_batch, 1, dtype=torch.long, device=eng.device)
+    cache = eng.backend.device_cache()
+    with torch.inference_mode():
+        def step():
+            model.decode(eng.params, cache, tok)
+
+        step()
+        torch.cuda.synchronize()
+        serve["profile_decode_step"] = prof = _device_profile(torch, step, 10)
+    busy = ("device time not measured (the profiler saw none)" if prof["device_ms"] is None
+            else f"device busy {prof['device_ms']:.2f} ms ({100 * prof['busy_share']:.1f}%), "
+                 f"{prof['kernels_per_call']:.0f} kernels")
+    log(f"[profile] {arch} decode step, B={scfg.max_batch}: wall {prof['wall_ms']:.2f} ms, "
+        f"{busy}")
+    del router, eng, model, cache, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return cfg, serve
+
+
+def phase_serve_families(torch, np, card):
+    """The dense-slot engine at full width and depth: mamba2_780m and
+    recurrentgemma_2b (8 greedy requests, prompts of 16–1024 tokens, the
+    hybrid's last one 2030 so that its decode wraps the 2048-slot ring; 32
+    new tokens each), then starcoder2_3b in the seed baseline (dense cache,
+    inline prefill; 4 greedy requests).  Exact launch counts per path:
+    mamba2_780m 48 SSD scans a prefill and nothing else; recurrentgemma_2b
+    18 RG-LRU scans and 8 flash launches a prefill and 8 dense decodes a
+    step; the seed baseline 30 flash launches a prefill and 30 dense
+    decodes a step.  Returns the launches summed over the three paths."""
+    import repro_torch.core as core
+    from repro_torch.configs import get_config
+    from repro_torch.serve.engine import ServeConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    max_new = 32
+    rng = np.random.default_rng(SEED + 4)
+    vocab = min(get_config(a).vocab_size for a in ("mamba2_780m", "recurrentgemma_2b"))
+    prompts = [rng.integers(1, vocab, size=n).tolist() for n in rng.integers(16, 1025, size=8)]
+    long_prompt = rng.integers(1, vocab, size=2030).tolist()
+    seed_prompts = [rng.integers(1, get_config("starcoder2_3b").vocab_size, size=n).tolist()
+                    for n in rng.integers(16, 513, size=4)]
+    dense_slots = ServeConfig(max_batch=8, cache_len=1024, max_new_tokens=max_new, seed=SEED)
+    runs = (("mamba2_780m", dense_slots, prompts),
+            ("recurrentgemma_2b", dense_slots, prompts[:-1] + [long_prompt]),
+            ("starcoder2_3b", replace(dense_slots, max_batch=4, paged=False,
+                                      pipeline_admission=False), seed_prompts))
+    total = {}
+    core.init(pools={"default": 4, "prefill": 2, "io": 1})
+    try:
+        for arch, scfg, reqs in runs:
+            cfg, serve = _serve_one(torch, np, card, arch, scfg, reqs, max_new)
+            launches, prefills, steps = (serve["launches"], serve["prefills"],
+                                         serve["decode_steps"])
+            check(not serve["paged"], f"serve {arch}: not on the dense slots")
+            if cfg.family == "ssm":
+                want = {"ssd_scan": cfg.num_layers * prefills}
+            elif cfg.family == "hybrid":
+                groups = cfg.num_layers // len(cfg.block_pattern)
+                want = {"rglru_scan": (cfg.num_layers - groups) * prefills,
+                        "flash_attention": groups * prefills,
+                        "decode_attention": groups * steps}
+            else:
+                want = {"flash_attention": cfg.num_layers * prefills,
+                        "decode_attention": cfg.num_layers * steps}
+            _check_launches(f"serve {arch}", launches, want)
+            tag = f"serve {arch}" + ("" if scfg.pipeline_admission else " seed-baseline")
+            REPORT[tag.replace(" ", "_")] = serve
+            _log_serve(tag, serve)
+            log(f"[{tag}] launches {launches} for {prefills} prefills, {steps} decode "
+                f"steps")
+            for k, n in launches.items():
+                total[k] = total.get(k, 0) + n
+    finally:
+        core.finalize()
+    return total
 
 
 # ------------------------------------------------------------------ phase 6
@@ -1090,6 +1379,12 @@ def phase_ops(torch, np, card, timings):
 
 
 # --------------------------------------------------------------------- main
+# the timing row the kernels line reports: flash at S=512 (starcoder2_3b's
+# prefill), the SSD and the RG-LRU as the models call them (fp32 dt and
+# the final state; fp32 a and b), the rest their first row
+MAIN_ROW = {"flash_attention": 1, "ssd_scan": 1, "rglru_scan": 1}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1104,9 +1399,12 @@ def main() -> int:
     phase_build()
     timings = phase_kernels(torch, np)
     phase_parity(torch, np)
-    launches = phase_serve(torch, np, card)
-    launches.update({k: n for k, n in phase_ops(torch, np, card, timings).items()
-                     if k not in ("flash_attention", "paged_decode_attention")})
+    phase_parity_families(torch, np)
+    # each path's launches (counts set to 0 just before it, read just
+    # after), summed over the paths
+    paths = (phase_serve(torch, np, card), phase_serve_families(torch, np, card),
+             phase_ops(torch, np, card, timings))
+    launches = {k: sum(p.get(k, 0) for p in paths) for k in paths[0]}
 
     kernels = []
     csrc, ref = "src/repro_torch/kernels/csrc/", "src/repro/kernels/"
@@ -1118,7 +1416,7 @@ def main() -> int:
             ("ssd_scan", "ssd_scan.cu", "ssd_scan.py:69"),
             ("rglru_scan", "rglru_scan.cu", "rglru_scan.py:43"),
             ("stream_triad", "stream.cu", "stream.py:24")):
-        main_shape = timings[name][1 if name == "flash_attention" else 0]
+        main_shape = timings[name][MAIN_ROW.get(name, 0)]
         kernels.append({
             "name": name, "route": "cuda", "source": csrc + source,
             "replaces": ref + replaces,

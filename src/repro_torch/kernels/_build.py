@@ -51,8 +51,9 @@ _SIGNATURES = {
     "repro_paged_decode_attention_fwd": [_P] * 7 + [_I] * 9 + [_P],
     # q, k, v, lengths, ws, o, B, T, H, KV, Dh, splits, tps, dtype, stream
     "repro_decode_attention_fwd": [_P] * 6 + [_I] * 8 + [_P],
-    # x, dt, A, Bm, Cm, ws, y, B, S, H, P, G, N, chunk, chunks, dtype, stream
-    "repro_ssd_scan_fwd": [_P] * 7 + [_I] * 9 + [_P],
+    # x, dt, A, Bm, Cm, ws, y, final_state, B, S, H, P, G, N, chunk, chunks,
+    # dtype, dt_dtype, stream
+    "repro_ssd_scan_fwd": [_P] * 8 + [_I] * 10 + [_P],
     # a, b, ws, h, B, S, W, chunks, dtype, stream
     "repro_rglru_scan_fwd": [_P] * 4 + [_I] * 5 + [_P],
     # a, b, o, n, alpha, dtype, stream

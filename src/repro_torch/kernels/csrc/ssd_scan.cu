@@ -23,11 +23,14 @@
 //    scan (written to the workspace with cum_end), then its local state
 //    s_c = Bᵀ·(w ⊙ x), w_j = exp(cum_end − cum_j)·dt_j, an (N×Q)·(Q×P)
 //    product, written fp32 to the workspace.  The last chunk's state is
-//    never read and is not formed.  The copies of B and x are in flight
-//    during the scan.
+//    formed only when the caller asks for the final state.  The copies of
+//    B and x are in flight during the scan.
 // 2. state_pass_kernel, grid (⌈N·P/256⌉, H, B): S_in(0) = 0 and
 //    S_in(c) = S_in(c−1)·exp(cum_end(c−1)) + s(c−1), in fp32.  The only
-//    walk over chunks, one (n, p) per thread.
+//    walk over chunks, one (n, p) per thread.  Asked for it, it also
+//    writes the final state S_in(last)·exp(cum_end(last)) + s(last), fp32
+//    (B, H, P, N); cum_end is taken at the last real step, so a ragged
+//    tail adds nothing.
 // 3. The chunk outputs: y = exp(cum_i)·C·S_in(c), then the causal C·Bᵀ
 //    tiles on and below the diagonal, masked and decayed, times x.
 // bf16 runs the products on the tensor cores (mma.sync m16n8k16, bf16 in,
@@ -59,6 +62,8 @@
 // for j ≤ i alone (the mask comes before the exponential), never as
 // exp(cum_i)·exp(−cum_j): a steep decay (dt·A ≈ −60 a step) takes cum to
 // −16,000 within a chunk, where exp(−cum_j) is inf.
+// dt: in x's dtype or fp32 (the model's dt is an fp32 softplus, with
+// bf16 x, B and C); it is read as it lies and turned to fp32 at once.
 // Layouts as the public ones lie: A by head, B and C by group
 // g = h / (H/G), x and y at (b, t, h); a ragged last chunk, N and P off
 // the mma tile and chunks off 16 are zero-filled in shared memory.  Rows
@@ -276,16 +281,17 @@ __device__ __forceinline__ void mask_scores(float (&s)[2][4], const float* cum,
 
 // Pass 1.  Grid (chunks, H, B).  cum_ws (B, H, S) and cum_end (B, H,
 // chunks); states (B, H, chunks, N, P): the local state of every chunk but
-// the last.  PT: P rounded up to 16·PT.  bf16 copies the chunk's B and x
-// whole and weights x's fragments in registers; fp32 copies JB rows a
-// round and folds w into B's values.
-template <typename T, int PT>
+// the last, and the last one's too where ``form_last``.  PT: P rounded up
+// to 16·PT; TD: dt's type.  bf16 copies the chunk's B and x whole and
+// weights x's fragments in registers; fp32 copies JB rows a round and
+// folds w into B's values.
+template <typename T, typename TD, int PT>
 __global__ void __launch_bounds__(SCAN_THREADS)
-chunk_state_kernel(const T* __restrict__ x, const T* __restrict__ dt,
+chunk_state_kernel(const T* __restrict__ x, const TD* __restrict__ dt,
                    const float* __restrict__ A, const T* __restrict__ Bm,
                    float* __restrict__ states, float* __restrict__ cum_end,
                    float* __restrict__ cum_ws, int S, int H, int P, int G, int N, int Q,
-                   bool vec_b, bool vec_x) {
+                   bool vec_b, bool vec_x, bool form_last) {
   constexpr bool MMA = sizeof(T) == 2;
   constexpr int PP = 16 * PT, RP = row_stride<T>(PP);
   const int NP = round16(N), RN = row_stride<T>(NP);
@@ -303,7 +309,8 @@ chunk_state_kernel(const T* __restrict__ x, const T* __restrict__ dt,
   const int g4 = lane >> 2, t4 = lane & 3;
   const int t0 = c * Q, Qc = min(Q, S - t0);
   const long bh = (long)b * H + h;
-  const bool last = c == chunks - 1;  // S_in past the last chunk is never read
+  // no S_in follows the last chunk: its state is only the final state's
+  const bool skip = c == chunks - 1 && !form_last;
   auto issue = [&](int r) {  // round r's B and x
     const int j0 = r * ROWS, jn = min(ROWS, Qc - j0);
     copy_rows<T>(Bs, RN, Bm + (((long)b * S + t0 + j0) * G + g) * N, (long)G * N, jn, ROWS, N,
@@ -311,7 +318,7 @@ chunk_state_kernel(const T* __restrict__ x, const T* __restrict__ dt,
     copy_rows<T>(Xs, RP, x + (((long)b * S + t0 + j0) * H + h) * P, (long)H * P, jn, ROWS, P,
                  PP, vec_x, tid, SCAN_THREADS);
   };
-  if (!last) issue(0);
+  if (!skip) issue(0);
   __pipeline_commit();
 
   float d = 0.f;
@@ -325,7 +332,7 @@ chunk_state_kernel(const T* __restrict__ x, const T* __restrict__ dt,
   __syncthreads();
   const float cend = cum[Qc - 1];  // at the last real step of a ragged chunk
   if (tid == 0) cum_end[bh * chunks + c] = cend;
-  if (last) return;
+  if (skip) return;
   if (tid < Qc) w[tid] *= expf(cend - cum[tid]);  // cum_end ≤ cum_j: at most 1
 
   // s_c (N × P) = Bᵀ (N × Q) · (w ⊙ x) (Q × P).  fp32: warp w holds rows
@@ -419,11 +426,15 @@ chunk_state_kernel(const T* __restrict__ x, const T* __restrict__ dt,
 // states s(c) (N, P) in fp32 calls, (P, N) in bf16 ones become the states
 // entering each chunk, S_in(c): in place (fp32), or as bf16 hi and lo
 // planes (B, H, chunks, 2, P, N) for the tensor cores of a bf16 call,
-// which then copy them as they lie.
+// which then copy them as they lie.  With ``final_state`` (B, H, P, N)
+// it also writes the state after the last step: S_in(last)·exp(cum_end)
+// + s(last), which pass 1 formed; then it may run with one chunk.
 template <bool PLANES>
 __global__ void __launch_bounds__(PASS_THREADS)
 state_pass_kernel(float* __restrict__ states, const float* __restrict__ cum_end,
-                  bf16* __restrict__ planes, int NPe, int H, int chunks) {
+                  bf16* __restrict__ planes, float* __restrict__ final_state, int P, int N,
+                  int H, int chunks) {
+  const int NPe = N * P;
   const int e = blockIdx.x * PASS_THREADS + threadIdx.x;
   if (e >= NPe) return;
   const long bh = (long)blockIdx.z * H + blockIdx.y;
@@ -457,7 +468,13 @@ state_pass_kernel(float* __restrict__ states, const float* __restrict__ cum_end,
       carry = fmaf(carry, k[u], s[u]);
     }
   }
-  put_in(chunks - 1, carry);
+  if (final_state != nullptr) {
+    // read before put_in: fp32 calls write S_in over the local states
+    const float fin = fmaf(carry, expf(ce[chunks - 1]), st[(long)(chunks - 1) * NPe]);
+    // bf16 states lie (P, N) as the final state does; fp32 ones (N, P)
+    final_state[bh * NPe + (PLANES ? e : (e % P) * N + e / P)] = fin;
+  }
+  if (chunks > 1) put_in(chunks - 1, carry);
 }
 
 // Pass 3, bf16.  Grid (chunks, H, B), MMA_THREADS.  The chunk's B and x
@@ -466,9 +483,9 @@ state_pass_kernel(float* __restrict__ states, const float* __restrict__ cum_end,
 // the row tiles w and 15 − w of 16 rows, each against its column tiles on
 // and below the diagonal: tile w needs the first group only, so the second
 // lands while it is computed.
-template <int PT>
+template <typename TD, int PT>
 __global__ void __launch_bounds__(MMA_THREADS)
-chunk_output_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dt,
+chunk_output_mma_kernel(const bf16* __restrict__ x, const TD* __restrict__ dt,
                         const bf16* __restrict__ Bm, const bf16* __restrict__ Cm,
                         const bf16* __restrict__ planes, const float* __restrict__ cum_ws,
                         bf16* __restrict__ y, int S, int H, int P, int G, int N, int Q,
@@ -779,10 +796,10 @@ chunk_output_fma_kernel(const float* __restrict__ x, const float* __restrict__ d
                                   Qc - r0, P);
 }
 
-template <typename T, int PT>
-cudaError_t launch(const T* x, const T* dt, const float* A, const T* Bm, const T* Cm,
-                   float* ws, T* y, int B, int S, int H, int P, int G, int N, int Q,
-                   int chunks, cudaStream_t stream) {
+template <typename T, typename TD, int PT>
+cudaError_t launch(const T* x, const TD* dt, const float* A, const T* Bm, const T* Cm,
+                   float* ws, T* y, float* final_state, int B, int S, int H, int P, int G,
+                   int N, int Q, int chunks, cudaStream_t stream) {
   constexpr bool MMA = sizeof(T) == 2;
   const long nstate = (long)B * H * chunks * N * P;
   float* states = ws;                                        // (B, H, chunks, N, P)
@@ -800,18 +817,19 @@ cudaError_t launch(const T* x, const T* dt, const float* A, const T* Bm, const T
   const size_t s1 = state_smem<T>(Q, 16 * PT, N);
   const size_t s3 = MMA ? output_mma_smem(Q, 16 * PT, N) : output_fma_smem(16 * PT, N);
   if (s1 > kMaxSmemBytes || s3 > kMaxSmemBytes) return cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(chunk_state_kernel<T, PT>, s1);
+  cudaError_t err = allow_smem(chunk_state_kernel<T, TD, PT>, s1);
   if (err != cudaSuccess) return err;
-  chunk_state_kernel<T, PT><<<dim3(chunks, H, B), SCAN_THREADS, s1, stream>>>(
-      x, dt, A, Bm, states, cum_end, cum_ws, S, H, P, G, N, Q, vec_b, vec_x);
-  if (chunks > 1)
+  const bool fin = final_state != nullptr;
+  chunk_state_kernel<T, TD, PT><<<dim3(chunks, H, B), SCAN_THREADS, s1, stream>>>(
+      x, dt, A, Bm, states, cum_end, cum_ws, S, H, P, G, N, Q, vec_b, vec_x, fin);
+  if (chunks > 1 || fin)
     state_pass_kernel<MMA><<<dim3((N * P + PASS_THREADS - 1) / PASS_THREADS, H, B),
-                             PASS_THREADS, 0, stream>>>(states, cum_end, planes, N * P, H,
-                                                        chunks);
+                             PASS_THREADS, 0, stream>>>(states, cum_end, planes, final_state,
+                                                        P, N, H, chunks);
   if constexpr (MMA) {
-    err = allow_smem(chunk_output_mma_kernel<PT>, s3);
+    err = allow_smem(chunk_output_mma_kernel<TD, PT>, s3);
     if (err != cudaSuccess) return err;
-    chunk_output_mma_kernel<PT><<<dim3(chunks, H, B), MMA_THREADS, s3, stream>>>(
+    chunk_output_mma_kernel<TD, PT><<<dim3(chunks, H, B), MMA_THREADS, s3, stream>>>(
         x, dt, Bm, Cm, planes, cum_ws, y, S, H, P, G, N, Q, vec_b, vec_x, vec_s);
   } else {
     err = allow_smem(chunk_output_fma_kernel<PT>, s3);
@@ -824,21 +842,25 @@ cudaError_t launch(const T* x, const T* dt, const float* A, const T* Bm, const T
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename TD>
 cudaError_t dispatch(const void* x, const void* dt, const float* A, const void* Bm,
-                     const void* Cm, float* ws, void* y, int B, int S, int H, int P, int G,
-                     int N, int Q, int chunks, cudaStream_t st) {
+                     const void* Cm, float* ws, void* y, float* fin, int B, int S, int H,
+                     int P, int G, int N, int Q, int chunks, cudaStream_t st) {
   const T* xt = static_cast<const T*>(x);
-  const T* dtt = static_cast<const T*>(dt);
+  const TD* dtt = static_cast<const TD*>(dt);
   const T* bt = static_cast<const T*>(Bm);
   const T* ct = static_cast<const T*>(Cm);
   T* yt = static_cast<T*>(y);
   switch ((P + 15) / 16) {  // P rounded up to 16, 32, 64 or 128
-    case 1: return launch<T, 1>(xt, dtt, A, bt, ct, ws, yt, B, S, H, P, G, N, Q, chunks, st);
-    case 2: return launch<T, 2>(xt, dtt, A, bt, ct, ws, yt, B, S, H, P, G, N, Q, chunks, st);
+    case 1:
+      return launch<T, TD, 1>(xt, dtt, A, bt, ct, ws, yt, fin, B, S, H, P, G, N, Q, chunks, st);
+    case 2:
+      return launch<T, TD, 2>(xt, dtt, A, bt, ct, ws, yt, fin, B, S, H, P, G, N, Q, chunks, st);
     case 3:
-    case 4: return launch<T, 4>(xt, dtt, A, bt, ct, ws, yt, B, S, H, P, G, N, Q, chunks, st);
-    default: return launch<T, 8>(xt, dtt, A, bt, ct, ws, yt, B, S, H, P, G, N, Q, chunks, st);
+    case 4:
+      return launch<T, TD, 4>(xt, dtt, A, bt, ct, ws, yt, fin, B, S, H, P, G, N, Q, chunks, st);
+    default:
+      return launch<T, TD, 8>(xt, dtt, A, bt, ct, ws, yt, fin, B, S, H, P, G, N, Q, chunks, st);
   }
 }
 
@@ -846,15 +868,18 @@ cudaError_t dispatch(const void* x, const void* dt, const float* A, const void* 
 }  // namespace repro_torch
 
 // x/y: (B, S, H, P); dt: (B, S, H); A: (H,) float32; Bm/Cm: (B, S, G, N);
-// x, dt, Bm, Cm and y share one dtype.  All contiguous.  chunk in
-// [1, 256], chunks = ⌈S / chunk⌉, N and P in [1, 128]; ws: 16-byte
-// aligned fp32 scratch of B·H·(chunks·(N·P + 1) + S) floats, rounded up to
-// 4, then (bf16) another B·H·chunks·N·P (kernels/ssd_scan.py::ssd_plan).  Three launches; returns
-// cudaGetLastError() after the last.
+// x, Bm, Cm and y share one dtype; dt is in it (dt_dtype == dtype) or,
+// with bf16 x, fp32.  All contiguous.  chunk in [1, 256], chunks =
+// ⌈S / chunk⌉, N and P in [1, 128]; ws: 16-byte aligned fp32 scratch of
+// B·H·(chunks·(N·P + 1) + S) floats, rounded up to 4, then (bf16) another
+// B·H·chunks·N·P (kernels/ssd_scan.py::ssd_plan).  final_state: null, or
+// fp32 (B, H, P, N) for the state after step S.  Two or three launches;
+// returns cudaGetLastError() after the last.
 extern "C" int repro_ssd_scan_fwd(const void* x, const void* dt, const void* A,
-                                  const void* Bm, const void* Cm, void* ws, void* y, int B,
-                                  int S, int H, int P, int G, int N, int chunk, int chunks,
-                                  int dtype, void* stream) {
+                                  const void* Bm, const void* Cm, void* ws, void* y,
+                                  void* final_state, int B, int S, int H, int P, int G, int N,
+                                  int chunk, int chunks, int dtype, int dt_dtype,
+                                  void* stream) {
   using namespace repro_torch;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B <= 0 || B > 65535 || S <= 0 || H <= 0 || H > 65535 || P <= 0 || P > MAX_P ||
@@ -864,10 +889,15 @@ extern "C" int repro_ssd_scan_fwd(const void* x, const void* dt, const void* A,
     return cudaErrorInvalidValue;
   const float* Af = static_cast<const float*>(A);
   float* w = static_cast<float*>(ws);
-  if (dtype == kFloat32)
-    return dispatch<float>(x, dt, Af, Bm, Cm, w, y, B, S, H, P, G, N, chunk, chunks, st);
-  if (dtype == kBFloat16)
-    return dispatch<__nv_bfloat16>(x, dt, Af, Bm, Cm, w, y, B, S, H, P, G, N, chunk, chunks,
-                                   st);
+  float* fin = static_cast<float*>(final_state);
+  if (dtype == kFloat32 && dt_dtype == kFloat32)
+    return dispatch<float, float>(x, dt, Af, Bm, Cm, w, y, fin, B, S, H, P, G, N, chunk,
+                                  chunks, st);
+  if (dtype == kBFloat16 && dt_dtype == kBFloat16)
+    return dispatch<bf16, bf16>(x, dt, Af, Bm, Cm, w, y, fin, B, S, H, P, G, N, chunk, chunks,
+                                st);
+  if (dtype == kBFloat16 && dt_dtype == kFloat32)
+    return dispatch<bf16, float>(x, dt, Af, Bm, Cm, w, y, fin, B, S, H, P, G, N, chunk, chunks,
+                                 st);
   return cudaErrorInvalidValue;
 }

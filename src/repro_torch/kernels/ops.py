@@ -113,19 +113,24 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-             Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int = 256) -> torch.Tensor:
-    """Mamba-2 SSD scan.  x: (B,S,H,P), dt: (B,S,H), A: (H,) float32,
-    Bm/Cm: (B,S,G,N) → y (B,S,H,P).
+             Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int = 256,
+             return_final_state: bool = False):
+    """Mamba-2 SSD scan.  x: (B,S,H,P), dt: (B,S,H) in x's dtype or
+    float32, A: (H,) float32, Bm/Cm: (B,S,G,N) in x's dtype → y (B,S,H,P)
+    in x's dtype; with ``return_final_state`` → (y, the fp32 state after
+    step S, (B,H,P,N)), as the reference's ``ssd_chunked`` returns it.
 
     ``chunk`` (clipped to S, as the reference does) is where the fp32 state
     is carried from one chunk to the next; mamba2_780m sets 256, the
     kernel takes 1–256."""
     chunk = min(chunk, x.shape[1])
     if not _route(x, "ssd_scan"):
-        return ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk)
-    y = ssd_scan_fwd(x, dt, A, Bm, Cm, chunk=chunk)
+        return ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk,
+                              return_final_state=return_final_state)
+    out = ssd_scan_fwd(x, dt, A, Bm, Cm, chunk=chunk,
+                       return_final_state=return_final_state)
     _count("ssd_scan")
-    return y
+    return out
 
 
 def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

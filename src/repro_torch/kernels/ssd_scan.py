@@ -5,7 +5,12 @@ The kernel (``csrc/ssd_scan.cu``) replaces the reference's TPU kernel
 ``repro/kernels/ssd_scan.py::ssd_scan_fwd``.  It takes the public layouts
 — x (B, S, H, P), dt (B, S, H), A (H,) fp32, B/C (B, S, G, N) — reads A by
 head and B/C by group (h // (H/G)), and masks the ragged last chunk, so
-nothing is tiled, repeated or padded as the reference's wrapper does.
+nothing is tiled, repeated or padded as the reference's wrapper does.  dt
+is in x's dtype or fp32: the Mamba-2 block feeds an fp32 softplus dt with
+bf16 x, B and C, and the kernel reads it as it lies, as the reference's
+kernel casts each input to fp32.  On request it also returns the fp32
+state after the last step, (B, H, P, N), as the model's prefill caches it
+(the reference's ``models/ssm.py::ssd_chunked``).
 
 Per chunk c of ``chunk`` steps, with cum the inclusive cumsum of dt·A in
 the chunk and S_in(c) the fp32 (N, P) state entering it:
@@ -42,20 +47,26 @@ class SSDPlan(NamedTuple):
     chunks: int       # ⌈S / chunk⌉; the last holds S − (chunks − 1)·chunk steps
     out_blocks: int   # output blocks per chunk: bf16 1 (16 row tiles of 16 in pairs,
                       # one per warp), fp32 ⌈chunk / ROW_TILE⌉ (past a ragged end: none)
-    grids: Tuple[Tuple[int, int, int], ...]  # chunk states, state pass (none for one chunk), outputs
-    state_floats: int  # the (N, P) states, B·H·chunks of them
+    grids: Tuple[Tuple[int, int, int], ...]  # chunk states, state pass (none for one
+                                             # chunk and no final state), outputs
+    state_floats: int  # the (N, P) states, B·H·chunks of them (the last one
+                       # formed only for the final state)
     ws_floats: int     # + cum_end per (b, h, chunk) and cum per (b, h, step), rounded up
                        # to 16 bytes; bf16: + S_in as bf16 hi and lo planes
 
 
 @functools.lru_cache(maxsize=None)
-def ssd_plan(B: int, S: int, H: int, P: int, N: int, chunk: int, bf16: bool) -> SSDPlan:
+def ssd_plan(B: int, S: int, H: int, P: int, N: int, chunk: int, bf16: bool,
+             final: bool = False) -> SSDPlan:
     """How the kernel cuts (B, S, H) into blocks and what scratch it takes
     (fp32 floats), for ``chunk`` steps a chunk; ``bf16``: the call's dtype
-    is bfloat16 (the tensor cores take S_in as bf16 planes)."""
+    is bfloat16 (the tensor cores take S_in as bf16 planes); ``final``: the
+    call returns the final state (the state pass then runs for one chunk
+    too, and writes it)."""
     chunks = -(-S // chunk)
     out_blocks = 1 if bf16 else -(-chunk // ROW_TILE)
-    grids = ((chunks, H, B),) + (((-(-N * P // PASS_THREADS), H, B),) if chunks > 1 else ()) \
+    state_pass = chunks > 1 or final
+    grids = ((chunks, H, B),) + (((-(-N * P // PASS_THREADS), H, B),) if state_pass else ()) \
         + ((out_blocks * chunks, H, B),)
     state_floats = B * H * chunks * N * P
     planes_at = -(-(state_floats + B * H * (chunks + S)) // 4) * 4
@@ -64,10 +75,12 @@ def ssd_plan(B: int, S: int, H: int, P: int, N: int, chunk: int, bf16: bool) -> 
 
 
 def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-                   Bm: torch.Tensor, Cm: torch.Tensor, *,
-                   chunk: int = 256) -> torch.Tensor:
+                   Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int = 256,
+                   return_final_state: bool = False):
     """Plain PyTorch version of the kernel: the same chunked dual form in
-    fp32, all (batch, head) rows at once.  → y (B,S,H,P) in x's dtype."""
+    fp32, all (batch, head) rows at once.  → y (B,S,H,P) in x's dtype, and
+    with ``return_final_state`` also the fp32 state after step S,
+    (B,H,P,N)."""
     B, S, H, P = x.shape
     G = Bm.shape[2]
     rep = H // G
@@ -92,19 +105,25 @@ def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         state = state * torch.exp(cum[..., -1])[..., None, None] + torch.einsum(
             "bhj,bjhn,bjhp->bhnp", w, Bf[:, sl], xf[:, sl])
         ys.append(y)
-    return torch.cat(ys, dim=1).to(x.dtype)
+    y = torch.cat(ys, dim=1).to(x.dtype)
+    if return_final_state:
+        return y, state.transpose(-1, -2).contiguous()
+    return y
 
 
-def ssd_scan_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-                 Bm: torch.Tensor, Cm: torch.Tensor, *,
-                 chunk: int = 256) -> torch.Tensor:
-    """Launch the CUDA kernel on PyTorch's current stream.  x (B,S,H,P),
-    dt (B,S,H), Bm/Cm (B,S,G,N) in one dtype, A (H,) float32, all
-    contiguous on one CUDA device; 1 ≤ chunk ≤ 256, N and P at most 128."""
-    what = "ssd_scan_fwd"
-    _build.check_tensors(what, x, (("x", x), ("dt", dt), ("Bm", Bm), ("Cm", Cm)),
-                         x.dtype)
-    _build.check_tensors(what, x, (("A", A),), torch.float32)
+def check_ssd_args(what: str, x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                   Bm: torch.Tensor, Cm: torch.Tensor, chunk: int) -> Tuple[int, int]:
+    """The kernel's dtype and shape rules, on tensors of any device; → the
+    dtype codes of x and of dt.  x, Bm and Cm share a dtype the kernels
+    take; dt is in it or fp32 (the only mix: fp32 x takes fp32 dt); A is
+    fp32."""
+    codes = _build.DTYPES
+    if x.dtype not in codes or Bm.dtype != x.dtype or Cm.dtype != x.dtype:
+        raise TypeError(f"{what}: x, Bm, Cm have dtypes {x.dtype}, {Bm.dtype}, "
+                        f"{Cm.dtype}; expected one of {list(codes)}, shared")
+    if dt.dtype not in (x.dtype, torch.float32) or A.dtype != torch.float32:
+        raise TypeError(f"{what}: dt has dtype {dt.dtype} (x's {x.dtype} or "
+                        f"float32), A {A.dtype} (float32)")
     if x.dim() != 4 or Bm.dim() != 4 or Bm.shape != Cm.shape:
         raise ValueError(f"{what}: bad shapes x {tuple(x.shape)}, Bm "
                          f"{tuple(Bm.shape)}, Cm {tuple(Cm.shape)}")
@@ -119,10 +138,30 @@ def ssd_scan_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError(f"{what}: chunk {chunk} (1–{MAX_CHUNK}), N {N} (1–{MAX_N}), "
                          f"P {P} (1–{MAX_P}), batch {B} or heads {H} (≤ {MAX_GRID_YZ}) "
                          f"out of range")
-    plan = ssd_plan(B, S, H, P, N, chunk, x.dtype == torch.bfloat16)
+    return codes[x.dtype], codes[dt.dtype]
+
+
+def ssd_scan_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                 Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int = 256,
+                 return_final_state: bool = False):
+    """Launch the CUDA kernel on PyTorch's current stream.  x (B,S,H,P) and
+    Bm/Cm (B,S,G,N) in one dtype, dt (B,S,H) in it or fp32, A (H,) fp32,
+    all contiguous on one CUDA device; 1 ≤ chunk ≤ 256, N and P at most
+    128 (:func:`check_ssd_args`).  → y, or (y, final fp32 (B,H,P,N) state)
+    with ``return_final_state``."""
+    what = "ssd_scan_fwd"
+    code, dt_code = check_ssd_args(what, x, dt, A, Bm, Cm, chunk)
+    _build.check_tensors(what, x, (("x", x), ("dt", dt), ("A", A), ("Bm", Bm),
+                                   ("Cm", Cm)))
+    B, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    plan = ssd_plan(B, S, H, P, N, chunk, x.dtype == torch.bfloat16, return_final_state)
     y = torch.empty_like(x)
+    final = (torch.empty(B, H, P, N, dtype=torch.float32, device=x.device)
+             if return_final_state else None)
     _build.launch("repro_ssd_scan_fwd", what, x, x.data_ptr(), dt.data_ptr(),
                   A.data_ptr(), Bm.data_ptr(), Cm.data_ptr(), _build.WORKSPACE,
-                  y.data_ptr(), B, S, H, P, G, N, chunk, plan.chunks,
-                  _build.DTYPES[x.dtype], ws_floats=plan.ws_floats)
-    return y
+                  y.data_ptr(), None if final is None else final.data_ptr(),
+                  B, S, H, P, G, N, chunk, plan.chunks, code, dt_code,
+                  ws_floats=plan.ws_floats)
+    return y if final is None else (y, final)

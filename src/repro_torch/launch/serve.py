@@ -1,10 +1,17 @@
-"""Serving launcher: batched requests through the paged continuous-batching
+"""Serving launcher: batched requests through the continuous-batching
 serving stack (engine replicas behind the least-loaded router), in one
-process, on the GPU unless ``--device cpu`` is given.
+process, on the GPU unless ``--device cpu`` is given.  The dense family
+serves from the paged cache; ``--no-paged --no-pipeline`` is the seed's
+baseline (dense per-slot cache, inline prefill).  The ssm and hybrid
+families always serve from dense slots.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2_3b \\
       --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2_780m \\
+      --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2_3b \\
+      --smoke --device cpu --no-paged --no-pipeline
   PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2_3b \\
       --requests 16 --max-new 64 --max-batch 8 --cache-len 1024
 """
@@ -34,6 +41,10 @@ def main() -> None:
     ap.add_argument("--engines", type=int, default=1,
                     help="engine replicas behind the least-loaded router")
     ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--no-paged", action="store_true",
+                    help="dense per-slot KV cache (seed baseline) instead of pages")
+    ap.add_argument("--no-pipeline", action="store_true",
+                    help="inline prefill inside the decode loop (seed baseline)")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--top-k", type=int, default=0)
     ap.add_argument("--top-p", type=float, default=1.0)
@@ -54,7 +65,9 @@ def main() -> None:
     core.init(pools={"default": args.workers, "prefill": 2, "io": 1})
     try:
         scfg = ServeConfig(max_batch=args.max_batch, cache_len=args.cache_len,
-                           max_new_tokens=args.max_new, page_size=args.page_size)
+                           max_new_tokens=args.max_new, page_size=args.page_size,
+                           paged=not args.no_paged,
+                           pipeline_admission=not args.no_pipeline)
         params = model.init(args.seed)
         router = Router.replicate(model, params, scfg, args.engines,
                                   extra_inputs=default_extra_inputs(cfg),
@@ -84,6 +97,8 @@ def main() -> None:
             "engines": len(router.engines),
             "localities": 1,
             "device": str(model.device),
+            "paged": router.engines[0].paged,
+            "pipeline_admission": scfg.pipeline_admission,
             "generated_tokens": total_tokens,
             "wall_s": round(dt, 3),
             "tokens_per_s": round(total_tokens / dt, 2),

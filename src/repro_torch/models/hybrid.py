@@ -1,0 +1,197 @@
+"""RecurrentGemma hybrid LM: (rec, rec, attn) pattern groups, ported from
+the reference's ``models/hybrid.py``.
+
+26 layers = 8 groups of (RG-LRU, RG-LRU, local attention) + 2 trailing
+RG-LRU layers.  Every layer is temporal mix + MLP with pre-norm residuals.
+Decode caches: per rec layer (conv, h), O(1); per attention layer a
+``window``-slot ring buffer, slot = position mod window.  As in the port's
+other decode steps, :func:`decode_step` writes the new states and K/V into
+the cache's tensors in place and returns a cache holding the same tensors
+and ``pos + 1``.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as Lx
+from repro_torch.models.params import ParamSpec, TensorSpec
+from repro_torch.models.rglru import rec_block, rec_block_decode, rec_param_specs
+from repro_torch.models.transformer import attn_specs, layer_params, logits, mlp_specs
+
+Params = Dict[str, torch.Tensor]
+
+
+def _pattern(cfg: ModelConfig) -> Tuple[int, int]:
+    plen = len(cfg.block_pattern)  # (rec, rec, attn)
+    return cfg.num_layers // plen, cfg.num_layers % plen  # (groups, tail)
+
+
+def hybrid_param_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    D, V = cfg.d_model, cfg.padded_vocab
+    G, tail = _pattern(cfg)
+    if tuple(cfg.block_pattern) != ("rec", "rec", "attn"):
+        raise NotImplementedError(f"block pattern {cfg.block_pattern}: the layout "
+                                  f"is (rec, rec, attn) groups")
+    specs: Dict[str, ParamSpec] = {
+        "tok_embed": ParamSpec((V, D), ("vocab", "embed"), scale=0.02),
+        "final_ln": ParamSpec((D,), (None,), init="ones"),
+    }
+    for slot in ("ra/", "rb/"):  # two rec layers per group
+        specs.update(rec_param_specs(cfg, G, f"grp/{slot}"))
+        specs.update(mlp_specs(cfg, G, f"grp/{slot}", cfg.d_ff))
+    specs.update(attn_specs(cfg, G, "grp/at/"))
+    specs.update(mlp_specs(cfg, G, "grp/at/", cfg.d_ff))
+    if tail:
+        specs.update(rec_param_specs(cfg, tail, "tail/"))
+        specs.update(mlp_specs(cfg, tail, "tail/", cfg.d_ff))
+    return specs
+
+
+def _mlp_res(cfg: ModelConfig, x: torch.Tensor, lp: Params, prefix: str) -> torch.Tensor:
+    h = Lx.norm(cfg, x, lp[f"{prefix}ln2"])
+    return x + Lx.mlp(cfg, h, lp, prefix)
+
+
+def _rec_with_state(cfg: ModelConfig, x: torch.Tensor, lp: Params, prefix: str,
+                    collect: bool):
+    """rec_block + MLP, with ``collect`` also (conv_state, h_final): the
+    final carry is the last step's h, ``hseq[:, -1]``."""
+    out = rec_block(cfg, x, lp, prefix, collect_state=collect)
+    x, state = out if collect else (out, None)
+    return _mlp_res(cfg, x, lp, prefix), state
+
+
+def _attn_with_kv(cfg: ModelConfig, x: torch.Tensor, lp: Params, prefix: str,
+                  positions: torch.Tensor, collect: bool):
+    """Local attention + MLP; with ``collect`` also the last
+    min(window, S) positions' K/V in ring-buffer layout (slot = position
+    mod window): the slice rolled by S mod W."""
+    h = Lx.norm(cfg, x, lp[f"{prefix}ln1"])
+    out = Lx.attention(cfg, h, lp, prefix, positions, causal=True,
+                       window=cfg.window, return_kv=collect)
+    h_attn, kv = out if collect else (out, None)
+    x = _mlp_res(cfg, x + h_attn, lp, prefix)
+    if collect:
+        k, v = kv
+        S = k.shape[1]
+        W = min(cfg.window, S)
+        kv = tuple(torch.roll(t[:, S - W:], shifts=S % W, dims=1) for t in (k, v))
+    return x, kv
+
+
+def _groups(cfg: ModelConfig, params: Params):
+    G, tail = _pattern(cfg)
+    return ([layer_params(params, g, "grp/") for g in range(G)],
+            [layer_params(params, t, "tail/") for t in range(tail)])
+
+
+def _embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    x = Lx.embed(cfg, params["tok_embed"], tokens)
+    return x * math.sqrt(cfg.d_model)  # gemma-style embedding scale
+
+
+def forward(cfg: ModelConfig, params: Params,
+            tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens: (B, S) → (logits fp32 (B,S,V), aux_loss 0)."""
+    x = _embed(cfg, params, tokens)
+    positions = torch.arange(tokens.shape[1], dtype=torch.int32, device=x.device)
+    groups, tails = _groups(cfg, params)
+    for lp in groups:
+        x, _ = _rec_with_state(cfg, x, lp, "ra/", False)
+        x, _ = _rec_with_state(cfg, x, lp, "rb/", False)
+        x, _ = _attn_with_kv(cfg, x, lp, "at/", positions, False)
+    for lp in tails:
+        x, _ = _rec_with_state(cfg, x, lp, "", False)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits(cfg, params, x), aux
+
+
+# --------------------------------------------------------------------- cache
+def init_cache_specs(cfg: ModelConfig, batch: int,
+                     cache_len: int = 0) -> Dict[str, TensorSpec]:
+    """``cache_len`` is ignored: the attention K/V is a fixed ``window``
+    ring buffer."""
+    G, tail = _pattern(cfg)
+    W = cfg.lru_width
+    KV, Dh, Win, K = cfg.num_kv_heads, cfg.head_dim, cfg.window, cfg.ssm_conv
+    dt = Lx.cdtype(cfg)
+    specs = {
+        "conv_a": TensorSpec((G, batch, K - 1, W), dt),
+        "h_a": TensorSpec((G, batch, W), torch.float32),
+        "conv_b": TensorSpec((G, batch, K - 1, W), dt),
+        "h_b": TensorSpec((G, batch, W), torch.float32),
+        "k": TensorSpec((G, batch, Win, KV, Dh), dt),
+        "v": TensorSpec((G, batch, Win, KV, Dh), dt),
+        "pos": TensorSpec((batch,), torch.int32),
+    }
+    if tail:
+        specs["tail_conv"] = TensorSpec((tail, batch, K - 1, W), dt)
+        specs["tail_h"] = TensorSpec((tail, batch, W), torch.float32)
+    return specs
+
+
+def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+            cache_len: Optional[int] = None
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """tokens: (B, S) at their exact length → (last-position logits (B, V)
+    fp32, cache).  The ring is zero-padded past S when the prompt is
+    shorter than the window."""
+    B, S = tokens.shape
+    dev = tokens.device
+    x = _embed(cfg, params, tokens)
+    positions = torch.arange(S, dtype=torch.int32, device=dev)
+    groups, tails = _groups(cfg, params)
+    col = {n: [] for n in ("conv_a", "h_a", "conv_b", "h_b", "k", "v",
+                           "tail_conv", "tail_h")}
+    for lp in groups:
+        x, (ca, ha) = _rec_with_state(cfg, x, lp, "ra/", True)
+        x, (cb, hb) = _rec_with_state(cfg, x, lp, "rb/", True)
+        x, (kw, vw) = _attn_with_kv(cfg, x, lp, "at/", positions, True)
+        for n, t in (("conv_a", ca), ("h_a", ha), ("conv_b", cb), ("h_b", hb),
+                     ("k", kw), ("v", vw)):
+            col[n].append(t)
+    for lp in tails:
+        x, (cs, hs) = _rec_with_state(cfg, x, lp, "", True)
+        col["tail_conv"].append(cs)
+        col["tail_h"].append(hs)
+    specs = init_cache_specs(cfg, B)
+    cache = {n: torch.stack(ts).to(specs[n].dtype) for n, ts in col.items() if ts}
+    if S < cfg.window:  # pad the window ring past the prompt
+        pad = (0, 0, 0, 0, 0, cfg.window - S)
+        cache["k"] = torch.nn.functional.pad(cache["k"], pad)
+        cache["v"] = torch.nn.functional.pad(cache["v"], pad)
+    cache["pos"] = torch.full((B,), S, dtype=torch.int32, device=dev)
+    return logits(cfg, params, x[:, -1:, :])[:, 0, :], cache
+
+
+def decode_step(cfg: ModelConfig, params: Params, cache: Dict[str, torch.Tensor],
+                token: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One decode step. token: (B, 1) → (logits (B,V) fp32, new cache); the
+    states and the ring are updated in place."""
+    pos = cache["pos"]
+    x = _embed(cfg, params, token)
+    groups, tails = _groups(cfg, params)
+
+    def rec(x, lp, prefix, conv, h):
+        x, new_conv, new_h = rec_block_decode(cfg, x, lp, prefix, conv, h)
+        conv.copy_(new_conv)
+        h.copy_(new_h)
+        return _mlp_res(cfg, x, lp, prefix)
+
+    for g, lp in enumerate(groups):
+        x = rec(x, lp, "ra/", cache["conv_a"][g], cache["h_a"][g])
+        x = rec(x, lp, "rb/", cache["conv_b"][g], cache["h_b"][g])
+        h = Lx.norm(cfg, x, lp["at/ln1"])
+        h, _, _ = Lx.decode_attention(cfg, h, lp, "at/", cache["k"][g], cache["v"][g],
+                                      pos, window=cfg.window)
+        x = _mlp_res(cfg, x + h, lp, "at/")
+    for t, lp in enumerate(tails):
+        x = rec(x, lp, "", cache["tail_conv"][t], cache["tail_h"][t])
+    new_cache = dict(cache)
+    new_cache["pos"] = pos + 1
+    return logits(cfg, params, x)[:, 0, :], new_cache

@@ -1,5 +1,5 @@
-"""Shared model primitives: norms, RoPE, GQA attention (prefill and paged
-decode), MLPs, embeddings — ported from the reference's
+"""Shared model primitives: norms, RoPE, GQA attention (prefill, dense and
+paged decode), MLPs, embeddings — ported from the reference's
 ``models/layers.py`` for the dense decoder family.
 
 Compute dtype is ``cfg.dtype``; norms, RoPE, softmax and logits work in
@@ -133,6 +133,57 @@ def attention(cfg: ModelConfig, x: torch.Tensor, p: Params, prefix: str,
     return out
 
 
+# ------------------------------------------------------------- decode attn
+def _decode_qkv(cfg: ModelConfig, x: torch.Tensor, p: Params, prefix: str,
+                pos: torch.Tensor):
+    """One token's q (B, H, Dh) and k/v (B, KV, Dh), RoPE at ``pos``."""
+    B = x.shape[0]
+    H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = _proj(cfg, x, p, prefix, "q").reshape(B, H, Dh)
+    k = _proj(cfg, x, p, prefix, "k").reshape(B, KV, Dh)
+    v = _proj(cfg, x, p, prefix, "v").reshape(B, KV, Dh)
+    if cfg.rope:
+        q = _rope_single(cfg, q, pos)
+        k = _rope_single(cfg, k, pos)
+    return q, k, v
+
+
+def decode_attention(cfg: ModelConfig, x: torch.Tensor, p: Params, prefix: str,
+                     k_cache: torch.Tensor, v_cache: torch.Tensor, pos: torch.Tensor,
+                     window: int = 0) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One-token attention against a dense KV cache, per-slot positions.
+
+    x: (B, 1, D); k_cache/v_cache: (B, T, KV, Dh); pos: (B,) int32, each
+    slot's own index (continuous batching: slots advance independently).
+    The new token's K/V (RoPE applied here, at write time) go to slot
+    ``pos mod T`` of a windowed cache, a ring buffer, and to
+    ``min(pos, T − 1)`` of a plain one; then ``ops.decode_attention``
+    attends each row over its first ``lengths = min(pos + 1, T)`` slots.
+    That is the reference's mask: before a ring wraps (pos < T) the valid
+    slots are idx ≤ pos, the first pos + 1; once it has wrapped all T are
+    valid.  Softmax does not depend on the order of the slots, and each
+    key carries its own position's rotation, so the ring's order needs no
+    unrolling.  The plain cache clamps likewise: past T the last slot is
+    rewritten and all T are read, as in the reference.
+
+    The reference returns new caches (JAX arrays are immutable); the port
+    writes the token into the caches in place and returns the same
+    tensors.  The reference's ``cross=True`` (attend to an encoder's
+    cache) comes with the encoder-decoder family.
+    Returns (out (B,1,D), k_cache, v_cache).
+    """
+    B, T = x.shape[0], k_cache.shape[1]
+    q, k, v = _decode_qkv(cfg, x, p, prefix, pos)
+    pos_l = pos.long()
+    slot = pos_l % T if window > 0 else pos_l.clamp_max(T - 1)
+    rows = torch.arange(B, device=pos.device)
+    k_cache[rows, slot] = k.to(k_cache.dtype)
+    v_cache[rows, slot] = v.to(v_cache.dtype)
+    lengths = (pos + 1).clamp_max(T).to(torch.int32)
+    o = ops.decode_attention(q, k_cache, v_cache, lengths)
+    return o.reshape(B, 1, -1) @ p[f"{prefix}wo"].to(cdtype(cfg)), k_cache, v_cache
+
+
 # ------------------------------------------------------- paged decode attn
 def paged_decode_attention(cfg: ModelConfig, x: torch.Tensor, p: Params,
                            prefix: str, k_pages: torch.Tensor,
@@ -154,16 +205,8 @@ def paged_decode_attention(cfg: ModelConfig, x: torch.Tensor, p: Params,
     all write the scratch page, which no live slot reads.
     Returns (out (B,1,D), k_pages, v_pages).
     """
-    dt = cdtype(cfg)
-    B = x.shape[0]
-    H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    page = k_pages.shape[1]
-    q = _proj(cfg, x, p, prefix, "q").reshape(B, H, Dh)
-    k = _proj(cfg, x, p, prefix, "k").reshape(B, KV, Dh)
-    v = _proj(cfg, x, p, prefix, "v").reshape(B, KV, Dh)
-    if cfg.rope:
-        q = _rope_single(cfg, q, pos)
-        k = _rope_single(cfg, k, pos)
+    B, page = x.shape[0], k_pages.shape[1]
+    q, k, v = _decode_qkv(cfg, x, p, prefix, pos)
     pos_l = pos.long()
     pidx = page_table.long()[torch.arange(B, device=pos.device), pos_l // page]
     off = pos_l % page
@@ -171,7 +214,7 @@ def paged_decode_attention(cfg: ModelConfig, x: torch.Tensor, p: Params,
     v_pages[pidx, off] = v.to(v_pages.dtype)
     lengths = pos + 1
     o = ops.paged_decode_attention(q, k_pages, v_pages, page_table, lengths)
-    return o.reshape(B, 1, H * Dh) @ p[f"{prefix}wo"].to(dt), k_pages, v_pages
+    return o.reshape(B, 1, -1) @ p[f"{prefix}wo"].to(cdtype(cfg)), k_pages, v_pages
 
 
 # --------------------------------------------------------------- embedding

@@ -1,11 +1,13 @@
 """Model facade of the port, ported from the reference's ``models/model.py``
-for the dense decoder family.
+for the dense, ssm and hybrid families.
 
 ``Model(cfg, device=None)`` runs on ``cuda`` unless the caller passes
 ``device="cpu"``; asking for CUDA where there is none raises.
 
     param_specs() / init(seed) / compute_params(params)
     prefill(params, inputs, cache_len, valid_len)   → (last logits, cache)
+    decode(params, cache, token)                    → (logits, new cache)
+    cache_specs(batch, cache_len) / init_cache(batch, cache_len)
     decode_paged(params, cache, token)              → (logits, new cache)
     paged_cache_specs(num_pages, page_size, max_batch, max_pages_per_req)
 """
@@ -18,21 +20,35 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
-from repro_torch.models.params import ParamSpec, init_params
+from repro_torch.models import hybrid, ssm_lm, transformer
+from repro_torch.models.params import ParamSpec, TensorSpec, init_params
 
 Params = Dict[str, torch.Tensor]
+
+# family → (its module, its param specs)
+_FAMILIES = {
+    "dense": (transformer, transformer.decoder_param_specs),
+    "ssm": (ssm_lm, ssm_lm.lm_param_specs),
+    "hybrid": (hybrid, hybrid.hybrid_param_specs),
+}
+
+
+def param_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    """The param specs of ``cfg``'s family; a family the port does not
+    serve yet raises ``NotImplementedError`` naming it."""
+    if cfg.family not in _FAMILIES:
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (ported: {sorted(_FAMILIES)})")
+    return _FAMILIES[cfg.family][1](cfg)
 
 
 class Model:
     def __init__(self, cfg: ModelConfig,
                  device: Optional[Union[str, torch.device]] = None):
-        if cfg.family != "dense":
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet (dense only)")
+        self._specs = param_specs(cfg)
+        self._m = _FAMILIES[cfg.family][0]
         self.cfg = cfg
         self.device = resolve_device(device)
-        self._specs = transformer.decoder_param_specs(cfg)
 
     # ---------------------------------------------------------------- params
     def param_specs(self) -> Dict[str, ParamSpec]:
@@ -49,24 +65,50 @@ class Model:
     def prefill(self, params: Params, inputs: Dict[str, torch.Tensor],
                 cache_len: Optional[int] = None,
                 valid_len: Optional[torch.Tensor] = None):
-        """``valid_len`` supports right-padded prompts (the serve engine's
-        bucketed admission)."""
-        return transformer.prefill(self.cfg, params, inputs["tokens"],
-                                   cache_len=cache_len, valid_len=valid_len)
+        """``cache_len`` sizes the dense family's KV cache (the SSM state
+        and the hybrid's ring do not grow with it).  ``valid_len`` supports
+        right-padded prompts (the serve engine's bucketed admission):
+        dense family only, as in the reference."""
+        if self.cfg.family == "dense":
+            return transformer.prefill(self.cfg, params, inputs["tokens"],
+                                       cache_len=cache_len, valid_len=valid_len)
+        if valid_len is not None:
+            raise ValueError(f"family {self.cfg.family!r} prefills at the exact "
+                             f"prompt length (no valid_len)")
+        return self._m.prefill(self.cfg, params, inputs["tokens"])
+
+    def decode(self, params: Params, cache: Dict[str, torch.Tensor],
+               token: torch.Tensor):
+        """One decode step against the family's own cache
+        (:meth:`cache_specs`); the cache's tensors are updated in place."""
+        return self._m.decode_step(self.cfg, params, cache, token)
+
+    def cache_specs(self, batch: int, cache_len: int) -> Dict[str, TensorSpec]:
+        return self._m.init_cache_specs(self.cfg, batch, cache_len)
+
+    def init_cache(self, batch: int, cache_len: int) -> Dict[str, torch.Tensor]:
+        """The family's cache as zeros on the model's device."""
+        return {k: torch.zeros(s.shape, dtype=s.dtype, device=self.device)
+                for k, s in self.cache_specs(batch, cache_len).items()}
 
     @property
     def supports_paged(self) -> bool:
-        """Paged KV serving applies to families with a dense KV cache."""
+        """Paged KV serving applies to families with a dense KV cache; the
+        ssm and hybrid families carry recurrent or ring-buffer state."""
         return self.cfg.family in ("dense", "moe", "vlm")
 
     def decode_paged(self, params: Params, cache: Dict[str, torch.Tensor],
                      token: torch.Tensor):
         """One decode step against a block-pool paged cache
         (:func:`repro_torch.models.transformer.paged_cache_specs` layout)."""
+        if not self.supports_paged:
+            raise ValueError(f"family {self.cfg.family!r} has no paged cache")
         return transformer.decode_step_paged(self.cfg, params, cache, token)
 
     def paged_cache_specs(self, num_pages: int, page_size: int,
                           max_batch: int, max_pages_per_req: int):
+        if not self.supports_paged:
+            raise ValueError(f"family {self.cfg.family!r} has no paged cache")
         return transformer.paged_cache_specs(self.cfg, num_pages, page_size,
                                              max_batch, max_pages_per_req)
 

@@ -23,7 +23,7 @@ import torch
 class ParamSpec:
     shape: Tuple[int, ...]
     axes: Tuple[Optional[str], ...]  # logical axis per dim (None = replicated)
-    init: str = "normal"  # normal | zeros | ones
+    init: str = "normal"  # normal | zeros | ones | scaled (normal × scale)
     scale: Optional[float] = None  # stddev override; default 1/sqrt(fan_in)
     dtype: torch.dtype = torch.float32
 
@@ -73,10 +73,11 @@ def init_params(specs: Dict[str, ParamSpec], seed: int,
 def from_reference(flat: Mapping[str, np.ndarray], cfg,
                    device) -> Dict[str, torch.Tensor]:
     """Turn the reference's flat ``{path: array}`` params into the port's
-    tensors on ``device``: same paths, same shapes, the spec's dtype."""
-    from repro_torch.models.transformer import decoder_param_specs
+    tensors on ``device``: same paths, same shapes, the spec's dtype, for
+    every ported family (the reference's ``init_params`` dict as it is)."""
+    from repro_torch.models.model import param_specs
 
-    specs = decoder_param_specs(cfg)
+    specs = param_specs(cfg)
     if set(flat) != set(specs):
         raise KeyError(f"param paths differ: missing {sorted(set(specs) - set(flat))}, "
                        f"unexpected {sorted(set(flat) - set(specs))}")

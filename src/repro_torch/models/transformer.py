@@ -5,6 +5,11 @@ Per-layer params keep the reference's stacked layout (a leading ``L``
 dim); where the reference runs one ``lax.scan`` over the stack, the port
 runs a Python loop over layer slices.  The MoE and VLM variants of the
 reference's decoder wait for later slices.
+
+Two decode caches: the paged block pool (:func:`paged_cache_specs`) and
+the seed's dense per-slot cache (:func:`init_cache_specs`).  Both decode
+steps write the new token's K/V into the cache's tensors in place and
+return a cache holding the same tensors and ``pos + 1``.
 """
 
 from __future__ import annotations
@@ -19,14 +24,17 @@ from repro_torch.models.params import ParamSpec, TensorSpec
 
 Params = Dict[str, torch.Tensor]
 
-# params the reference reads in fp32 (norm scales, ``scale.astype(f32)``);
+# params the reference reads in fp32, by the last part of their path: norm
+# scales (``scale.astype(f32)``), the SSD's dt_bias and A_log and the
+# RG-LRU's gate weights, biases and Λ (``models/ssm.py``, ``rglru.py``);
 # every other param it casts to the compute dtype at each use.  ``unembed``
 # is no param of the reference: compute_params adds it, already converted
-_FP32_PARAMS = ("final_ln", "blk/ln1", "blk/ln2", "unembed")
+FP32_PARAMS = frozenset({"ln", "ln1", "ln2", "gate_ln", "final_ln", "dt_bias",
+                         "A_log", "lam", "w_a", "b_a", "w_i", "b_i", "unembed"})
 
 
 # ------------------------------------------------------------------- specs
-def _attn_specs(cfg: ModelConfig, L: int, prefix: str) -> Dict[str, ParamSpec]:
+def attn_specs(cfg: ModelConfig, L: int, prefix: str) -> Dict[str, ParamSpec]:
     D, H, KV, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     specs = {
         f"{prefix}ln1": ParamSpec((L, D), ("layers", None), init="ones"),
@@ -44,7 +52,7 @@ def _attn_specs(cfg: ModelConfig, L: int, prefix: str) -> Dict[str, ParamSpec]:
     return specs
 
 
-def _mlp_specs(cfg: ModelConfig, L: int, prefix: str, d_ff: int) -> Dict[str, ParamSpec]:
+def mlp_specs(cfg: ModelConfig, L: int, prefix: str, d_ff: int) -> Dict[str, ParamSpec]:
     D = cfg.d_model
     specs = {
         f"{prefix}ln2": ParamSpec((L, D), ("layers", None), init="ones"),
@@ -66,21 +74,22 @@ def decoder_param_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     }
     if not cfg.tie_embeddings:
         specs["lm_head"] = ParamSpec((D, V), ("embed", "vocab"))
-    specs.update(_attn_specs(cfg, cfg.num_layers, "blk/"))
-    specs.update(_mlp_specs(cfg, cfg.num_layers, "blk/", cfg.d_ff))
+    specs.update(attn_specs(cfg, cfg.num_layers, "blk/"))
+    specs.update(mlp_specs(cfg, cfg.num_layers, "blk/", cfg.d_ff))
     return specs
 
 
 def compute_params(cfg: ModelConfig, params: Params) -> Params:
-    """The params as the compute sees them, made once: everything the
-    reference casts to ``cfg.dtype`` at each use is cast here, the norm
-    scales stay fp32.  For frozen weights this is bit-identical to casting
+    """The params as the compute sees them, made once, for every ported
+    family: everything the reference casts to ``cfg.dtype`` at each use is
+    cast here, what it reads in fp32 (:data:`FP32_PARAMS`) stays fp32.  For frozen weights this is bit-identical to casting
     at every use, and it saves re-reading the fp32 masters every step.
     ``unembed`` is the unembedding's fp32 weight, made here once rather
     than cast from the table at every step (``Lx.unembed_weight``).
     Idempotent: the engine may get params the router already converted."""
     dt = Lx.cdtype(cfg)
-    out = {k: (v if k in _FP32_PARAMS else v.to(dt)) for k, v in params.items()}
+    out = {k: (v if k.rsplit("/", 1)[-1] in FP32_PARAMS else v.to(dt))
+           for k, v in params.items()}
     if "unembed" not in out:
         table = out["tok_embed"] if cfg.tie_embeddings else out["lm_head"]
         out["unembed"] = Lx.unembed_weight(cfg, table, transpose=cfg.tie_embeddings)
@@ -88,7 +97,7 @@ def compute_params(cfg: ModelConfig, params: Params) -> Params:
 
 
 # ------------------------------------------------------------------ blocks
-def _layer(params: Params, i: int, prefix: str = "blk/") -> Params:
+def layer_params(params: Params, i: int, prefix: str = "blk/") -> Params:
     """Layer ``i``'s slice of the stacked params (views, no copies)."""
     return {k[len(prefix):]: v[i] for k, v in params.items() if k.startswith(prefix)}
 
@@ -104,7 +113,8 @@ def _layer_body(cfg: ModelConfig, x: torch.Tensor, lp: Params,
     return x + Lx.mlp(cfg, h, lp, ""), kv
 
 
-def _logits(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
+def logits(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
+    """The final norm and the unembedding: x (B,S,D) → logits fp32."""
     x = Lx.norm(cfg, x, params["final_ln"])
     w = params.get("unembed")
     if w is None:  # the fp32 masters, not yet through compute_params
@@ -120,9 +130,9 @@ def forward(cfg: ModelConfig, params: Params,
     x = Lx.embed(cfg, params["tok_embed"], tokens)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     for i in range(cfg.num_layers):
-        x, _ = _layer_body(cfg, x, _layer(params, i), positions)
+        x, _ = _layer_body(cfg, x, layer_params(params, i), positions)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return _logits(cfg, params, x), aux
+    return logits(cfg, params, x), aux
 
 
 def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
@@ -145,7 +155,7 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     positions = torch.arange(S, dtype=torch.int32, device=dev)
     ks, vs = [], []
     for i in range(cfg.num_layers):
-        x, (k, v) = _layer_body(cfg, x, _layer(params, i), positions, collect_kv=True)
+        x, (k, v) = _layer_body(cfg, x, layer_params(params, i), positions, collect_kv=True)
         ks.append(k)
         vs.append(v)
     dt = Lx.cdtype(cfg)
@@ -161,10 +171,42 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
         cache["pos"] = vl.clone()
         idx = (vl.long() - 1).clamp(0, S - 1)
         x_last = x[torch.arange(B, device=dev), idx][:, None, :]
-    return _logits(cfg, params, x_last)[:, 0, :], cache
+    return logits(cfg, params, x_last)[:, 0, :], cache
 
 
 # -------------------------------------------------------------------- cache
+def init_cache_specs(cfg: ModelConfig, batch: int, cache_len: int) -> Dict[str, TensorSpec]:
+    """The seed's dense per-slot KV cache: (L, batch, cache_len, KV, Dh)
+    K and V, and each slot's fill position."""
+    KV, Dh, L = cfg.num_kv_heads, cfg.head_dim, cfg.num_layers
+    dt = Lx.cdtype(cfg)
+    return {
+        "k": TensorSpec((L, batch, cache_len, KV, Dh), dt),
+        "v": TensorSpec((L, batch, cache_len, KV, Dh), dt),
+        "pos": TensorSpec((batch,), torch.int32),
+    }
+
+
+def decode_step(cfg: ModelConfig, params: Params, cache: Dict[str, torch.Tensor],
+                token: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One decode step against the dense cache (see init_cache_specs).
+    token: (B, 1) → (logits (B,V) fp32, new cache).  The new token's K/V
+    are written into the cache in place; the returned cache holds the same
+    tensors and ``pos + 1``."""
+    pos = cache["pos"]
+    x = Lx.embed(cfg, params["tok_embed"], token)
+    for i in range(cfg.num_layers):
+        lp = layer_params(params, i)
+        h = Lx.norm(cfg, x, lp["ln1"])
+        h, _, _ = Lx.decode_attention(cfg, h, lp, "", cache["k"][i], cache["v"][i], pos,
+                                      window=cfg.window)
+        x = x + h
+        x = x + Lx.mlp(cfg, Lx.norm(cfg, x, lp["ln2"]), lp, "")
+    new_cache = dict(cache)
+    new_cache["pos"] = pos + 1
+    return logits(cfg, params, x)[:, 0, :], new_cache
+
+
 def paged_cache_specs(cfg: ModelConfig, num_pages: int, page_size: int,
                       max_batch: int, max_pages_per_req: int) -> Dict[str, TensorSpec]:
     """The *paged* KV cache: a block pool of ``num_pages`` fixed
@@ -191,7 +233,7 @@ def decode_step_paged(cfg: ModelConfig, params: Params,
     pos, pt = cache["pos"], cache["page_table"]
     x = Lx.embed(cfg, params["tok_embed"], token)
     for i in range(cfg.num_layers):
-        lp = _layer(params, i)
+        lp = layer_params(params, i)
         h = Lx.norm(cfg, x, lp["ln1"])
         h, _, _ = Lx.paged_decode_attention(cfg, h, lp, "", cache["k"][i],
                                             cache["v"][i], pt, pos)
@@ -199,4 +241,4 @@ def decode_step_paged(cfg: ModelConfig, params: Params,
         x = x + Lx.mlp(cfg, Lx.norm(cfg, x, lp["ln2"]), lp, "")
     new_cache = dict(cache)
     new_cache["pos"] = pos + 1
-    return _logits(cfg, params, x)[:, 0, :], new_cache
+    return logits(cfg, params, x)[:, 0, :], new_cache

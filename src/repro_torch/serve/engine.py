@@ -1,5 +1,5 @@
 """Serving engine: paged-KV continuous batching on the AMT runtime, ported
-from the reference's ``serve/engine.py`` (paged backend).
+from the reference's ``serve/engine.py``.
 
 1. **Admission** — ``submit`` enqueues the request and a prefill task is
    posted through a ``PriorityExecutor`` over the dedicated ``prefill``
@@ -19,13 +19,23 @@ from the reference's ``serve/engine.py`` (paged backend).
 Sampling (temperature / top-k / top-p) runs inside the step with per-slot
 parameter vectors; ``temperature=0`` rows are exact argmax (greedy).
 
+Cache backends: the block-pool paged KV cache
+(:mod:`repro_torch.serve.kv_cache`) for the KV-cache family (dense), and
+the seed's dense per-slot cache for the recurrent families (ssm, hybrid),
+whose prefills run at the prompt's exact length.
+``ServeConfig(paged=False, pipeline_admission=False)`` reproduces the seed
+engine (dense cache, prefill inline in the decode loop) for A/B runs.
+
 Engine work runs on scheduler threads, and autograd's grad mode is
 thread-local, so each prefill task and each decode step enters
 ``torch.inference_mode()`` itself.
 
-The reference's dense per-slot backend, live migration and compile-count
-probe wait for later slices (PyTorch has no jit to count; CUDA graphs come
-later).
+PyTorch runs eagerly and compiles nothing, so the counterpart of the
+reference's decode compile count is :meth:`Engine.decode_compile_count`:
+the distinct (shape, dtype) signatures the decode step has been called
+with — what a jit would have compiled once each, and what a CUDA graph of
+the step would capture once each.  Live migration waits for the
+multi-locality slice.
 
 Performance counters: ``/serve{<name>}/requests/{submitted,completed}``,
 ``/serve{<name>}/tokens/generated``, ``/serve{<name>}/step/duration``,
@@ -74,8 +84,12 @@ class ServeConfig:
     cache_len: int = 256
     max_new_tokens: int = 32
     eos_id: int = -1  # -1: never stops early
+    # paged cache layer
+    paged: bool = True       # block-pool cache (KV families); else dense slots
     page_size: int = 16
     num_pages: int = 0       # 0 → auto: every slot can reach cache_len
+    # engine pipeline
+    pipeline_admission: bool = True  # False → seed-style inline prefill barrier
     prefill_oversub: int = 2  # prefills in flight beyond free slots
     idle_timeout: float = 0.05  # blocking queue wait when drained (no hot-spin)
     # the decode continuation chain runs on ``decode_pool``; prefill tasks
@@ -161,6 +175,93 @@ def _sample_host(logits: np.ndarray, sp: SamplingParams,
     return int(np.argmax(lg + rng.gumbel(size=lg.shape)))
 
 
+# --------------------------------------------------------------- backends
+def _cache_batch_axis(name: str) -> int:
+    return 0 if name == "pos" else 1
+
+
+class _DenseSlots:
+    """The seed's dense per-slot cache: the family's own cache at
+    ``max_batch`` rows (dense: (L, max_batch, cache_len, KV, Dh) K/V; ssm:
+    conv and SSD states; hybrid: rec states and the window ring).  The
+    decode step updates it in place."""
+
+    def __init__(self, model: Model, scfg: ServeConfig):
+        self.cache = model.init_cache(scfg.max_batch, scfg.cache_len)
+
+    def admit(self, slot: int, prefill_cache: Dict[str, torch.Tensor],
+              length: int) -> bool:
+        """Copy the one-row prefill cache into row ``slot``."""
+        for k, v in self.cache.items():
+            if _cache_batch_axis(k) == 1:
+                v[:, slot] = prefill_cache[k][:, 0].to(v.dtype)
+            else:
+                v[slot] = prefill_cache[k][0].to(v.dtype)
+        return True
+
+    def prepare_step(self, slot: int) -> bool:
+        return True
+
+    def release(self, slot: int) -> None:
+        pass
+
+    def device_cache(self) -> Dict[str, torch.Tensor]:
+        return self.cache
+
+    def commit(self, new_cache: Dict[str, torch.Tensor]) -> None:
+        """Copy what the step returned anew (``pos``) into the slot cache's
+        own tensors, which thus stay the same objects, made outside
+        inference mode, so admission may write them."""
+        for k, v in new_cache.items():
+            if v is not self.cache[k]:
+                self.cache[k].copy_(v)
+
+    def step_bookkeeping(self, active: List[int]) -> None:
+        pass  # the step advanced every row's pos on the device
+
+    def snapshot_slot(self, slot: int) -> Dict[str, Any]:
+        raise NotImplementedError(
+            "dense cache backend does not support live migration — "
+            "use the paged backend (ServeConfig.paged=True)")
+
+    def restore_slot(self, slot: int, snap: Dict[str, Any]) -> bool:
+        raise NotImplementedError(
+            "dense cache backend does not support live migration — "
+            "use the paged backend (ServeConfig.paged=True)")
+
+
+class _PagedSlots:
+    """Block-pool paged cache backend (see :mod:`repro_torch.serve.kv_cache`)."""
+
+    def __init__(self, model: Model, scfg: ServeConfig):
+        page = scfg.page_size
+        if scfg.cache_len % page:
+            raise ValueError(f"cache_len {scfg.cache_len} is not a multiple "
+                             f"of page_size {page}")
+        maxp = scfg.cache_len // page
+        self.kv = PagedKVCache(model, num_pages=scfg.num_pages or (scfg.max_batch * maxp + 1),
+                               page_size=page, max_batch=scfg.max_batch,
+                               max_pages_per_req=maxp, name=scfg.name)
+
+    def admit(self, slot, prefill_cache, length) -> bool:
+        return self.kv.admit(slot, prefill_cache, length)
+
+    def prepare_step(self, slot: int) -> bool:
+        return self.kv.ensure_next_token(slot)
+
+    def release(self, slot: int) -> None:
+        self.kv.release(slot)
+
+    def device_cache(self) -> Dict[str, torch.Tensor]:
+        return self.kv.device_cache()
+
+    def commit(self, new_cache: Dict[str, torch.Tensor]) -> None:
+        pass  # the step wrote the new tokens' K/V into the pools in place
+
+    def step_bookkeeping(self, active: List[int]) -> None:
+        self.kv.pos[active] += 1
+
+
 # ----------------------------------------------------------------- engine
 class Engine:
     def __init__(self, model: Model, params: Dict[str, torch.Tensor],
@@ -170,8 +271,6 @@ class Engine:
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine asked "
                              f"for {self.device}")
-        if not model.supports_paged:
-            raise NotImplementedError("only the paged backend is ported")
         self.model = model
         # the compute-dtype copy, made once (a no-op when the caller already
         # passes one, e.g. Router.replicate): bit-identical to the
@@ -180,14 +279,12 @@ class Engine:
         self.scfg = scfg
         self.extra = extra_inputs or {}
         B = scfg.max_batch
-        page = scfg.page_size
-        if scfg.cache_len % page:
-            raise ValueError(f"cache_len {scfg.cache_len} is not a multiple "
-                             f"of page_size {page}")
-        maxp = scfg.cache_len // page
-        self.kv = PagedKVCache(model, num_pages=scfg.num_pages or (B * maxp + 1),
-                               page_size=page, max_batch=B,
-                               max_pages_per_req=maxp, name=scfg.name)
+        self.paged = scfg.paged and model.supports_paged
+        self.backend = _PagedSlots(model, scfg) if self.paged else _DenseSlots(model, scfg)
+        # bucketed (right-padded) prefill needs valid_len (the KV families)
+        # and belongs to the pipelined stack; the seed-parity baseline and
+        # the recurrent families prefill at the prompt's exact length
+        self._bucketed = model.supports_paged and scfg.pipeline_admission
         self.slots: List[Optional[_Request]] = [None] * B
         self._tokens = np.zeros((B, 1), np.int64)
         self._temp = np.zeros((B,), np.float32)
@@ -202,13 +299,14 @@ class Engine:
         self._rid = 0
         self.step_count = 0
         self.prefill_count = 0
+        self._decode_signatures: set = set()
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(scfg.seed)
 
         # Execution resources (HPX resource partitioner): executors are the
         # only path to scheduler pools; names resolve at submission.
         rt = current_runtime()
-        if rt is not None:
+        if rt is not None and scfg.pipeline_admission:
             rt.add_pool(scfg.prefill_pool, scfg.prefill_workers)
         self._loop_exec = _executor.get_executor(
             scfg.decode_pool, fallback=scfg.decode_pool)  # → runtime default
@@ -226,6 +324,25 @@ class Engine:
         self.t_first = reg.timer(f"/serve{{{n}}}/request/first_token",
                                  percentiles=True)
 
+    @property
+    def kv(self) -> PagedKVCache:
+        """The paged backend's block pool (no dense backend has one)."""
+        return self.backend.kv
+
+    # --------------------------------------------------------------- decode
+    def _decode(self, cache: Dict[str, torch.Tensor], token: torch.Tensor):
+        self._decode_signatures.add(tuple(
+            (k, tuple(v.shape), v.dtype) for k, v in sorted({**cache, "token": token}.items())))
+        if self.paged:
+            return self.model.decode_paged(self.params, cache, token)
+        return self.model.decode(self.params, cache, token)
+
+    def decode_compile_count(self) -> int:
+        """Distinct (shape, dtype) signatures of the decode step's inputs
+        (cache and tokens): stays 1 after warm-up, since admission churn
+        never changes the step's shapes."""
+        return len(self._decode_signatures)
+
     # ------------------------------------------------------------------ api
     def submit(self, prompt: List[int], max_new: Optional[int] = None,
                sampling: Optional[SamplingParams] = None,
@@ -236,7 +353,9 @@ class Engine:
         ``stream``: optional Channel — every generated token is ``set()``
         the step it is sampled and the channel closes when the request
         finishes."""
-        if not prompt or len(prompt) > self.scfg.cache_len:
+        # the KV families' caches hold cache_len positions; the recurrent
+        # families' states do not grow with the prompt
+        if not prompt or (self.model.supports_paged and len(prompt) > self.scfg.cache_len):
             raise ValueError(f"prompt length {len(prompt)} outside "
                              f"1..{self.scfg.cache_len}")
         with self._lock:
@@ -291,16 +410,22 @@ class Engine:
 
     def _run_prefill_body(self, req: _Request):
         prompt = req.prompt
-        bucket = self._bucket_for(len(prompt))
-        toks = np.zeros((1, bucket), np.int64)
-        toks[0, : len(prompt)] = prompt
         with torch.inference_mode():
-            logits, cache1 = self.model.prefill(
-                self.params,
-                {"tokens": torch.from_numpy(toks).to(self.device), **self.extra},
-                cache_len=bucket,
-                valid_len=torch.tensor([len(prompt)], dtype=torch.int32,
-                                       device=self.device))
+            if self._bucketed:
+                bucket = self._bucket_for(len(prompt))
+                toks = np.zeros((1, bucket), np.int64)
+                toks[0, : len(prompt)] = prompt
+                logits, cache1 = self.model.prefill(
+                    self.params,
+                    {"tokens": torch.from_numpy(toks).to(self.device), **self.extra},
+                    cache_len=bucket if self.paged else self.scfg.cache_len,
+                    valid_len=torch.tensor([len(prompt)], dtype=torch.int32,
+                                           device=self.device))
+            else:
+                toks = torch.tensor([prompt], dtype=torch.int64, device=self.device)
+                logits, cache1 = self.model.prefill(
+                    self.params, {"tokens": toks, **self.extra},
+                    cache_len=self.scfg.cache_len)
             host_logits = logits[0].float().cpu().numpy()
         with self._lock:
             self.prefill_count += 1
@@ -370,7 +495,7 @@ class Engine:
     def _finish(self, i: int) -> None:
         req = self.slots[i]
         self.slots[i] = None
-        self.kv.release(i)
+        self.backend.release(i)
         self._temp[i], self._topk[i], self._topp[i] = 0.0, 0, 1.0
         self.c_done.increment()
         self.t_latency.add(time.perf_counter() - req.submit_t)
@@ -407,7 +532,7 @@ class Engine:
                     return
                 payload = self._ready.pop(0)
             req, cache1, length, tok0 = payload
-            if not self.kv.admit(free, cache1, length):
+            if not self.backend.admit(free, cache1, length):
                 if not any(s is not None for s in self.slots):
                     # nothing active will ever free pages → fail the request
                     # instead of wedging the head of the ready queue
@@ -422,6 +547,28 @@ class Engine:
                     self._ready.insert(0, payload)
                 return
             self._bind_slot(free, req, tok0)
+
+    def _admit_inline(self) -> None:
+        """Seed-style admission: prefill runs inside the decode loop (the
+        barrier).  Kept as the A/B baseline (pipeline_admission=False)."""
+        self._integrate_ready()  # admit-failure retries parked in _ready
+        for i, slot in enumerate(self.slots):
+            if slot is not None:
+                continue
+            try:
+                req = self._queue.get_nowait()
+            except queue.Empty:
+                return
+            try:
+                req2, cache1, length, tok0 = self._run_prefill(req)
+            except BaseException as e:  # noqa: BLE001 — fail the one request
+                self._fail(req, e)
+                continue
+            if not self.backend.admit(i, cache1, length):
+                with self._lock:
+                    self._ready.insert(0, (req2, cache1, length, tok0))
+                return
+            self._bind_slot(i, req2, tok0)
 
     # ----------------------------------------------------------------- loop
     def _idle_or_stop(self) -> bool:
@@ -442,7 +589,10 @@ class Engine:
                     self._running = False  # chain ends; submit() restarts it
                     return True
             return False
-        self._launch_prefill(req)
+        if self.scfg.pipeline_admission:
+            self._launch_prefill(req)
+        else:
+            self._queue.put(req)  # inline admission pops it next iteration
         return False
 
     def _step(self) -> None:
@@ -455,19 +605,22 @@ class Engine:
             for i, req in enumerate(self.slots):
                 if req is not None:
                     self.slots[i] = None
-                    self.kv.release(i)
+                    self.backend.release(i)
                     self._fail(req, e)
             with self._lock:
                 self._running = False
             raise
 
     def _step_body(self) -> None:
-        self._pump_prefills()
-        self._integrate_ready()
+        if self.scfg.pipeline_admission:
+            self._pump_prefills()
+            self._integrate_ready()
+        else:
+            self._admit_inline()
 
         active = [i for i, s in enumerate(self.slots) if s is not None]
         for i in list(active):
-            if not self.kv.ensure_next_token(i):  # can't grow: page capacity
+            if not self.backend.prepare_step(i):  # can't grow: page capacity
                 self._finish(i)
                 active.remove(i)
 
@@ -482,16 +635,17 @@ class Engine:
             step_args["reqs"] = [self.slots[i].tag for i in active]
         with _trace.span("decode_step", "serve", **step_args), \
                 self.t_step.time(), torch.inference_mode():
-            # the step writes the new tokens' K/V into the pools in place
-            logits, _ = self.model.decode_paged(
-                self.params, self.kv.device_cache(),
-                torch.from_numpy(self._tokens).to(self.device))
+            # the step writes the new tokens' K/V and states into the
+            # backend's cache in place
+            logits, new_cache = self._decode(
+                self.backend.device_cache(), torch.from_numpy(self._tokens).to(self.device))
+            self.backend.commit(new_cache)
             nxt = sample_logits(logits, self._gen, torch.from_numpy(self._temp),
                                 torch.from_numpy(self._topk),
                                 torch.from_numpy(self._topp))
             toks = nxt.cpu().numpy()
         self.step_count += 1
-        self.kv.pos[active] += 1
+        self.backend.step_bookkeeping(active)
         self._tokens[:, 0] = toks
         for i in active:
             req = self.slots[i]

@@ -1,10 +1,11 @@
 """Multi-engine router over local engine replicas, ported from the
 reference's ``serve/router.py``.
 
-Each :class:`~repro_torch.serve.engine.Engine` replica owns its own page
-pool, decode continuation chain and performance counters; the router is
-the only coordination point and dispatches each request to the least
-loaded replica (``submitted - completed``, a local counter read — no
+Each :class:`~repro_torch.serve.engine.Engine` replica owns its own cache
+(a page pool or dense slots, as its ``ServeConfig`` and family choose),
+decode continuation chain and performance counters; the router is the
+only coordination point and dispatches each request to the least loaded
+replica (``submitted - completed``, a local counter read — no
 messages, no global queue).  Remote engines, SLO tiers, admission gating
 and failover wait for the multi-locality slice.
 
@@ -29,9 +30,10 @@ from repro_torch.serve.engine import Engine, SamplingParams, ServeConfig
 
 
 def default_extra_inputs(cfg) -> Dict[str, Any]:
-    """Family-dependent synthetic side inputs.  The dense family needs
-    none; the vlm and encdec inputs come with those families."""
-    if cfg.family != "dense":
+    """Family-dependent synthetic side inputs.  The dense, ssm and hybrid
+    families need none; the vlm and encdec inputs come with those
+    families."""
+    if cfg.family not in ("dense", "ssm", "hybrid"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     return {}
 

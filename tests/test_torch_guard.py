@@ -145,3 +145,33 @@ def test_chip_smoke_fails_without_cuda(no_cuda, tmp_path):
                                 if k != "PYTHONPATH"})
         assert r.returncode != 0, r.stdout
         assert '"ok": true' not in r.stdout
+
+
+@pytest.mark.parametrize("arch", ["mamba2_780m", "recurrentgemma_2b"])
+def test_new_architectures_build_on_cpu_only_when_asked(no_cuda, arch):
+    """Both configs (full and smoke) come from the registry; the model
+    builds on the CPU when asked and refuses without CUDA otherwise."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model, build_model
+
+    full, smoke = get_config(arch), get_config(arch, smoke=True)
+    assert full.name == arch and smoke.name == f"{arch}_smoke"
+    assert get_config(arch.replace("_", "-")) == full
+    assert build_model(smoke, device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Model(smoke)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_model(full)
+
+
+def test_unported_families_raise_naming_the_family():
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+
+    cfg = replace(get_config("starcoder2_3b", smoke=True), family="encdec")
+    with pytest.raises(NotImplementedError, match="encdec"):
+        Model(cfg, device="cpu")
+    with pytest.raises(KeyError, match="not ported yet"):
+        get_config("whisper_small")

@@ -24,9 +24,10 @@ from repro.dist.plan import get_plan
 from repro.models import layers as RL
 from repro.models import transformer as RT
 from repro.models.model import build_model as ref_build
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.models import layers as TL
 from repro_torch.models import transformer as TT
+from repro_torch.models.model import build_model
 from repro_torch.models.params import from_reference
 
 PLAN = get_plan("futurized")
@@ -221,3 +222,77 @@ def test_compute_params_cast_all_but_norms(ref_params):
     a, _ = TT.forward(tcfg, tp, toks)
     b, _ = TT.forward(tcfg, cp, toks)
     torch.testing.assert_close(a, b, rtol=0, atol=0)  # bit-identical
+
+
+@pytest.mark.parametrize("window", [0, 32])  # plain cache (clamped), ring buffer
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_dense_decode_attention_matches(ref_params, window, impl, dtype):
+    """One token against the dense (B, T, KV, Dh) cache: the write to slot
+    pos mod T (ring) or min(pos, T − 1), and the dense decode kernel's
+    plain version over lengths min(pos + 1, T), against the reference's
+    mask; rows before, on and past the ring's wrap (or the cache's end)."""
+    rcfg, tcfg = _cfgs(impl, dtype)
+    rp, tp = _both(ref_params, tcfg)
+    rng = np.random.default_rng(8)
+    B, T, KV, Dh = 4, 32, tcfg.num_kv_heads, tcfg.head_dim
+    pos = np.asarray([0, T - 1, T, 2 * T + 5], np.int32)
+    xj, xt = _act(rng, (B, 1, tcfg.d_model), dtype)
+    kj, kt = _act(rng, (B, T, KV, Dh), dtype)
+    vj, vt = _act(rng, (B, T, KV, Dh), dtype)
+    ro, rk, rv = RL.decode_attention(rcfg, PLAN, xj, _layer0(rp), "", kj, vj,
+                                     jnp.asarray(pos), window=window)
+    to, tk, tv = TL.decode_attention(tcfg, xt, _layer0(tp), "", kt, vt,
+                                     torch.from_numpy(pos), window=window)
+    assert tk is kt and tv is vt  # written in place
+    _close(to, ro, ATOL[dtype])
+    _close(tk, rk, ATOL[dtype])
+    _close(tv, rv, ATOL[dtype])
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_dense_cache_decode_step_matches(ref_params, impl, dtype):
+    """The seed baseline's cache: prefill at cache_len, then decode steps
+    against the dense (L, B, T, KV, Dh) cache, against the reference."""
+    rcfg, tcfg = _cfgs(impl, dtype)
+    rp, tp = _both(ref_params, tcfg)
+    rng = np.random.default_rng(9)
+    B, S, T = 2, 11, 16
+    toks = rng.integers(1, tcfg.vocab_size, size=(B, S)).astype(np.int32)
+    rlog, rc = RT.prefill(rcfg, PLAN, rp, jnp.asarray(toks), cache_len=T)
+    tlog, tc = TT.prefill(tcfg, tp, torch.from_numpy(toks), cache_len=T)
+    assert set(tc) == set(TT.init_cache_specs(tcfg, B, T)) == set(rc)
+    V = tcfg.vocab_size
+    for _ in range(7):  # up to and past the cache's end (clamped)
+        tok = np.asarray(rlog).argmax(-1)[:, None].astype(np.int32)
+        rlog, rc = RT.decode_step(rcfg, PLAN, rp, rc, jnp.asarray(tok))
+        tlog, tc = TT.decode_step(tcfg, tp, tc, torch.from_numpy(tok))
+        _close(tlog[:, :V], rlog[:, :V], LOGIT_ATOL[dtype])
+        np.testing.assert_array_equal(tc["pos"].numpy(), np.asarray(rc["pos"]))
+        _close(tc["k"], rc["k"], ATOL[dtype])
+        _close(tc["v"], rc["v"], ATOL[dtype])
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_arch_prefill_decode_shapes(arch):
+    """test_models_smoke.py's shape test for each ported architecture: the
+    smoke config in its compute dtype (bf16), prefill then one decode
+    step, finite logits over the padded vocab, argmax inside the vocab."""
+    cfg = get_config(arch, smoke=True)
+    model = build_model(cfg, device="cpu")
+    params = model.compute_params(model.init(0))
+    B, S = 2, 16
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(B, S)))
+    with torch.inference_mode():
+        logits, cache = model.prefill(params, {"tokens": toks}, cache_len=S + 4)
+        assert logits.shape == (B, cfg.padded_vocab) and torch.isfinite(logits).all()
+        specs = model.cache_specs(B, S + 4)
+        assert {k: (tuple(v.shape), v.dtype) for k, v in cache.items()} == \
+            {k: (s.shape, s.dtype) for k, s in specs.items()}
+        logits2, cache2 = model.decode(params, cache, torch.zeros(B, 1, dtype=torch.long))
+    assert logits2.shape == (B, cfg.padded_vocab) and torch.isfinite(logits2).all()
+    # padded vocab columns are masked: argmax must stay within real vocab
+    assert int(logits2.argmax(-1).max()) < cfg.vocab_size
+    assert cache2["pos"].tolist() == [S + 1] * B

@@ -25,8 +25,9 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.rglru_scan import CHUNK as RGLRU_CHUNK
 from repro_torch.kernels.rglru_scan import THREADS as RGLRU_THREADS
 from repro_torch.kernels.rglru_scan import rglru_plan
-from repro_torch.kernels.ssd_scan import (MAX_GRID_YZ, PASS_THREADS, ROW_TILE, ssd_plan,
-                                          ssd_scan_plain)
+from repro_torch.kernels import ssd_scan as tssd
+from repro_torch.kernels.ssd_scan import (MAX_GRID_YZ, PASS_THREADS, ROW_TILE, check_ssd_args,
+                                          ssd_plan, ssd_scan_plain)
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -111,7 +112,9 @@ def test_decode_attention_length_above_cache_is_clamped(length):
 
 
 # ---------------------------------------------------------------- SSD scan
-def _ssd_inputs(B, S, H, P, G, N, dtype, seed, steep=False):
+def _ssd_inputs(B, S, H, P, G, N, dtype, seed, steep=False, dt_fp32=False):
+    """``dt_fp32``: dt in fp32 whatever the dtype, as the Mamba-2 block
+    feeds it (a softplus in fp32 beside bf16 x, B and C)."""
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((B, S, H, P), np.float32) * 0.5
     dt = np.log1p(np.exp(rng.standard_normal((B, S, H), np.float32)))
@@ -121,7 +124,7 @@ def _ssd_inputs(B, S, H, P, G, N, dtype, seed, steep=False):
         A = -np.ones(H, np.float32)
     Bm = rng.standard_normal((B, S, G, N), np.float32) * 0.3
     Cm = rng.standard_normal((B, S, G, N), np.float32) * 0.3
-    return (_pair(x, dtype), _pair(dt.astype(np.float32), dtype),
+    return (_pair(x, dtype), _pair(dt.astype(np.float32), "float32" if dt_fp32 else dtype),
             (jnp.asarray(A), torch.from_numpy(A)), _pair(Bm, dtype), _pair(Cm, dtype))
 
 
@@ -167,21 +170,23 @@ def test_ssd_scan_steep_decay_stays_finite():
     (1, 8192, 48, 64, 128, 256),   # 32 chunks through the state pass
 ])
 @pytest.mark.parametrize("bf16", [False, True])
-def test_ssd_plan_covers_every_step(B, S, H, P, N, chunk, bf16):
+@pytest.mark.parametrize("final", [False, True])
+def test_ssd_plan_covers_every_step(B, S, H, P, N, chunk, bf16, final):
     """``ssd_plan`` against the kernel's cut: the chunks cover S once (the
     last one ragged, never empty); the state pass covers every (n, p); the
     output blocks cover every row of every chunk once (fp32: 64-row tiles,
     heavy first; bf16: one block a chunk whose 8 warps take the 16-row
     tiles in pairs (w, 15 − w), none walking more than 17 column tiles);
     and the scratch holds the states, cum_end, cum and (bf16) S_in's hi and
-    lo planes from a 16-byte boundary."""
-    plan = ssd_plan(B, S, H, P, N, chunk, bf16)
+    lo planes from a 16-byte boundary.  With the final state the state pass
+    runs for one chunk too."""
+    plan = ssd_plan(B, S, H, P, N, chunk, bf16, final)
     C = plan.chunks
     steps = [t for c in range(C) for t in range(c * chunk, min((c + 1) * chunk, S))]
     assert steps == list(range(S)) and 0 < S - (C - 1) * chunk <= chunk
     assert plan.grids[0] == (C, H, B) and plan.grids[-1][1:] == (H, B)
-    assert len(plan.grids) == (3 if C > 1 else 2)
-    if C > 1:
+    assert len(plan.grids) == (3 if C > 1 or final else 2)
+    if C > 1 or final:
         blocks = plan.grids[1][0]
         assert plan.grids[1][1:] == (H, B)
         assert blocks * PASS_THREADS >= N * P > (blocks - 1) * PASS_THREADS
@@ -209,11 +214,13 @@ def test_ssd_plan_covers_every_step(B, S, H, P, N, chunk, bf16):
     assert plan.ws_floats == planes_at + (plan.state_floats if bf16 else 0)
 
 
-def _ssd_three_passes(x, dt, A, Bm, Cm, chunk):
+def _ssd_three_passes(x, dt, A, Bm, Cm, chunk, final=False):
     """The kernel's three passes in plain PyTorch, fp32, as ``ssd_plan``
     cuts them: every chunk's cumsum and local state, the walk that turns
     them into the states entering each chunk, then every chunk's outputs
-    with exp(cum_i − cum_j) formed for j ≤ i only."""
+    with exp(cum_i − cum_j) formed for j ≤ i only.  ``final``: also the
+    final state as the state pass forms it, S_in(last)·exp(cum_end(last))
+    + s(last), with cum_end at the last real step, as (B, H, P, N)."""
     B, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     plan = ssd_plan(B, S, H, P, N, chunk, x.dtype == torch.bfloat16)
@@ -240,7 +247,11 @@ def _ssd_three_passes(x, dt, A, Bm, Cm, chunk):
             * dtf[:, sl][:, None]
         ys.append(torch.einsum("bijh,bjhp->bihp", scores, xf[:, sl])
                   + torch.exp(cum)[..., None] * torch.einsum("bihn,bhnp->bihp", Cf[:, sl], s))
-    return torch.cat(ys, dim=1).to(x.dtype)
+    y = torch.cat(ys, dim=1).to(x.dtype)
+    if not final:
+        return y
+    last = s_in[-1] * torch.exp(cums[-1][:, -1])[..., None, None] + local[-1]
+    return y, last.transpose(-1, -2)
 
 
 @pytest.mark.parametrize("B,S,H,P,G,N,chunk,steep", [
@@ -260,6 +271,93 @@ def test_ssd_three_passes_match_reference(B, S, H, P, G, N, chunk, steep, dtype)
     tol = dict(atol=_tol(dtype) * 8, rtol=1e-2)
     _close(y, rref.ssd(*jx)[0], **tol)
     _close(y, ssd_scan_plain(*tx, chunk=chunk).float(), **tol)
+
+
+# ------------------------------------- SSD: the model's dtype mix, final state
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", [
+    (1, 128, 2, 16, 1, 16, 32),
+    (2, 100, 4, 16, 2, 32, 32),   # groups of heads, ragged last chunk
+    (1, 70, 2, 8, 1, 16, 64),
+])
+def test_ssd_scan_bf16_with_fp32_dt_matches_reference(B, S, H, P, G, N, chunk):
+    """The Mamba-2 block's mix: bf16 x, B and C with an fp32 dt.  The scan
+    takes dt as it lies (no rounding to bf16) and writes y in bf16, as the
+    reference's kernel, which casts each input to fp32."""
+    args = _ssd_inputs(B, S, H, P, G, N, "bfloat16", 5, dt_fp32=True)
+    jx, tx = zip(*args)
+    assert tx[0].dtype == torch.bfloat16 and tx[1].dtype == torch.float32
+    y = ops.ssd_scan(*tx, chunk=chunk)
+    assert y.shape == (B, S, H, P) and y.dtype == torch.bfloat16
+    tol = dict(atol=_tol("bfloat16") * 8, rtol=1e-2)
+    _close(y, rops.ssd_scan(*jx, chunk=chunk), **tol)
+    _close(y, rref.ssd(*jx)[0], **tol)
+
+
+@pytest.mark.parametrize("S,chunk", [
+    (128, 32),   # S on a chunk edge
+    (127, 32),   # ... and one off it on either side
+    (129, 32),
+    (100, 64),   # a ragged last chunk
+    (20, 64),    # S < chunk: one chunk
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_scan_final_state_matches_ssd_chunked(S, chunk, dtype):
+    """``return_final_state=True`` gives the fp32 (B, H, P, N) state after
+    step S, as the reference model's ``ssd_chunked`` returns it (the
+    ragged tail adds nothing); y is the same as without it.  The three
+    passes written out as the kernel forms the final state agree too."""
+    from repro.models.ssm import ssd_chunked
+
+    B, H, P, G, N = 2, 4, 16, 2, 16
+    args = _ssd_inputs(B, S, H, P, G, N, dtype, 9, dt_fp32=True)
+    jx, tx = zip(*args)
+    y, state = ops.ssd_scan(*tx, chunk=chunk, return_final_state=True)
+    assert state.shape == (B, H, P, N) and state.dtype == torch.float32
+    assert torch.equal(y, ops.ssd_scan(*tx, chunk=chunk))
+    ry, rstate = ssd_chunked(*jx, chunk)
+    tol = dict(atol=_tol(dtype) * 8, rtol=1e-2)
+    _close(y, ry, **tol)
+    _close(state, rstate, **tol)
+    _close(state, rref.ssd(*jx)[1], **tol)
+    y3, state3 = _ssd_three_passes(*tx, chunk=min(chunk, S), final=True)
+    _close(y3, ry, **tol)
+    _close(state3, rstate, **tol)
+
+
+def test_ssd_arg_check_takes_fp32_dt_with_bf16_x(monkeypatch):
+    """The argument rules ``ssd_scan_fwd`` applies to CUDA tensors, in pure
+    Python: bf16 x/B/C take an fp32 dt and launch with both dtype codes;
+    dt in x's dtype stays accepted; other mixes raise.  Meta tensors stand
+    in for the card's, with the device check and the launch replaced by a
+    record of the call."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    B, S, H, P, G, N = 1, 40, 4, 16, 1, 32
+
+    def t(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    def args(xd, dd, ad=f32):
+        return (t((B, S, H, P), xd), t((B, S, H), dd), t((H,), ad),
+                t((B, S, G, N), xd), t((B, S, G, N), xd))
+
+    codes = {f32: 0, bf16: 1}
+    for xd, dd in ((bf16, f32), (bf16, bf16), (f32, f32)):
+        assert check_ssd_args("t", *args(xd, dd), 32) == (codes[xd], codes[dd])
+    for bad in (args(f32, bf16), args(bf16, torch.float16), args(bf16, f32, bf16),
+                args(torch.float16, torch.float16)):
+        with pytest.raises(TypeError):
+            check_ssd_args("t", *bad, 32)
+    with pytest.raises(TypeError):
+        tssd.ssd_scan_fwd(*args(f32, bf16), chunk=32)
+
+    calls = []
+    monkeypatch.setattr(tssd._build, "check_tensors", lambda *a, **k: None)
+    monkeypatch.setattr(tssd._build, "launch", lambda *a, **k: calls.append((a, k)))
+    y, state = tssd.ssd_scan_fwd(*args(bf16, f32), chunk=32, return_final_state=True)
+    assert y.dtype == bf16 and state.shape == (B, H, P, N) and state.dtype == f32
+    (a, k), = calls
+    assert a[0] == "repro_ssd_scan_fwd" and a[-2:] == (1, 0)  # x bf16, dt fp32
+    assert k["ws_floats"] == ssd_plan(B, S, H, P, N, 32, True, True).ws_floats
 
 
 # -------------------------------------------------------------- RG-LRU scan

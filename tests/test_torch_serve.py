@@ -238,3 +238,67 @@ def test_engine_bf16_serves(port_rt, served):
     assert eng.params["final_ln"].dtype == torch.float32
     out = eng.submit([3, 1, 4, 1, 5]).get(timeout=300)
     assert len(out) == 6 and all(0 <= t < 512 for t in out)
+
+
+def test_seed_parity_mode_matches_greedy(port_rt, served):
+    """The A/B baseline (dense cache + inline-prefill barrier) produces the
+    reference's exact greedy tokens (test_serve_paged.py)."""
+    cfg, model, params, ref_greedy = served
+    eng = _engine(model, params, max_batch=2, cache_len=96, max_new_tokens=4,
+                  paged=False, pipeline_admission=False, name="seed#0")
+    assert not eng.paged and not eng._bucketed
+    prompts = [[11, 12, 13], [5, 6, 7, 8], [42], [100, 3, 50, 2, 9, 11]]
+    outs = [f.get(timeout=300) for f in [eng.submit(p) for p in prompts]]
+    for p, o in zip(prompts, outs):
+        assert o == ref_greedy(p, 4), f"prompt {p}"
+
+
+@pytest.mark.parametrize("mode", [dict(), dict(paged=False),
+                                  dict(paged=False, pipeline_admission=False)])
+def test_decode_step_compiles_once(port_rt, served, mode):
+    """Admission churn (different prompt lengths, sampling params, EOS
+    timings) never changes the decode step's input shapes: one signature
+    in all, on either backend (test_serve_paged.py)."""
+    cfg, model, params, _ = served
+    eng = _engine(model, params, max_batch=2, cache_len=64, max_new_tokens=3,
+                  name="compile#0", **mode)
+    futs = [eng.submit(list(range(1, 2 + i)),
+                       sampling=SamplingParams(temperature=0.5 * (i % 2), top_k=i))
+            for i in range(5)]
+    for f in futs:
+        f.get(timeout=300)
+    assert eng.step_count > 1
+    assert eng.decode_compile_count() == 1
+
+
+def test_engine_counters(port_rt, served):
+    """test_serve.py's counter test on the port's engine."""
+    cfg, model, params, _ = served
+    before = counters.get_value("/serve{engine#0}/requests/completed")
+    eng = _engine(model, params, max_batch=2, cache_len=64, max_new_tokens=2)
+    eng.submit([1, 2, 3]).get(timeout=300)
+    assert counters.get_value("/serve{engine#0}/requests/completed") == before + 1
+
+
+@pytest.mark.parametrize("arch", ["mamba2_780m", "recurrentgemma_2b"])
+def test_recurrent_families_take_the_dense_backend(port_rt, arch):
+    """An ssm or hybrid model has no paged cache: the engine serves it from
+    dense slots whatever ``paged`` says, prefills at the exact prompt
+    length, and refuses live migration as the reference's dense backend
+    does; prompts are not bounded by cache_len."""
+    model = Model(get_config(arch, smoke=True), device="cpu")
+    params = model.init(0)
+    eng = _engine(model, params, max_batch=2, cache_len=16, max_new_tokens=3,
+                  paged=True, name=f"{arch}#0")
+    assert not model.supports_paged and not eng.paged and not eng._bucketed
+    assert set(eng.backend.device_cache()) == set(model.cache_specs(2, 16))
+    with pytest.raises(AttributeError):
+        eng.kv
+    with pytest.raises(NotImplementedError, match="live migration"):
+        eng.backend.snapshot_slot(0)
+    with pytest.raises(ValueError, match="no paged cache"):
+        model.paged_cache_specs(8, 16, 2, 4)
+    outs = [f.get(timeout=300) for f in [eng.submit([3, 1]), eng.submit(list(range(1, 40)))]]
+    assert [len(o) for o in outs] == [4, 4]
+    assert all(0 <= t < model.cfg.vocab_size for o in outs for t in o)
+    assert eng.decode_compile_count() == 1
