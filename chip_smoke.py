@@ -48,7 +48,11 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    full ring (B=8, T=2048), and each decode row names its split count; the
    SSD and the RG-LRU also as the models call them (fp32 dt and the final
    state; fp32 a and b); the triad at N = 2²⁷ in fp32 and bf16 gives
-   STREAM's GB/s.
+   STREAM's GB/s.  The training path's flash backward
+   (``flash_attention_bwd``, PyTorch math) against ``torch.autograd.grad``
+   through the plain version at starcoder2_3b's training shape (B=2,
+   S=512, causal; and a window of 128), fp32 and bf16, each gradient's
+   worst row within ``ROW_TOL`` (a window one short moves it past).
 4. Path parity — starcoder2_3b at full width and 2 layers, the same params
    on the card and on the CPU: prefill + 4 paged decode steps; fp32 (TF32
    off) logits and greedy tokens, then bf16 logits.
@@ -91,9 +95,25 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    once per call.  Reports STREAM (HPX.Compute) from phase 3's triad
    timings: GB/s (2 reads + 1 write) beside torch's native fp32
    ``torch.add(a, b, alpha=3.0)`` and their ratio.
+8. Training — (a) parity: starcoder2_3b at full width and 2 layers, fp32
+   (TF32 off), B=1, S=256: one step's loss and every gradient on the card
+   against the CPU (none all zero), the same grads under full and dots
+   remat (``REMAT_RTOL``; 4 flash launches each), and the AdamW update on
+   the card's grads against the CPU's, within ``TRAIN_*`` limits.  (b) The full
+   30-layer starcoder2_3b (3.18 B params, fp32 masters, bf16 compute)
+   trained by ``Trainer.fit`` under the futurized plan, B=2, S=512, 6
+   steps, log_every 1: finite loss and grad norm, exactly 30 flash
+   launches a step; step-time p50, tokens/s, peak memory and one step
+   under torch.profiler; then one bsp step (full remat) on the same
+   params and batch as a futurized step: 60 launches, the same loss,
+   grads and grad norm within bf16 limits; then two futurized steps of
+   16,384 tokens (8 microbatches of one 2048-token sequence): 240
+   launches each, AdamW's share of the step's device time, tokens/s and
+   peak memory.  (c) A checkpoint on the card at 2 layers: async save
+   after step 2, a new trainer resumed equal, the next step's loss equal.
 
 The second-to-last line of standard output is the ``kernels`` JSON, each
-kernel's launches summed over the paths of phases 5, 5b and 7; the last
+kernel's launches summed over the paths of phases 5, 5b, 7 and 8b; the last
 is ``{"ok": true, "device": {...}}``.  A fuller report is written to
 ``chiprun_out/chip_smoke.json``.
 """
@@ -406,6 +426,7 @@ def phase_kernels(torch, np):
                    paged_decode_attention_plain(*f32, pt, lengths),
                    paged_decode_attention_plain(*f32, pt, (lengths - 1).clamp_min(1)))
     _check_ops_kernels(torch, gen, rng, record)
+    _check_flash_bwd(torch, gen)
     REPORT["kernel_checks"] = checks
     REPORT["kernel_worst"] = worst
     log(f"[kernels] {len(checks)} checks within tolerance")
@@ -451,6 +472,115 @@ def phase_kernels(torch, np):
                 f"{r['plain_ms']:.4f}, library {r['library_ms']}, bound "
                 f"{r['bound_ms']:.4f} by {r['bound_by']})")
     return timings
+
+
+# The backward of the training path's flash op: flash_attention_bwd (PyTorch
+# math) against torch.autograd.grad through flash_attention_plain, on the
+# card, at starcoder2_3b's training shape, causal and with a window; each
+# gradient's worst row against autograd in fp32 on the same inputs.  A
+# row's error is taken relative to its own norm, floored at 1e-3 of the
+# tensor's largest row: some rows' exact gradient is 0 (the first query's
+# dq: one key, so dS = P·(dP − rowsum(P ⊙ dP)) = 0) and would otherwise be
+# held to the noise of the other side.  Each side's error against fp64
+# autograd on the same inputs is reported beside (``vs_fp64``).  The
+# limits come from readings at this shape on the card: fp32, the two sides
+# differed by up to 6.6e-6 on one draw and 1.15e-4 on another (a dq row
+# near the floor: dS cancels, so it carries the rounding of the large
+# terms), and against fp64 on one draw of each kind the backward's worst
+# row erred by 4.3e-6 and 1.19e-4, autograd through the plain version by
+# 6.9e-6 and 3.7e-5; bf16, whose rounding of the gradients (≤ 2⁻⁹ of a
+# row) is the lower-precision control, by 2.1–2.3e-3.  fp32's limit sits
+# between the largest sound fp32 reading and that control; a window one
+# short moves every gradient's worst row by 0.34 or more.
+ROW_TOL.update({("flash_attention_bwd", "float32"): 1e-3,
+                ("flash_attention_bwd", "bfloat16"): 1e-2})
+TRAIN_SHAPE = (2, 512, 24, 2, 128)                        # B, S, H, KV, Dh
+
+
+def _grad_row_err(o, e) -> float:
+    """The worst row's ‖o − e‖₂ / max(‖e‖₂, 1e-3 · the largest ‖e‖₂), in
+    fp64 where ``e`` is fp64, else in fp32."""
+    o, e = (o.double(), e) if e.element_size() == 8 else (o.float(), e.float())
+    norms = e.norm(dim=-1)
+    return ((o - e).norm(dim=-1) / norms.clamp_min(1e-3 * norms.max().item() + 1e-12)
+            ).max().item()
+
+
+def _check_flash_bwd(torch, gen):
+    from repro_torch.kernels.flash_attention import (_mask, flash_attention_bwd,
+                                                     flash_attention_plain)
+
+    def autograd(q, k, v, do, causal, window):
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        with torch.enable_grad():
+            out = flash_attention_plain(*leaves, causal=causal, window=window)
+            return torch.autograd.grad(out, leaves, do)
+
+    def autograd64(q, k, v, do, causal, window):
+        """The same gradients in fp64: softmax(q·kᵀ/√Dh)·v, the kernel's masks"""
+        B, S, H, Dh = q.shape
+        KV = k.shape[2]
+        leaves = [t.detach().double().requires_grad_() for t in (q, k, v)]
+        with torch.enable_grad():
+            qg = leaves[0].reshape(B, S, KV, H // KV, Dh)
+            s = torch.einsum("bqkgd,btkd->bkgqt", qg, leaves[1]) / math.sqrt(Dh)
+            s = s.masked_fill(~_mask(S, causal, window, 0, q.device), float("-inf"))
+            out = torch.einsum("bkgqt,btkd->bqkgd", torch.softmax(s, dim=-1), leaves[2])
+            return torch.autograd.grad(out.reshape(B, S, H, Dh), leaves, do.double())
+
+    rows = []
+    B, S, H, KV, Dh = TRAIN_SHAPE
+    for dtype in (torch.float32, torch.bfloat16):
+        name = "float32" if dtype == torch.float32 else "bfloat16"
+        for window in (0, 128):
+            q, k, v = _flash_inputs(torch, gen, B, S, H, KV, Dh, dtype)
+            do = torch.randn(B, S, H, Dh, generator=gen, device="cuda").to(dtype)
+            got = flash_attention_bwd(q, k, v, do, True, window)
+            torch.cuda.synchronize()
+            same = autograd(q, k, v, do, True, window)
+            f32 = [x.float() for x in (q, k, v, do)]
+            e32 = autograd(*f32, True, window)
+            moved = autograd(*f32, True, window - 1) if window else None
+            e64 = autograd64(q, k, v, do, True, window)
+            errs = {}
+            for gname, g, e, w, m, x in zip(("dq", "dk", "dv"), got, same, e32,
+                                            moved or (None,) * 3, e64):
+                check(g.dtype == dtype and g.shape == e.shape and
+                      bool(torch.isfinite(g).all().item()), f"flash bwd {gname}: bad output")
+                errs[gname] = {"max_abs_err": (g.float() - e.float()).abs().max().item(),
+                               "max_row_err": _grad_row_err(g, w),
+                               "off_by_one_row_err": None if m is None else _grad_row_err(m, w),
+                               "vs_fp64": {"kernel": _grad_row_err(g, x),
+                                           "plain": _grad_row_err(e, x)}}
+            del e64
+            worst = max(r["max_row_err"] for r in errs.values())
+            moves = (None if moved is None else
+                     max(r["off_by_one_row_err"] for r in errs.values()))
+            ok = worst <= ROW_TOL["flash_attention_bwd", name] and (moves is None or moves > ROW_TOL["flash_attention_bwd", name])
+            rows.append({"shape": [B, S, H, KV, Dh, 1, window], "dtype": name, "grads": errs,
+                         "row_tol": ROW_TOL["flash_attention_bwd", name], "ok": ok})
+            check(ok, f"flash bwd {[B, S, H, KV, Dh, window]} {name}: row err {worst} "
+                      f"(tol {ROW_TOL["flash_attention_bwd", name]}), off-by-one window moves {moves}")
+    # its time at the training shape in bf16, as a layer's backward calls it
+    flush = torch.empty(16 * 1024 * 1024, dtype=torch.float32, device="cuda")
+    q, k, v = _flash_inputs(torch, gen, B, S, H, KV, Dh, torch.bfloat16)
+    do = torch.randn(B, S, H, Dh, generator=gen, device="cuda").to(torch.bfloat16)
+    REPORT["flash_bwd_ms"] = _time_ms(torch, lambda: flash_attention_bwd(q, k, v, do), flush)
+    # and at a microbatch of phase 8b's step of 16,384 tokens
+    B, S = TRAIN_WIDE[0] // TRAIN_WIDE[2], TRAIN_WIDE[1]
+    q, k, v = _flash_inputs(torch, gen, B, S, H, KV, Dh, torch.bfloat16)
+    do = torch.randn(B, S, H, Dh, generator=gen, device="cuda").to(torch.bfloat16)
+    REPORT["flash_bwd_ms_wide"] = _time_ms(torch, lambda: flash_attention_bwd(q, k, v, do),
+                                           flush)
+    REPORT["flash_bwd_checks"] = rows
+    fp64 = {side: max(g["vs_fp64"][side] for r in rows if r["dtype"] == "float32"
+                      for g in r["grads"].values()) for side in ("kernel", "plain")}
+    log(f"[kernels] flash_attention_bwd: {len(rows)} checks within tolerance, worst row "
+        f"err {max(max(g['max_row_err'] for g in r['grads'].values()) for r in rows):.3g}; "
+        f"fp32 against fp64 on the same inputs: bwd {fp64['kernel']:.3g}, autograd "
+        f"through plain {fp64['plain']:.3g}; "
+        f"{REPORT['flash_bwd_ms']:.4f} ms at {list(TRAIN_SHAPE)} bf16 causal, "
+        f"{REPORT['flash_bwd_ms_wide']:.4f} ms at B={B}, S={S}")
 
 
 # full widths of the configurations whose math the four ops kernels carry
@@ -1204,6 +1334,12 @@ def phase_serve_families(torch, np, card):
 
 
 # ------------------------------------------------------------------ phase 6
+# kernel kinds of a profile, by words in the kernel's name, first match
+PROFILE_GROUPS = (("flash", ("flash_fwd",)), ("decode", ("repro_torch::decode::",)),
+                  ("gemm", ("gemm", "xmma", "cutlass", "sm90_", "sm80_")),
+                  ("reduce", ("reduce",)), ("elementwise", ("elementwise",)))
+
+
 def _device_profile(torch, fn, n):
     """Wall time of ``n`` calls of ``fn`` (each ends in a synchronize),
     then the same under torch.profiler with its device kernel time and the
@@ -1236,7 +1372,13 @@ def _device_profile(torch, fn, n):
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
     decode = [e for e in kernels if "repro_torch::decode::" in e.key]
     flash = [e for e in kernels if "flash_fwd" in e.key]
-    return {**out, "device_ms": device_us / 1e3 / n,
+    groups = {}  # device ms by kind of kernel
+    for e in kernels:
+        key = e.key.lower()
+        kind = next((g for g, words in PROFILE_GROUPS if any(w in key for w in words)),
+                    "other")
+        groups[kind] = groups.get(kind, 0.0) + e.self_device_time_total / 1e3 / n
+    return {**out, "device_ms": device_us / 1e3 / n, "groups_ms": groups,
             "decode_attention_ms": sum(e.self_device_time_total for e in decode) / 1e3 / n,
             "decode_attention_kernels": sum(e.count for e in decode) / n,
             "flash_attention_ms": sum(e.self_device_time_total for e in flash) / 1e3 / n,
@@ -1378,6 +1520,375 @@ def phase_ops(torch, np, card, timings):
     return launches
 
 
+# ------------------------------------------------------------------ phase 8
+# parity: layers kept, batch, sequence; the full run: batch, sequence,
+# futurized steps (1,024 tokens a step: a short run whose steps show the
+# step's fixed costs, AdamW's above all); then batch, sequence and
+# microbatches of a step of 16,384 tokens, one starcoder2_3b context's
+# worth (arXiv:2402.19173), over which those fixed costs spread
+TRAIN_PARITY = (2, 1, 256)
+TRAIN_RUN = (2, 512, 6)
+TRAIN_WIDE = (8, 2048, 8)
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=100)
+# parity limits, fp32 with TF32 off: the loss (a mean of ~10.8-nat NLLs,
+# the same fp32 math in other summation orders: ~1e-6 relative); each
+# gradient's worst element against 1e-3 of that tensor's largest (sums of
+# 256 tokens' products over 3072–49152 terms, in other orders); the AdamW
+# update on the same grads (elementwise fp32; the global norm summed in
+# another order moves the clip scale by ulps)
+TRAIN_LOSS_TOL = 1e-4
+TRAIN_GRAD_RTOL = 1e-3
+TRAIN_UPDATE_ATOL = 1e-6
+TRAIN_NORM_RTOL = 1e-5
+# the remat policies on the card: the same ops on the same inputs, so the
+# same grads; only sums whose order follows atomics (the embedding's
+# gradient) may differ, by ulps
+REMAT_RTOL = 1e-5
+# bsp (full remat) against futurized on the same params and batch, bf16:
+# the same forward ops, so equal up to bf16 rounding (test_torch_train.py's
+# bf16 loss limit); each gradient's worst element against that tensor's
+# largest, and the global grad norm, within one bf16 rounding (2⁻⁸)
+TRAIN_BF16_LOSS_TOL = 2e-2
+BSP_GRAD_RTOL = 2 ** -8
+
+
+def phase_train_parity(torch, np):
+    """One train step at full width and 2 layers, fp32 (TF32 off), on the
+    card and on the CPU, same params and batch: the loss and every
+    gradient (none all zero: attention's projections above all); the same
+    grads on the card under the full and dots remat policies (flash
+    launching again in the backward); then the AdamW update.  The update is held on the card's own gradients, applied
+    on both devices: Adam's first step moves a param by ±lr·sign(g), so a
+    gradient at rounding level would flip it and hide the update's math."""
+    from repro_torch.configs.starcoder2_3b import full_config
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.dist.plan import get_plan
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as step_mod
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    layers, B, S = TRAIN_PARITY
+    t0 = time.perf_counter()
+    cfg = replace(full_config(), num_layers=layers, dtype="float32")
+    cpu = Model(cfg, device="cpu")
+    params = cpu.init(SEED)
+    batch = synth_batch(cfg, DataConfig(batch_size=B, seq_len=S, seed=SEED), 0)
+    loss_c, grads_c = step_mod.value_and_grad(cpu.loss, params, batch)
+    gpu = Model(cfg)
+    pg = {k: v.cuda() for k, v in params.items()}
+    ops.reset_launch_counts()
+    loss_g, grads_g = step_mod.value_and_grad(gpu.loss, pg,
+                                              {k: v.cuda() for k, v in batch.items()})
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    _check_launches("train parity", launches, {"flash_attention": layers})
+    loss_err = abs(loss_g.item() - loss_c.item())
+    grad_errs = {}
+    for k, gc_ in grads_c.items():
+        gg = grads_g[k].cpu()
+        scale = gc_.abs().max().item()
+        grad_errs[k] = {"max_abs_err": (gg - gc_).abs().max().item(), "max_abs": scale,
+                        "card_max_abs": gg.abs().max().item()}
+        check(bool(torch.isfinite(gg).all().item()), f"train parity: {k} grad not finite")
+        check(grad_errs[k]["card_max_abs"] > 0, f"train parity: {k} grad all zero")
+        check(grad_errs[k]["max_abs_err"] <= TRAIN_GRAD_RTOL * scale,
+              f"train parity: {k} grad err {grad_errs[k]['max_abs_err']} > "
+              f"{TRAIN_GRAD_RTOL} × {scale}")
+    check(loss_err <= TRAIN_LOSS_TOL, f"train parity: loss err {loss_err}")
+    remat = {}
+    for policy in ("full", "dots"):
+        m = Model(cfg, plan=get_plan("futurized", remat_policy=policy))
+        ops.reset_launch_counts()
+        _, g = step_mod.value_and_grad(m.loss, pg, {k: v.cuda() for k, v in batch.items()})
+        torch.cuda.synchronize()
+        _check_launches(f"train parity {policy} remat", ops.launch_counts(),
+                        {"flash_attention": 2 * layers})  # again in the backward
+        remat[policy] = max(((g[k] - grads_g[k]).abs().max() /
+                             grads_g[k].abs().max().clamp_min(1e-30)).item() for k in g)
+        check(remat[policy] <= REMAT_RTOL,
+              f"train parity: {policy} remat grads differ from none by {remat[policy]}")
+        del g
+    opt = adamw.AdamWConfig(**TRAIN_OPT)
+    host_grads = {k: g.to("cpu", copy=True) for k, g in grads_g.items()}
+    _, _, mg = adamw.update(opt, pg, grads_g, adamw.init(pg))
+    pc = {k: v.clone() for k, v in params.items()}
+    _, _, mc = adamw.update(opt, pc, host_grads, adamw.init(pc))
+    upd_err = max((pg[k].cpu() - pc[k]).abs().max().item() for k in pc)
+    moved = min((pc[k] - params[k]).abs().max().item() for k in pc)
+    norm_err = abs(mg["grad_norm"].item() / mc["grad_norm"].item() - 1)
+    check(upd_err <= TRAIN_UPDATE_ATOL and moved > 0 and norm_err <= TRAIN_NORM_RTOL,
+          f"train parity: update err {upd_err} (a param moved by at least {moved}), "
+          f"grad norm rel err {norm_err}")
+    worst = max(grad_errs, key=lambda k: grad_errs[k]["max_abs_err"] / grad_errs[k]["max_abs"])
+    REPORT["train_parity"] = {
+        "layers": layers, "batch": B, "seq": S, "loss_card": loss_g.item(),
+        "loss_cpu": loss_c.item(), "loss_err": loss_err, "loss_tol": TRAIN_LOSS_TOL,
+        "grad_rtol": TRAIN_GRAD_RTOL, "grads": grad_errs, "update_err": upd_err,
+        "update_tol": TRAIN_UPDATE_ATOL, "grad_norm_rel_err": norm_err,
+        "launches": launches, "remat_rel_err": remat, "remat_rtol": REMAT_RTOL,
+        "seconds": time.perf_counter() - t0}
+    log(f"[train parity] {layers} layers, B={B}, S={S}, float32: loss {loss_g.item():.6f} "
+        f"(err {loss_err:.3g}, tol {TRAIN_LOSS_TOL}); worst grad {worst}: "
+        f"{grad_errs[worst]['max_abs_err']:.3g} of max {grad_errs[worst]['max_abs']:.3g} "
+        f"(rtol {TRAIN_GRAD_RTOL}); AdamW update err {upd_err:.3g} (tol "
+        f"{TRAIN_UPDATE_ATOL}); launches {launches}; full / dots remat grads within "
+        f"{remat['full']:.3g} / {remat['dots']:.3g} of none (rtol {REMAT_RTOL})")
+
+
+def _train_wide(torch, cfg, tr, opt):
+    """Two futurized steps of ``TRAIN_WIDE`` tokens on the trainer's params
+    (the first a warm-up), as the train step runs them: the microbatches'
+    grads, then AdamW, CUDA events between.  Each: finite loss and grad
+    norm, exactly 30 flash launches a microbatch; wall and device times,
+    tokens/s, AdamW's share, peak memory; then one more under
+    torch.profiler.  Returns the report with the launches of the two."""
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.dist.plan import get_plan
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as step_mod
+
+    B, S, n_mb = TRAIN_WIDE
+    model = Model(cfg, plan=get_plan("futurized", microbatches=n_mb))
+    dcfg = DataConfig(batch_size=B, seq_len=S, seed=SEED)
+
+    def one(i):
+        batch = {k: v.cuda() for k, v in synth_batch(cfg, dcfg, 2 * 10 ** 6 + i).items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ops.reset_launch_counts()  # ← one step of TRAIN_WIDE tokens
+        t0 = time.perf_counter()
+        ev[0].record()
+        loss, grads = step_mod._microbatch_grads(model.loss, tr.params, batch, n_mb)
+        ev[1].record()
+        tr.params, tr.opt_state, m = adamw.update(opt, tr.params, grads, tr.opt_state)
+        ev[2].record()
+        loss, norm = loss.item(), m["grad_norm"].item()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()  # ← and its end
+        del grads
+        _check_launches("train wide", launches, {"flash_attention": cfg.num_layers * n_mb})
+        check(math.isfinite(loss) and math.isfinite(norm),
+              f"train wide: loss {loss} or grad norm {norm} not finite")
+        fb, ad = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+        return {"loss": loss, "grad_norm": norm, "wall_ms": wall * 1e3,
+                "tokens_per_s": B * S / wall, "forward_backward_ms": fb,
+                "adamw_ms": ad, "adamw_share": ad / (fb + ad),
+                "peak_bytes": torch.cuda.max_memory_allocated(), "launches": launches}
+
+    steps = [one(0), one(1)]
+    total = {k: steps[0]["launches"][k] + steps[1]["launches"][k] for k in steps[0]["launches"]}
+    # where the device time goes, two steps more (the profiler's launches
+    # are not the measured steps')
+    prof = _device_profile(torch, lambda: one(2), 1)
+    return {"batch": B, "seq": S, "microbatches": n_mb, "tokens_per_step": B * S,
+            "plan": "futurized", "steps": steps, "launches": total,
+            "profile_one_step": prof}
+
+
+def phase_train(torch, np, card):
+    """Full starcoder2_3b (30 layers, fp32 masters, bf16 compute) trained
+    through ``Trainer.fit`` under the futurized plan, one step a call
+    (log_every 1: each ends in the loss's copy to the host): finite loss
+    and global grad norm (finite only if every grad is), exactly 30 flash
+    launches a step; step-time p50, tokens/s, peak memory; one step under
+    torch.profiler; then one bsp step (full remat) on the same params and
+    a batch whose futurized loss and grads were just taken: 60 flash
+    launches, the same loss, grads and grad norm within bf16 limits; then
+    two steps at ``TRAIN_WIDE`` tokens (``_train_wide``)."""
+    import gc
+
+    import repro_torch.core as core
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.dist.plan import get_plan
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as step_mod
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    cfg = get_config("starcoder2_3b")
+    B, S, steps = TRAIN_RUN
+    L = cfg.num_layers
+    opt = adamw.AdamWConfig(**TRAIN_OPT)
+    dcfg = DataConfig(batch_size=B, seq_len=S, seed=SEED)
+    core.init(pools={"default": 4, "io": 1})
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tr = Trainer(Model(cfg), opt, dcfg, TrainConfig(steps=steps, log_every=1),
+                     rng_seed=SEED)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        hist, step_s = [], []
+        ops.reset_launch_counts()  # ← the training path starts here
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            hist += tr.fit(1)
+            step_s.append(time.perf_counter() - t0)
+        launches = ops.launch_counts()  # ← and ends here
+        peak = torch.cuda.max_memory_allocated()
+        _check_launches("train", launches, {"flash_attention": L * steps})
+        check(len(hist) == steps and all(math.isfinite(h["loss"]) and
+                                         math.isfinite(h["grad_norm"]) for h in hist),
+              f"train: loss or grad norm not finite: {hist}")
+        p50 = statistics.median(step_s)
+        prof = _device_profile(torch, lambda: tr.fit(1), 1)
+        # one step's device-clock split: forward + backward, then AdamW
+        # (the step's own two calls, CUDA events between them)
+        batch = {k: v.cuda() for k, v in synth_batch(cfg, dcfg, 10 ** 6 + 1).items()}
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        _, grads = step_mod.value_and_grad(tr.model.loss, tr.params, batch)
+        ev[1].record()
+        adamw.update(opt, tr.params, grads, tr.opt_state)
+        ev[2].record()
+        torch.cuda.synchronize()
+        del grads
+        split_ms = {"forward_backward": ev[0].elapsed_time(ev[1]),
+                    "adamw": ev[1].elapsed_time(ev[2])}
+
+        # one bsp step (the train step's two calls) on the same params and a
+        # batch whose futurized loss and grads were just taken
+        batch = {k: v.cuda() for k, v in synth_batch(cfg, dcfg, 10 ** 6).items()}
+        loss_f, grads_f = step_mod.value_and_grad(tr.model.loss, tr.params, batch)
+        loss_f, norm_f = loss_f.item(), adamw.global_norm(grads_f.values()).item()
+        bsp = Model(cfg, plan=get_plan("bsp"))
+        ops.reset_launch_counts()  # ← one bsp step
+        t0 = time.perf_counter()
+        loss_b, grads_b = step_mod.value_and_grad(bsp.loss, tr.params, batch)
+        loss_b = loss_b.item()
+        bsp_s = time.perf_counter() - t0
+        bsp_errs = {k: (grads_b[k] - g).abs_().max().item() / max(g.abs().max().item(), 1e-30)
+                    for k, g in grads_f.items()}
+        del grads_f
+        t0 = time.perf_counter()
+        tr.params, tr.opt_state, m = adamw.update(opt, tr.params, grads_b, tr.opt_state)
+        norm_b = m["grad_norm"].item()
+        bsp_s += time.perf_counter() - t0
+        bsp_launches = ops.launch_counts()  # ← and its end
+        del grads_b
+        _check_launches("train bsp", bsp_launches, {"flash_attention": 2 * L})
+        worst = max(bsp_errs, key=bsp_errs.get)
+        check(abs(loss_b - loss_f) <= TRAIN_BF16_LOSS_TOL and
+              bsp_errs[worst] <= BSP_GRAD_RTOL and
+              abs(norm_b - norm_f) <= BSP_GRAD_RTOL * norm_f,
+              f"train bsp: loss {loss_b} vs futurized {loss_f}, grad {worst} off by "
+              f"{bsp_errs[worst]} of its max, grad norm {norm_b} vs {norm_f}")
+
+        # the cost per token at 16,384 tokens a step (microbatched)
+        wide = _train_wide(torch, cfg, tr, opt)
+        train = {"card": card, "arch": cfg.name, "layers": L, "batch": B, "seq": S,
+                 "plan": "futurized", "steps": steps, "history": hist, "step_s": step_s,
+                 "step_p50_s": p50, "tokens_per_s": B * S / p50, "setup_s": setup_s,
+                 "max_memory_allocated_bytes": peak, "held_before_bytes": held,
+                 "launches": launches, "profile_one_step": prof, "split_ms": split_ms,
+                 "bsp": {"loss": loss_b, "futurized_loss": loss_f, "step_s": bsp_s,
+                         "launches": bsp_launches, "tol": TRAIN_BF16_LOSS_TOL,
+                         "grad_norm": norm_b, "futurized_grad_norm": norm_f,
+                         "grad_rel_err": bsp_errs, "grad_rtol": BSP_GRAD_RTOL},
+                 "wide": wide}
+        REPORT["train"] = train
+        busy = ("device time not measured (the profiler saw none)"
+                if prof["device_ms"] is None else
+                f"device busy {prof['device_ms']:.1f} ms ({100 * prof['busy_share']:.1f}%), "
+                f"{prof['kernels_per_call']:.0f} kernels, flash "
+                f"{prof['flash_attention_ms']:.3f} ms in {prof['flash_attention_kernels']:.0f}")
+        log(f"[train] {card}: {cfg.name} {L} layers, B={B}, S={S}, futurized: losses "
+            f"{[round(h['loss'], 4) for h in hist]}; step p50 {p50 * 1e3:.1f} ms "
+            f"({[round(t * 1e3, 1) for t in step_s]}), {B * S / p50:.0f} tokens/s; "
+            f"max_memory_allocated {peak / 2**30:.2f} GiB (held before "
+            f"{held / 2**30:.2f}); launches {launches}")
+        log(f"[train] kernel kinds, device ms: "
+            f"{ {g: round(t, 1) for g, t in prof.get('groups_ms', {}).items()} }")
+        log(f"[train] one step profiled: wall {prof['wall_ms']:.1f} ms, {busy}; device "
+            f"clock: forward + backward {split_ms['forward_backward']:.1f} ms, AdamW "
+            f"{split_ms['adamw']:.1f} ms")
+        log(f"[train] bsp step: loss {loss_b:.5f} vs futurized {loss_f:.5f}, grad norm "
+            f"{norm_b:.6g} vs {norm_f:.6g}, worst grad {worst} off by "
+            f"{bsp_errs[worst]:.3g} of its max (limit {BSP_GRAD_RTOL}); "
+            f"{bsp_s * 1e3:.1f} ms, launches {bsp_launches}")
+        w = wide["steps"][-1]
+        log(f"[train] {wide['tokens_per_step']} tokens a step ({wide['microbatches']} "
+            f"microbatches of B={wide['batch'] // wide['microbatches']}, S={wide['seq']}), "
+            f"futurized: step {w['wall_ms']:.1f} ms (warm-up "
+            f"{wide['steps'][0]['wall_ms']:.1f}), {w['tokens_per_s']:.0f} tokens/s; device "
+            f"clock: forward + backward {w['forward_backward_ms']:.1f} ms, AdamW "
+            f"{w['adamw_ms']:.1f} ms ({100 * w['adamw_share']:.1f}%); loss "
+            f"{w['loss']:.4f}; max_memory_allocated {w['peak_bytes'] / 2**30:.2f} GiB; "
+            f"launches {w['launches']}")
+        wp = wide["profile_one_step"]
+        if wp["device_ms"] is not None:
+            log(f"[train] {wide['tokens_per_step']} tokens, one step profiled: device busy "
+                f"{wp['device_ms']:.1f} ms ({100 * wp['busy_share']:.1f}%), kernel kinds, "
+                f"device ms: { {g: round(t, 1) for g, t in wp['groups_ms'].items()} }")
+        del tr, bsp
+        return {k: launches[k] + bsp_launches[k] + wide["launches"][k] for k in launches}
+    finally:
+        core.finalize()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_train_checkpoint(torch, np):
+    """Checkpoint on the card at full width and 2 layers (the full state is
+    51 GB): two steps with an async checkpoint after the second, a new
+    trainer resumed from it (params, moments and step equal), then the
+    next step on both from the same state: the same loss."""
+    import tempfile
+
+    import repro_torch.core as core
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    cfg = replace(get_config("starcoder2_3b"), num_layers=2)
+    opt = adamw.AdamWConfig(**TRAIN_OPT)
+    dcfg = DataConfig(batch_size=1, seq_len=64, seed=SEED)
+    core.init(pools={"default": 4, "io": 1})
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            t0 = time.perf_counter()
+            tr = Trainer(Model(cfg), opt, dcfg,
+                         TrainConfig(steps=2, log_every=1, ckpt_every=2, ckpt_dir=d),
+                         rng_seed=SEED)
+            tr.fit()  # joins the async write of step 2
+            tr2 = Trainer(Model(cfg), opt, dcfg,
+                          TrainConfig(steps=1, log_every=1, ckpt_dir=d), rng_seed=SEED + 1)
+            check(tr2.resume() == 2, "checkpoint: resumed at the wrong step")
+            for name, a, b in (("params", tr.params, tr2.params),
+                               ("m", tr.opt_state["m"], tr2.opt_state["m"]),
+                               ("v", tr.opt_state["v"], tr2.opt_state["v"])):
+                check(a.keys() == b.keys() and all(
+                    b[k].device.type == "cuda" and torch.equal(a[k], b[k]) for k in a),
+                      f"checkpoint: restored {name} differ")
+            check(int(tr2.opt_state["step"]) == 2, "checkpoint: optimizer step")
+            nxt, resumed = tr.fit(1)[0], tr2.fit(1)[0]
+            check(nxt["step"] == resumed["step"] == 3 and
+                  abs(nxt["loss"] - resumed["loss"]) <= 1e-6,
+                  f"checkpoint: resumed step {resumed} vs {nxt}")
+            REPORT["train_checkpoint"] = {"layers": 2, "next_step": nxt,
+                                          "resumed_step": resumed,
+                                          "seconds": time.perf_counter() - t0}
+            log(f"[train checkpoint] 2 layers: saved async at step 2, resumed equal; "
+                f"step 3 loss {resumed['loss']:.6f} (uninterrupted {nxt['loss']:.6f}), "
+                f"{time.perf_counter() - t0:.1f} s")
+            del tr, tr2
+    finally:
+        core.finalize()
+
+
 # --------------------------------------------------------------------- main
 # the timing row the kernels line reports: flash at S=512 (starcoder2_3b's
 # prefill), the SSD and the RG-LRU as the models call them (fp32 dt and
@@ -1402,8 +1913,11 @@ def main() -> int:
     phase_parity_families(torch, np)
     # each path's launches (counts set to 0 just before it, read just
     # after), summed over the paths
-    paths = (phase_serve(torch, np, card), phase_serve_families(torch, np, card),
-             phase_ops(torch, np, card, timings))
+    paths = [phase_serve(torch, np, card), phase_serve_families(torch, np, card),
+             phase_ops(torch, np, card, timings)]
+    phase_train_parity(torch, np)
+    paths.append(phase_train(torch, np, card))
+    phase_train_checkpoint(torch, np)
     launches = {k: sum(p.get(k, 0) for p in paths) for k in paths[0]}
 
     kernels = []

@@ -1,5 +1,7 @@
 """Flash attention forward: the Hopper kernel's launcher, its tile plan and
-its plain PyTorch version.
+its plain PyTorch version; and its backward as PyTorch math
+(:func:`flash_attention_bwd`), which ``ops.flash_attention_trainable``
+pairs with the kernel forward for training.
 
 The kernel (``csrc/flash_attention.cu``) replaces the reference's TPU
 kernel ``repro/kernels/flash_attention.py::flash_attention_fwd``.  Unlike
@@ -166,16 +168,23 @@ def consumer_tiles(S: int, p0: int, plan: FlashPlan, causal: bool, window: int,
             for w in range(n)]
 
 
-def _mask(S: int, causal: bool, window: int, valid_len: int,
+def _band(q0: int, q1: int, t0: int, t1: int, causal: bool, window: int,
           device: torch.device) -> torch.Tensor:
-    qpos = torch.arange(S, device=device)[:, None]
-    kpos = torch.arange(S, device=device)[None, :]
-    ok = kpos < (valid_len or S)
+    """The causal and window mask of positions [q0, q1) × keys [t0, t1)."""
+    qpos = torch.arange(q0, q1, device=device)[:, None]
+    kpos = torch.arange(t0, t1, device=device)[None, :]
+    ok = torch.ones(q1 - q0, t1 - t0, dtype=torch.bool, device=device)
     if causal:
         ok = ok & (kpos <= qpos)
     if window > 0:
         ok = ok & (kpos > qpos - window)
     return ok
+
+
+def _mask(S: int, causal: bool, window: int, valid_len: int,
+          device: torch.device) -> torch.Tensor:
+    kpos = torch.arange(S, device=device)[None, :]
+    return _band(0, S, 0, S, causal, window, device) & (kpos < (valid_len or S))
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -196,6 +205,59 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     o = torch.einsum("bkgqt,btkd->bkgqd", p, v.float()) / l[..., None]
     o = o.masked_fill(~ok.any(dim=-1)[:, None], 0.0)
     return o.permute(0, 3, 1, 2, 4).reshape(B, S, H, Dh).to(q.dtype)
+
+
+# fp32 scores of one query block of flash_attention_bwd, in bytes: past
+# it the backward walks the queries in blocks
+SCORE_BYTES = 1 << 30
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        do: torch.Tensor, causal: bool = True,
+                        window: int = 0) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients of the flash forward (``valid_len`` 0) wrt q, k and v.
+
+    PyTorch math on either device, as the reference's backward is jnp
+    math: ``repro/kernels/ops.py::flash_attention_trainable`` runs the TPU
+    kernel forward and differentiates its oracle ``ref.mha`` by recompute;
+    there is no TPU backward kernel to port.  P is recomputed in fp32 with
+    the kernel's masks and −1e30 (every row keeps its own position, so no
+    row is empty), then
+
+        dV = Pᵀ·dO,  dP = dO·Vᵀ,  dS = P ⊙ (dP − rowsum(dO ⊙ O)),
+        dQ = dS·K·scale,  dK = dSᵀ·Q·scale,
+
+    with rowsum(dO ⊙ O) taken as rowsum(P ⊙ dP), which is the same sum
+    for the fp32 O = P·V and needs no saved output: dS is softmax's own
+    backward, one fused op.  dK and dV sum over each KV head's G q heads.
+    Queries are walked in blocks whose fp32 scores stay under
+    :data:`SCORE_BYTES`, each against only the keys its mask can reach.
+    q, do: (B,S,H,Dh), k/v: (B,S,KV,Dh) → (dq, dk, dv) in the inputs'
+    dtypes."""
+    B, S, H, Dh = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(Dh)
+    qf = q.float().reshape(B, S, KV, G, Dh)
+    dof = do.float().reshape(B, S, KV, G, Dh)
+    kf, vf = k.float(), v.float()
+    dq = torch.empty_like(qf)
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    rows = max(1, SCORE_BYTES // (4 * B * H * S))
+    for q0 in range(0, S, rows):
+        q1 = min(q0 + rows, S)
+        t0 = max(0, q0 - window + 1) if window > 0 else 0
+        t1 = q1 if causal else S
+        ok = _band(q0, q1, t0, t1, causal, window, q.device)
+        qb, dob, kb, vb = qf[:, q0:q1], dof[:, q0:q1], kf[:, t0:t1], vf[:, t0:t1]
+        s = torch.einsum("bqkgd,btkd->bkgqt", qb, kb) * scale
+        p = torch.softmax(s.masked_fill_(~ok, NEG_INF), dim=-1)
+        dv[:, t0:t1] += torch.einsum("bkgqt,bqkgd->btkd", p, dob)
+        dp = torch.einsum("bqkgd,btkd->bkgqt", dob, vb)
+        ds = torch._softmax_backward_data(dp, p, -1, torch.float32)
+        dq[:, q0:q1] = torch.einsum("bkgqt,btkd->bqkgd", ds, kb) * scale
+        dk[:, t0:t1] += torch.einsum("bkgqt,bqkgd->btkd", ds, qb) * scale
+    return dq.reshape(B, S, H, Dh).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -10,6 +10,14 @@ Every kernel wrapper counts its launches (:func:`launch_counts`), so a run
 can show that its main path went through the kernels; plain-version calls
 are not counted.
 
+Gradients: a kernel writes its output from outside autograd, so no
+wrapper of a bare kernel may be differentiated.  Each raises a
+``RuntimeError`` naming the missing backward when grad mode is on and an
+input requires grad — on both devices, so the CPU (whose plain versions
+autograd could differentiate) and the card never disagree.  Training
+attention goes through :func:`flash_attention_trainable`, the kernel
+forward paired with :func:`~repro_torch.kernels.flash_attention.flash_attention_bwd`.
+
 The wrappers keep the reference's shapes and semantics but drop its TPU
 tile arguments (``block_q``, ``block_k``, ``block_s``, ``block_w``,
 ``block``) and ``interpret``: the tiles never changed a result, and the
@@ -27,7 +35,8 @@ from repro_torch.kernels.decode_attention import (decode_attention_fwd,
                                                   decode_attention_plain,
                                                   paged_decode_attention_fwd,
                                                   paged_decode_attention_plain)
-from repro_torch.kernels.flash_attention import (flash_attention_fwd,
+from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                 flash_attention_fwd,
                                                  flash_attention_plain)
 from repro_torch.kernels.rglru_scan import rglru_scan_fwd, rglru_scan_plain
 from repro_torch.kernels.ssd_scan import ssd_scan_fwd, ssd_scan_plain
@@ -65,11 +74,23 @@ def _route(t: torch.Tensor, what: str) -> bool:
     raise ValueError(f"{what}: no kernel for device {t.device}")
 
 
+def _no_backward(what: str, *tensors: torch.Tensor) -> None:
+    """Raise where autograd would differentiate a kernel that has no
+    backward (its output would carry no gradient on the card)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what} has no backward: its kernel writes the output outside "
+            f"autograd, so the gradient would be lost; call it under "
+            f"torch.no_grad() or torch.inference_mode()")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     valid_len: int = 0) -> torch.Tensor:
     """q: (B,S,H,Dh), k/v: (B,S,KV,Dh) → (B,S,H,Dh). GQA via H % KV == 0.
-    ``valid_len`` (0 means S) masks K positions at or past it."""
+    ``valid_len`` (0 means S) masks K positions at or past it.  Forward
+    only: :func:`flash_attention_trainable` is the differentiable op."""
+    _no_backward("flash_attention (use flash_attention_trainable)", q, k, v)
     if not _route(q, "flash_attention"):
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      valid_len=valid_len)
@@ -88,6 +109,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (every slot at its own depth), clamped to T.  A slot of length 0 gives
     zeros, as the reference's kernel does.  The kernel reads each K/V head
     once for its G query heads; nothing is repeated or padded."""
+    _no_backward("decode_attention", q, k, v)
     if not _route(q, "decode_attention"):
         return decode_attention_plain(q, k, v, length)
     o = decode_attention_fwd(q, k, v, length)
@@ -104,6 +126,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     int32 (entries past the fill must be valid pool indices, e.g. 0);
     lengths: (B,) int32 → (B,H,Dh).  The kernel walks each request's own
     page list; no dense gather."""
+    _no_backward("paged_decode_attention", q, k_pages, v_pages)
     if not _route(q, "paged_decode_attention"):
         return paged_decode_attention_plain(q, k_pages, v_pages, page_table,
                                             lengths)
@@ -123,6 +146,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     ``chunk`` (clipped to S, as the reference does) is where the fp32 state
     is carried from one chunk to the next; mamba2_780m sets 256, the
     kernel takes 1–256."""
+    _no_backward("ssd_scan", x, dt, A, Bm, Cm)
     chunk = min(chunk, x.shape[1])
     if not _route(x, "ssd_scan"):
         return ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk,
@@ -136,6 +160,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """h_t = a_t·h_{t-1} + b_t from h_0 = 0, fp32 carry.
     a/b: (B,S,W) → (B,S,W) in a's dtype."""
+    _no_backward("rglru_scan", a, b)
     if not _route(a, "rglru_scan"):
         return rglru_scan_plain(a, b)
     h = rglru_scan_fwd(a, b)
@@ -145,11 +170,39 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def stream_triad(a: torch.Tensor, b: torch.Tensor, alpha: float = 3.0) -> torch.Tensor:
     """STREAM triad a + alpha·b over (N,), rounded as ``a + alpha * b``."""
+    _no_backward("stream_triad", a, b)
     if not _route(a, "stream_triad"):
         return stream_triad_plain(a, b, alpha)
     o = stream_triad_fwd(a, b, alpha)
     _count("stream_triad")
     return o
+
+
+class _FlashTrainable(torch.autograd.Function):
+    """The flash kernel forward (counted as a launch) with
+    :func:`flash_attention_bwd` as its backward; saves only q, k and v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        return flash_attention(q, k, v, causal=causal, window=window)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        return (*flash_attention_bwd(q, k, v, do, ctx.causal, ctx.window),
+                None, None)
+
+
+def flash_attention_trainable(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Training-path flash attention: the kernel forward (the plain version
+    on CPU tensors, as :func:`flash_attention`) and an exact backward that
+    recomputes P, as the reference's ``flash_attention_trainable``.
+    q: (B,S,H,Dh), k/v: (B,S,KV,Dh) → (B,S,H,Dh).  Outside grad mode it
+    records nothing, so serving pays nothing for it."""
+    return _FlashTrainable.apply(q, k, v, causal, window)
 
 
 def gather_paged_kv(k_pages: torch.Tensor, v_pages: torch.Tensor,

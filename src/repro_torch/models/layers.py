@@ -1,6 +1,7 @@
 """Shared model primitives: norms, RoPE, GQA attention (prefill, dense and
-paged decode), MLPs, embeddings — ported from the reference's
-``models/layers.py`` for the dense decoder family.
+paged decode), MLPs, embeddings, cross-entropy, the bf16 cotangent
+boundary and remat — ported from the reference's ``models/layers.py`` for
+the dense decoder family.
 
 Compute dtype is ``cfg.dtype``; norms, RoPE, softmax and logits work in
 fp32, as in the reference.  The reference casts each fp32 param to the
@@ -9,19 +10,25 @@ the same and is free when the caller already holds a compute-dtype copy
 (see :func:`repro_torch.models.transformer.compute_params`).
 
 Attention always goes through :mod:`repro_torch.kernels.ops`: the Hopper
-kernels on CUDA tensors, their plain versions on CPU tensors.  The
-reference's mesh constraints (``plan.constrain``) wait for the
-distribution slice.
+kernels on CUDA tensors, their plain versions on CPU tensors; prefill and
+training attention through ``ops.flash_attention_trainable``, whose
+backward is PyTorch math.  The reference's mesh constraints
+(``plan.constrain``) wait for the distribution slice; of a plan the layers
+read ``bf16_boundaries`` and ``remat_policy`` (a plan of ``None`` sets
+neither).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import functools
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.plan import ShardingPlan
 from repro_torch.kernels import ops
 
 NEG = -1e30
@@ -47,6 +54,26 @@ def norm(cfg: ModelConfig, x: torch.Tensor, scale: torch.Tensor,
     if bias is not None:
         y = y + bias.float()
     return y.to(x.dtype)
+
+
+# ------------------------------------------------------- bf16 grad boundary
+class _Bf16Cotangent(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct.to(torch.bfloat16).to(ct.dtype)
+
+
+def bf16_cotangent(x: torch.Tensor) -> torch.Tensor:
+    """Identity forward; backward casts the cotangent to bf16 (and back).
+
+    Placed after the fp32 score region of attention so the dq/dk/dv
+    cotangents — the per-layer dx all-reduces once the model axis is
+    sharded — ride at half width."""
+    return _Bf16Cotangent.apply(x)
 
 
 # -------------------------------------------------------------------- rope
@@ -111,11 +138,13 @@ def _proj(cfg: ModelConfig, x: torch.Tensor, p: Params, prefix: str,
 
 def attention(cfg: ModelConfig, x: torch.Tensor, p: Params, prefix: str,
               positions: torch.Tensor, causal: bool = True, window: int = 0,
-              return_kv: bool = False):
+              return_kv: bool = False, plan: Optional[ShardingPlan] = None):
     """Self-attention over full sequences (train / prefill path), through
-    the flash kernel.  With ``return_kv=True`` also returns the (post-RoPE)
-    K/V used — the prefill path collects them into the cache in the same
-    pass."""
+    the flash kernel as ``ops.flash_attention_trainable`` (outside grad mode
+    it records nothing).  With ``plan.bf16_boundaries`` the cotangents of
+    q, k and v pass a bf16 boundary.  With ``return_kv=True`` also returns
+    the (post-RoPE) K/V used — the prefill path collects them into the
+    cache in the same pass."""
     dt = cdtype(cfg)
     B, S, _ = x.shape
     H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -126,7 +155,9 @@ def attention(cfg: ModelConfig, x: torch.Tensor, p: Params, prefix: str,
         cos, sin = rope_tables(cfg, positions, Dh)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-    o = ops.flash_attention(q, k, v, causal=causal, window=window)
+    if getattr(plan, "bf16_boundaries", False):
+        q, k, v = bf16_cotangent(q), bf16_cotangent(k), bf16_cotangent(v)
+    o = ops.flash_attention_trainable(q, k, v, causal, window)
     out = o.reshape(B, S, H * Dh) @ p[f"{prefix}wo"].to(dt)
     if return_kv:
         return out, (k, v)
@@ -244,3 +275,41 @@ def unembed(cfg: ModelConfig, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if Vp != cfg.vocab_size:
         logits[..., cfg.vocab_size:] = NEG
     return logits
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token NLL; logits fp32 (B,S,V), labels (B,S) int."""
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    return nll.mean()
+
+
+# ------------------------------------------------------------------- remat
+# the products whose outputs the "dots" policy keeps (the reference's
+# ``dots_with_no_batch_dims_saveable``); everything else is recomputed
+_DOTS = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+         torch.ops.aten.bmm.default]
+
+
+def remat_wrap(plan: Optional[ShardingPlan], fn: Callable) -> Callable:
+    """``fn`` under the plan's remat policy: ``none`` → ``fn`` itself;
+    ``full`` → checkpointed, everything recomputed in the backward;
+    ``dots`` → selectively checkpointed, the matmul outputs saved.  A
+    kernel that writes its output outside the dispatcher (the flash
+    forward) runs again in the backward under both."""
+    policy = getattr(plan, "remat_policy", "none")
+    if policy == "none":
+        return fn
+    if policy not in ("full", "dots"):
+        raise ValueError(f"unknown remat policy {policy!r}")
+    kw = ({"context_fn": functools.partial(create_selective_checkpoint_contexts, _DOTS)}
+          if policy == "dots" else {})
+
+    def wrapped(*args):
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+
+    return wrapped

@@ -1,10 +1,13 @@
 """Model facade of the port, ported from the reference's ``models/model.py``
 for the dense, ssm and hybrid families.
 
-``Model(cfg, device=None)`` runs on ``cuda`` unless the caller passes
-``device="cpu"``; asking for CUDA where there is none raises.
+``Model(cfg, device=None, *, plan=None)`` runs on ``cuda`` unless the
+caller passes ``device="cpu"``; asking for CUDA where there is none
+raises.  ``plan`` (default ``get_plan("futurized")``) is the training
+step's plan: its remat policy and bf16 boundaries.
 
     param_specs() / init(seed) / compute_params(params)
+    loss(params, batch)                             train objective
     prefill(params, inputs, cache_len, valid_len)   → (last logits, cache)
     decode(params, cache, token)                    → (logits, new cache)
     cache_specs(batch, cache_len) / init_cache(batch, cache_len)
@@ -20,6 +23,7 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.plan import ShardingPlan, get_plan
 from repro_torch.models import hybrid, ssm_lm, transformer
 from repro_torch.models.params import ParamSpec, TensorSpec, init_params
 
@@ -44,10 +48,12 @@ def param_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
 
 class Model:
     def __init__(self, cfg: ModelConfig,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None, *,
+                 plan: Optional[ShardingPlan] = None):
         self._specs = param_specs(cfg)
         self._m = _FAMILIES[cfg.family][0]
         self.cfg = cfg
+        self.plan = plan if plan is not None else get_plan("futurized")
         self.device = resolve_device(device)
 
     # ---------------------------------------------------------------- params
@@ -60,6 +66,18 @@ class Model:
 
     def compute_params(self, params: Params) -> Params:
         return transformer.compute_params(self.cfg, params)
+
+    # ----------------------------------------------------------------- train
+    def loss(self, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The train objective on ``batch`` (tokens on the model's device).
+        The ssm and hybrid families run their scans through forward-only
+        kernels, so their loss raises until the scans have a backward."""
+        scan = {"ssm": "ssd_scan", "hybrid": "rglru_scan"}.get(self.cfg.family)
+        if scan is not None:
+            raise NotImplementedError(
+                f"training the {self.cfg.family!r} family needs a backward of "
+                f"its {scan} kernel, which is not ported yet")
+        return transformer.loss_fn(self.cfg, self.plan, params, batch)
 
     # ----------------------------------------------------------------- serve
     def prefill(self, params: Params, inputs: Dict[str, torch.Tensor],
@@ -114,5 +132,6 @@ class Model:
 
 
 def build_model(cfg: ModelConfig,
-                device: Optional[Union[str, torch.device]] = None) -> Model:
-    return Model(cfg, device)
+                device: Optional[Union[str, torch.device]] = None, *,
+                plan: Optional[ShardingPlan] = None) -> Model:
+    return Model(cfg, device, plan=plan)

@@ -3,8 +3,10 @@
 
 Per-layer params keep the reference's stacked layout (a leading ``L``
 dim); where the reference runs one ``lax.scan`` over the stack, the port
-runs a Python loop over layer slices.  The MoE and VLM variants of the
-reference's decoder wait for later slices.
+runs a Python loop over layer slices.  The training forward
+(:func:`forward`, :func:`loss_fn`) wraps each layer in the plan's remat
+policy, as the reference wraps its scan body.  The MoE and VLM variants
+of the reference's decoder wait for later slices.
 
 Two decode caches: the paged block pool (:func:`paged_cache_specs`) and
 the seed's dense per-slot cache (:func:`init_cache_specs`).  Both decode
@@ -14,11 +16,12 @@ return a cache holding the same tensors and ``pos + 1``.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.plan import ShardingPlan
 from repro_torch.models import layers as Lx
 from repro_torch.models.params import ParamSpec, TensorSpec
 
@@ -102,11 +105,21 @@ def layer_params(params: Params, i: int, prefix: str = "blk/") -> Params:
     return {k[len(prefix):]: v[i] for k, v in params.items() if k.startswith(prefix)}
 
 
+def unbind_layers(params: Params, L: int, prefix: str = "blk/") -> List[Params]:
+    """Every layer's slice of the stacked params, by one ``unbind`` per
+    param: under autograd each stacked gradient is then assembled once (one
+    stack), where indexing would add a full-size zero-padded gradient per
+    layer."""
+    cols = {k[len(prefix):]: v.unbind(0) for k, v in params.items() if k.startswith(prefix)}
+    return [{k: c[i] for k, c in cols.items()} for i in range(L)]
+
+
 def _layer_body(cfg: ModelConfig, x: torch.Tensor, lp: Params,
-                positions: torch.Tensor, collect_kv: bool = False):
+                positions: torch.Tensor, collect_kv: bool = False,
+                plan: Optional[ShardingPlan] = None):
     h = Lx.norm(cfg, x, lp["ln1"])
     out = Lx.attention(cfg, h, lp, "", positions, causal=cfg.causal,
-                       window=cfg.window, return_kv=collect_kv)
+                       window=cfg.window, return_kv=collect_kv, plan=plan)
     h, kv = out if collect_kv else (out, None)
     x = x + h
     h = Lx.norm(cfg, x, lp["ln2"])
@@ -124,15 +137,29 @@ def logits(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 # ------------------------------------------------------------------ forward
-def forward(cfg: ModelConfig, params: Params,
-            tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens: (B, S) → (logits fp32 (B,S,V), aux_loss)."""
+def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+            plan: Optional[ShardingPlan] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens: (B, S) → (logits fp32 (B,S,V), aux_loss).  Each layer runs
+    under the plan's remat policy (``Lx.remat_wrap``)."""
     x = Lx.embed(cfg, params["tok_embed"], tokens)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-    for i in range(cfg.num_layers):
-        x, _ = _layer_body(cfg, x, layer_params(params, i), positions)
+
+    def body(x, lp):
+        return _layer_body(cfg, x, lp, positions, plan=plan)[0]
+
+    body = Lx.remat_wrap(plan, body)
+    for lp in unbind_layers(params, cfg.num_layers):
+        x = body(x, lp)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return logits(cfg, params, x), aux
+
+
+def loss_fn(cfg: ModelConfig, plan: ShardingPlan, params: Params,
+            batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Next-token loss: tokens[:, :-1] → logits, labels tokens[:, 1:]."""
+    tokens = batch["tokens"]
+    lg, aux = forward(cfg, params, tokens[:, :-1], plan=plan)
+    return Lx.cross_entropy(lg, tokens[:, 1:]) + cfg.router_aux_weight * aux
 
 
 def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,

@@ -84,6 +84,26 @@ def test_launcher_refuses_cpu_without_flag(no_cuda):
     assert r.returncode != 0 and "CUDA is not available" in r.stderr
 
 
+def test_training_entry_points_refuse_cpu_without_being_asked(no_cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models.model import build_model
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    cfg = get_config("starcoder2_3b", smoke=True)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_model(cfg)
+    model = build_model(cfg, "cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(model, AdamWConfig(), DataConfig(), TrainConfig())
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                        "starcoder2_3b", "--smoke", "--steps", "1"],
+                       capture_output=True, text=True, env=env, timeout=120)
+    assert r.returncode != 0 and "CUDA is not available" in r.stderr
+
+
 def test_wrappers_never_fall_back(no_cuda):
     from repro_torch.kernels import ops
     from repro_torch.kernels.decode_attention import (decode_attention_fwd,

@@ -1,9 +1,11 @@
 """The port's attention kernels (their plain versions, as a CPU tensor runs
 them) against the reference's Pallas kernels in interpret mode and its
-pure-jnp oracles, over the sweeps of ``test_kernels.py``; and the decode
-kernels' split-KV arithmetic (the split chooser, and the exact combine of
-per-split partials written out in plain PyTorch) against the same
-reference kernels.
+pure-jnp oracles, over the sweeps of ``test_kernels.py``; the flash
+backward (``flash_attention_bwd``) against autograd through the plain
+version and ``jax.vjp`` of the reference's oracle ``ref.mha``; and the
+decode kernels' split-KV arithmetic (the split chooser, and the exact
+combine of per-split partials written out in plain PyTorch) against the
+same reference kernels.
 
 Inputs are drawn with numpy from a seed and handed to both packages; bf16
 inputs are rounded from the same fp32 draws on both sides (both round to
@@ -11,6 +13,7 @@ nearest even, so the bf16 values are identical).  Tolerances are
 ``test_kernels.py::_tol`` × 4: 2e-5·4 in fp32 (two fp32 softmax orders)
 and 2e-2·4 in bf16 (outputs rounded to bf16 on each side).
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,9 +26,11 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import (BLOCKS_PER_SM, CHUNK, DENSE_TILE,
                                                   decode_attention_plain, decode_splits,
                                                   split_ranges, tiles_per_split)
+from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels.flash_attention import (BK, WG_ROWS, _mask, consumer_tiles,
-                                                 flash_attention_plain, flash_grid,
-                                                 kv_tiles, tile_masked, work_item)
+                                                 flash_attention_bwd, flash_attention_plain,
+                                                 flash_grid, kv_tiles, tile_masked,
+                                                 work_item)
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -463,3 +468,61 @@ def test_split_combine_matches_reference_paged(splits, dtype):
     want = rops.paged_decode_attention(qj, kpj, vpj, jnp.asarray(perm), jnp.asarray(lens))
     assert not np.asarray(o[0].float()).any()
     _close(o, want, _tol(dtype))
+
+
+# ------------------------------------------------- flash backward (training)
+# B, S, H, KV, Dh, causal, window: GQA groups 1, 2 and 4, Dh 16 and 128,
+# ragged S, windows, and no mask
+BWD_CASES = [(2, 64, 4, 4, 16, True, 0), (1, 100, 4, 2, 16, True, 0),
+             (2, 80, 8, 2, 16, True, 24), (1, 96, 4, 1, 128, True, 0),
+             (1, 64, 4, 2, 128, True, 17), (2, 48, 8, 2, 16, False, 0)]
+
+
+def _bwd_inputs(B, S, H, KV, Dh, dtype, seed=21):
+    rng = np.random.default_rng(seed)
+    return [_pair(rng.standard_normal(s, np.float32), dtype)
+            for s in ((B, S, H, Dh), (B, S, KV, Dh), (B, S, KV, Dh), (B, S, H, Dh))]
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_bwd_matches_autograd_and_reference(case, dtype):
+    B, S, H, KV, Dh, causal, window = case
+    (qj, qt), (kj, kt), (vj, vt), (doj, dot) = _bwd_inputs(B, S, H, KV, Dh, dtype)
+    got = flash_attention_bwd(qt, kt, vt, dot, causal, window)
+    leaves = [t.detach().requires_grad_() for t in (qt, kt, vt)]
+    want = torch.autograd.grad(
+        flash_attention_plain(*leaves, causal=causal, window=window), leaves, dot)
+    ref_grads = jax.jit(lambda a, b, c, d: jax.vjp(
+        lambda a, b, c: rref.mha(a, b, c, causal=causal, window=window), a, b, c)[1](d))
+    for g, w, r, x in zip(got, want, ref_grads(qj, kj, vj, doj), (qt, kt, vt)):
+        assert g.shape == x.shape and g.dtype == x.dtype
+        _close(g, w.float().numpy(), _tol(dtype))
+        _close(g, r, _tol(dtype))
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 24), (False, 0), (False, 24)])
+def test_flash_attention_bwd_query_blocks_match_one_block(monkeypatch, causal, window):
+    """Walked in query blocks (each against the keys its mask reaches), the
+    backward gives what one block gives."""
+    B, S, H, KV, Dh = 2, 100, 4, 2, 16
+    args = [t for _, t in _bwd_inputs(B, S, H, KV, Dh, "float32", seed=5)]
+    whole = flash_attention_bwd(*args, causal, window)
+    monkeypatch.setattr(tflash, "SCORE_BYTES", 4 * B * H * S * 16)  # 16 rows a block
+    blocks = flash_attention_bwd(*args, causal, window)
+    for a, b in zip(blocks, whole):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-6)
+
+
+def test_flash_attention_trainable_is_the_forward_with_the_backward():
+    B, S, H, KV, Dh = 1, 64, 4, 2, 16
+    q, k, v, do = [t for _, t in _bwd_inputs(B, S, H, KV, Dh, "float32", seed=9)]
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    o = ops.flash_attention_trainable(*leaves, True, 8)
+    torch.testing.assert_close(o.detach(), ops.flash_attention(q, k, v, window=8),
+                               atol=0, rtol=0)
+    got = torch.autograd.grad(o, leaves, do)
+    for a, b in zip(got, flash_attention_bwd(q, k, v, do, True, 8)):
+        torch.testing.assert_close(a, b, atol=0, rtol=0)
+    with torch.inference_mode():  # serving: nothing recorded
+        assert not ops.flash_attention_trainable(q, k, v).requires_grad

@@ -463,3 +463,52 @@ def test_stream_triad_matches_reference(N, dtype):
     _close(o, rref.triad(aj, bj, 3.0), _tol(dtype))
     if dtype == "bfloat16":  # the product rounded, then the sum, on both sides
         np.testing.assert_array_equal(o.float().numpy(), want)
+
+
+# ------------------------------------------------ no silent loss of gradients
+def _calls(x):
+    """One call of each wrapper of a bare kernel on (1, 16, 2, 16) ``x``."""
+    i32 = torch.int32
+    return {
+        "flash_attention": lambda: ops.flash_attention(x, x, x),
+        "decode_attention": lambda: ops.decode_attention(x[:, 0], x, x, 3),
+        "paged_decode_attention": lambda: ops.paged_decode_attention(
+            x[:, 0], x, x, torch.zeros(1, 1, dtype=i32), torch.ones(1, dtype=i32)),
+        "ssd_scan": lambda: ops.ssd_scan(x, x[..., 0], torch.zeros(2), x, x),
+        "rglru_scan": lambda: ops.rglru_scan(x[0], x[0]),
+        "stream_triad": lambda: ops.stream_triad(x[0, 0, 0], x[0, 0, 0]),
+    }
+
+
+@pytest.mark.parametrize("name", list(ops.KERNELS))
+def test_wrapper_without_backward_raises_under_autograd(name):
+    """Each kernel writes its output outside autograd; its wrapper refuses
+    an input that requires grad in grad mode (on the CPU too, where the
+    plain version could be differentiated), and runs outside grad mode."""
+    x = torch.rand(1, 16, 2, 16, requires_grad=True)
+    with pytest.raises(RuntimeError, match=f"{name}.* has no backward"):
+        _calls(x)[name]()
+    with torch.no_grad():
+        _calls(x)[name]()
+    _calls(x.detach())[name]()  # no input requires grad
+
+
+def test_attention_gradient_reaches_the_projections():
+    """Lx.attention goes through the trainable flash op: the gradient of
+    its output reaches wq, wk, wv and the biases."""
+    from dataclasses import replace
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as Lx
+    from repro_torch.models.model import Model
+    from repro_torch.models.transformer import layer_params
+
+    cfg = replace(get_config("starcoder2_3b", smoke=True), dtype="float32")
+    lp = {k: v.requires_grad_() for k, v in layer_params(Model(cfg, "cpu").init(0), 0).items()}
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (2, 12, cfg.d_model)).astype(np.float32))
+    out = Lx.attention(cfg, x, lp, "", torch.arange(12, dtype=torch.int32))
+    names = ["wq", "wk", "wv", "bq", "bk", "bv"]
+    grads = torch.autograd.grad(out.square().sum(), [lp[n] for n in names])
+    for n, g in zip(names, grads):
+        assert g.abs().max() > 0, n

@@ -302,3 +302,17 @@ def test_recurrent_families_take_the_dense_backend(port_rt, arch):
     assert [len(o) for o in outs] == [4, 4]
     assert all(0 <= t < model.cfg.vocab_size for o in outs for t in o)
     assert eng.decode_compile_count() == 1
+
+
+def test_engine_with_serve_plan(port_rt, served):
+    """The `serve` plan (TP-only, sequence-sharded KV: nothing to shard on
+    one device) produces the same greedy tokens as the futurized plan."""
+    from repro_torch.dist.plan import get_plan as port_plan
+
+    cfg, model, params, _ = served
+    model2 = Model(cfg, device="cpu", plan=port_plan("serve"))
+    assert model.plan.name == "futurized" and model2.plan.name == "serve"
+    eng1 = _engine(model, params, max_batch=2, cache_len=64, max_new_tokens=4)
+    eng2 = _engine(model2, params, max_batch=2, cache_len=64, max_new_tokens=4)
+    p = [9, 8, 7, 6]
+    assert eng1.submit(p).get(timeout=300) == eng2.submit(p).get(timeout=300)
