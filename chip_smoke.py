@@ -53,6 +53,16 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    through the plain version at starcoder2_3b's training shape (B=2,
    S=512, causal; and a window of 128), fp32 and bf16, each gradient's
    worst row within ``ROW_TOL`` (a window one short moves it past).
+   The MoE family's attention: flash at G = 1 (H = KV = 16, Dh 128,
+   deepseek_moe_16b's prefill) and G = 3 (24 / 8 heads, Dh 64,
+   granite_moe_3b_a800m's training microbatch), and paged decode at both
+   (B=8), each against its plain version and timed beside SDPA.  The
+   scans' training backward (``ops.ssd_scan_bwd``: autograd through the
+   plain chunked form; ``ops.rglru_scan_bwd``: the kernel over the
+   reversed sequence) against autograd through the sequential oracles,
+   fp32, at mamba2_780m's and recurrentgemma_2b's widths (the RG-LRU's
+   off-by-one shown to break its limit), and each timed as the models'
+   backward calls it.
 4. Path parity — starcoder2_3b at full width and 2 layers, the same params
    on the card and on the CPU: prefill + 4 paged decode steps; fp32 (TF32
    off) logits and greedy tokens, then bf16 logits.
@@ -62,6 +72,10 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    and the 2-layer tail (a 2046-token prompt, so the decode wraps the
    2048-slot ring); prefill + 4 decode steps through the dense-slot cache,
    exact launch counts.
+4c. The same for the MoE family in fp32, paged: deepseek_moe_16b (its
+   dense layer and one MoE layer) and granite_moe_3b_a800m (2 MoE
+   layers) at full width, two prompts right-padded into one prefill,
+   then 4 paged decode steps; exact launch counts.
 5. Serve — the full 30-layer starcoder2_3b through ``Router.replicate``
    with one engine (random init from seed 0, max_batch 8, cache_len 1024,
    page 16): 16 greedy requests with prompts of 16–512 tokens and 2
@@ -69,6 +83,10 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    token ids and that the kernels launched exactly 30 × prefills and
    30 × decode steps (and the other four kernels never); reports
    tokens/s, TTFT p50, decode-step p50 and peak device memory.
+5c. Serve the MoE family — full deepseek_moe_16b (28 layers, 16.4 B
+   params, made one tensor at a time in bf16) on phase 5's engine and
+   traffic: exactly 28 flash launches a prefill and 28 paged decodes a
+   step; the same reports, the setup's peak memory and phase 6's profile.
 5b. Serve on the dense slots — through ``Router.replicate`` with one
    engine, random init from seed 0, full width and depth, each model freed
    before the next: mamba2_780m and recurrentgemma_2b, 8 greedy requests
@@ -111,9 +129,18 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    launches each, AdamW's share of the step's device time, tokens/s and
    peak memory.  (c) A checkpoint on the card at 2 layers: async save
    after step 2, a new trainer resumed equal, the next step's loss equal.
+8c. Training the other families — granite_moe_3b_a800m, mamba2_780m and
+   recurrentgemma_2b, each first held card against CPU (fp32, full width,
+   2 layers; recurrentgemma_2b one (rec, rec, attn) group: the loss and
+   every gradient), then at full width and depth through ``Trainer.fit``,
+   futurized, 16,384 tokens a step (8 microbatches of one 2048-token
+   sequence): 2 steps with exact launches a microbatch (32 flash; 48 SSD;
+   18 RG-LRU forward + 18 backward and 8 flash), finite losses, step
+   times, tokens/s and peak memory; then one step more with forward +
+   backward against AdamW, and under torch.profiler.
 
 The second-to-last line of standard output is the ``kernels`` JSON, each
-kernel's launches summed over the paths of phases 5, 5b, 7 and 8b; the last
+kernel's launches summed over the paths of phases 5, 5c, 5b, 7, 8b and 8c; the last
 is ``{"ok": true, "device": {...}}``.  A fuller report is written to
 ``chiprun_out/chip_smoke.json``.
 """
@@ -121,8 +148,10 @@ is ``{"ok": true, "device": {...}}``.  A fuller report is written to
 from __future__ import annotations
 
 import functools
+import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -370,6 +399,15 @@ def phase_kernels(torch, np):
     flash_cases += [(slice_shape, causal, 64, 300) for causal in (True, False)]
     # a grid of more than one wave (1,536 blocks of 128 rows on 132 SMs)
     flash_cases += [((4, 2048, 24, 2, 128), True, 0, 0)]
+    # the MoE family's groups, one and three q heads per KV head (a tile
+    # of 8 heads then holds a partial group, whose rows must stay its
+    # own): deepseek_moe_16b's prefill (G = 1, Dh 128) and
+    # granite_moe_3b_a800m's training microbatch (G = 3, Dh 64), on and off
+    # the tile, with valid_len and a window
+    flash_cases += [((1, S) + DEEPSEEK_ATTN, True, 0, 0) for S in (512, 300)]
+    flash_cases += [((1, S) + GRANITE_ATTN, True, 0, 0) for S in (2048, 200)]
+    flash_cases += [((1, 512) + DEEPSEEK_ATTN, True, 0, 300),
+                    ((2, 200) + GRANITE_ATTN, True, 64, 0)]
     slice_lens = rng.integers(1, 577, size=8).tolist()
     paged_cases = [(slice_lens, 24, 2, 128, 16, 64)]
     for (B, H, KV, Dh, page, maxp) in [(3, 4, 2, 64, 32, 8), (2, 8, 8, 32, 16, 4),
@@ -399,6 +437,12 @@ def phase_kernels(torch, np):
                      24, 2, 128, 16, 64),
                     ([LONG_CONTEXT, LONG_CONTEXT - 1, 1025, 1024, 9000, 5, 12345, 16000],
                      24, 2, 128, 16, LONG_CONTEXT // 16)]
+    # the MoE family's decode at B=8, lengths of phase 5c's traffic: G = 1
+    # (one q row of a 16-row MMA tile) and G = 3 (drawn apart, so that the
+    # cases above keep their draws)
+    moe_rng = np.random.default_rng(SEED + 7)
+    paged_cases += [(moe_rng.integers(1, 577, size=8).tolist(), *attn, 16, 64)
+                    for attn in (DEEPSEEK_ATTN, GRANITE_ATTN)]
     for dtype in (torch.float32, torch.bfloat16):
         for (B, S, H, KV, Dh), causal, window, vl in flash_cases:
             q, k, v = _flash_inputs(torch, gen, B, S, H, KV, Dh, dtype)
@@ -427,6 +471,7 @@ def phase_kernels(torch, np):
                    paged_decode_attention_plain(*f32, pt, (lengths - 1).clamp_min(1)))
     _check_ops_kernels(torch, gen, rng, record)
     _check_flash_bwd(torch, gen)
+    _check_scan_bwd(torch, gen)
     REPORT["kernel_checks"] = checks
     REPORT["kernel_worst"] = worst
     log(f"[kernels] {len(checks)} checks within tolerance")
@@ -440,11 +485,13 @@ def phase_kernels(torch, np):
     bf16 = torch.bfloat16
     timings = {"flash_attention": [], "paged_decode_attention": []}
     # S=128/512/1000 first, in this order (the kernels line reads S=512),
-    # then the serving run's most common bucket and recurrentgemma_2b's
-    # local attention (head_dim 256)
+    # then the serving run's most common bucket, recurrentgemma_2b's
+    # local attention (head_dim 256), deepseek_moe_16b's prefill (G = 1)
+    # and granite_moe_3b_a800m's training microbatch (G = 3)
     for B, S, H, KV, Dh in ((1, 128, 24, 2, 128), (1, 512, 24, 2, 128),
                             (1, 1000, 24, 2, 128), (1, 256, 24, 2, 128),
-                            (1, 2048) + GRIFFIN_LOCAL[2:]):
+                            (1, 2048) + GRIFFIN_LOCAL[2:], (1, 512) + DEEPSEEK_ATTN,
+                            (1, 2048) + GRANITE_ATTN):
         q, k, v = _flash_inputs(torch, gen, B, S, H, KV, Dh, bf16)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         timings["flash_attention"].append(_timing(
@@ -464,6 +511,9 @@ def phase_kernels(torch, np):
     # long context: every request at starcoder2-3b's 16,384 tokens
     timings["paged_decode_attention"].append(_paged_timing(
         torch, flush, gen, [LONG_CONTEXT] * B, H, KV, Dh, page, LONG_CONTEXT // page))
+    for attn in (DEEPSEEK_ATTN, GRANITE_ATTN):  # the MoE family's decode, B=8
+        timings["paged_decode_attention"].append(_paged_timing(
+            torch, flush, gen, lens, *attn, page, maxp))
     timings.update(_time_ops_kernels(torch, F, gen, flush))
     REPORT["kernel_timings"] = timings
     for name, rows in timings.items():
@@ -583,6 +633,97 @@ def _check_flash_bwd(torch, gen):
         f"{REPORT['flash_bwd_ms_wide']:.4f} ms at B={B}, S={S}")
 
 
+# The scans' backward on the training path (``ops.ssd_scan_bwd`` behind
+# ``ssd_scan_trainable``, ``ops.rglru_scan_bwd`` behind
+# ``rglru_scan_trainable``), fp32, at mamba2_780m's and recurrentgemma_2b's
+# widths on the card: each gradient's worst row (``_grad_row_err``)
+# against autograd through the sequential oracle of ``kernels/ref.py``,
+# the same recurrence in another form.  The SSD's backward is autograd
+# through the chunked plain version, whose in-chunk cumsum of dt·A runs
+# in another order than the oracle's step-by-step decay: the forward's
+# fp32 limit holds it (the CPU read 2.9e-5 at S=512).  The RG-LRU's is
+# the kernel run again over the reversed sequence, a few ulps apart at
+# chunk edges as its forward; a_t where a_{t+1} belongs (the derivation's
+# off-by-one) moves the gradient's rows far past the limit.  The SSD's
+# oracle keeps every step's state for its backward, so it runs at S=1024
+# (4 chunks); both backwards are then timed as the models call them
+# (bf16 x, B and C with fp32 dt; fp32 a and b) at S=2048.
+ROW_TOL.update({("ssd_scan_bwd", "float32"): ROW_TOL["ssd_scan", "float32"],
+                ("rglru_scan_bwd", "float32"): 1e-5})
+SSD_BWD_CHECK_S = 1024
+
+
+def _check_scan_bwd(torch, gen):
+    from repro_torch.kernels import ops, ref
+
+    def oracle(fn, inputs, cot):
+        leaves = [t.detach().requires_grad_() for t in inputs]
+        with torch.enable_grad():
+            return torch.autograd.grad(fn(*leaves), leaves, cot)
+
+    out = {}
+    B, S, W = GRIFFIN_LRU
+    a, b = _rglru_inputs(torch, gen, B, S, W, torch.float32)
+    dh = torch.randn(B, S, W, generator=gen, device="cuda")
+    with torch.no_grad():
+        h = ops.rglru_scan(a, b)
+        got = ops.rglru_scan_bwd(a, h, dh)
+        wrong = ref.rglru(a.flip(1), dh.flip(1)).flip(1)  # db with a_t for a_{t+1}
+    torch.cuda.synchronize()
+    want = oracle(ref.rglru, (a, b), dh)
+    errs = {n: _grad_row_err(g, e) for n, g, e in zip(("da", "db"), got, want)}
+    moved = _grad_row_err(wrong, want[1])
+    tol = ROW_TOL["rglru_scan_bwd", "float32"]
+    out["rglru_scan_bwd"] = {"shape": [B, S, W], "dtype": "float32", "row_err": errs,
+                             "off_by_one_row_err": moved, "row_tol": tol}
+    check(max(errs.values()) <= tol < moved,
+          f"rglru bwd {[B, S, W]}: row errs {errs} (tol {tol}), off-by-one moves {moved}")
+    del want, wrong
+
+    B, _, H, P, G, N = MAMBA
+    S = SSD_BWD_CHECK_S
+    inputs = _ssd_inputs(torch, gen, B, S, H, P, G, N, torch.float32)
+    dy = torch.randn(B, S, H, P, generator=gen, device="cuda")
+    got = ops.ssd_scan_bwd(*inputs, dy, MAMBA_CHUNK)
+    want = oracle(lambda *t: ref.ssd(*t)[0], inputs, dy)
+    errs = {n: _grad_row_err(g, e) for n, g, e in zip(("dx", "ddt", "dA", "dBm", "dCm"),
+                                                     got, want)}
+    tol = ROW_TOL["ssd_scan_bwd", "float32"]
+    out["ssd_scan_bwd"] = {"shape": [B, S, H, P, G, N], "chunk": MAMBA_CHUNK,
+                           "dtype": "float32", "row_err": errs, "row_tol": tol}
+    check(all(bool(torch.isfinite(g).all().item()) for g in got) and
+          max(errs.values()) <= tol, f"ssd bwd {[B, S, H, P, G, N]}: row errs {errs} "
+                                     f"(tol {tol})")
+    del got, want
+
+    # their time per call, as the models' backward calls them
+    flush = torch.empty(16 * 1024 * 1024, dtype=torch.float32, device="cuda")
+    B, S, W = GRIFFIN_LRU
+    a, b = _rglru_inputs(torch, gen, B, S, W, torch.float32)
+    dh = torch.randn(B, S, W, generator=gen, device="cuda")
+    with torch.no_grad():
+        h = ops.rglru_scan(a, b)
+        out["rglru_scan_bwd"]["ms"] = _time_ms(torch, lambda: ops.rglru_scan_bwd(a, h, dh),
+                                               flush)
+    B, S, H, P, G, N = MAMBA
+    x, dt, A, Bm, Cm = _ssd_inputs(torch, gen, B, S, H, P, G, N, torch.bfloat16,
+                                   dt_fp32=True)
+    dy = torch.randn(B, S, H, P, generator=gen, device="cuda").to(torch.bfloat16)
+    out["ssd_scan_bwd"]["ms"] = _time_ms(
+        torch, lambda: ops.ssd_scan_bwd(x, dt, A, Bm, Cm, dy, MAMBA_CHUNK), flush)
+    out["ssd_scan_bwd"]["timed_shape"] = [B, S, H, P, G, N]
+    out["rglru_scan_bwd"]["launches_per_call"] = 1  # rglru_scan, the sequence reversed
+    out["ssd_scan_bwd"]["launches_per_call"] = 0    # PyTorch math
+    REPORT["scan_bwd"] = out
+    r, d = out["rglru_scan_bwd"], out["ssd_scan_bwd"]
+    log(f"[kernels] rglru_scan_bwd {r['shape']} fp32: row errs "
+        f"{ {k: f'{v:.3g}' for k, v in r['row_err'].items()} } (tol {r['row_tol']}), "
+        f"off-by-one moves {r['off_by_one_row_err']:.3g}; {r['ms']:.4f} ms a call")
+    log(f"[kernels] ssd_scan_bwd {d['shape']} fp32: row errs "
+        f"{ {k: f'{v:.3g}' for k, v in d['row_err'].items()} } (tol {d['row_tol']}); "
+        f"{d['ms']:.4f} ms a call at {d['timed_shape']} (bf16, fp32 dt)")
+
+
 # full widths of the configurations whose math the four ops kernels carry
 # (src/repro/configs): starcoder2_3b's dense cache, recurrentgemma_2b's
 # local attention (window 2048) and RG-LRU width, mamba2_780m's SSD heads
@@ -593,6 +734,10 @@ GRIFFIN_LOCAL = (4, 2048, 10, 1, 256)
 GRIFFIN_LRU = (1, 2048, 2560)                             # B, S, W
 MAMBA = (1, 2048, 48, 64, 1, 128)                         # B, S, H, P, G, N
 MAMBA_CHUNK = 256
+# the MoE family's attention (H, KV, Dh): deepseek_moe_16b is MHA (G = 1),
+# granite_moe_3b_a800m has 24 q heads on 8 KV heads (G = 3)
+DEEPSEEK_ATTN = (16, 16, 128)
+GRANITE_ATTN = (24, 8, 64)
 STREAM_N = 2 ** 27            # 512 MiB per fp32 array, > 4× the 50 MB L2
 
 
@@ -952,8 +1097,8 @@ def _path(torch, cfg, params, device, prompts, steps, forced=None):
                               valid_len=torch.tensor([len(p) for p in prompts],
                                                      dtype=torch.int32, device=device))
         for b, p in enumerate(prompts):
-            check(kv.admit(b, {"k": c["k"][:, b:b + 1], "v": c["v"][:, b:b + 1]},
-                           len(p)), "parity: admit failed")
+            check(kv.admit(b, {n: c[n][:, b:b + 1] for n in kv.pools}, len(p)),
+                  "parity: admit failed")
         for step in range(steps + 1):
             if step:
                 for b in range(B):
@@ -1088,6 +1233,56 @@ def phase_parity_families(torch, np):
     REPORT["parity_families"] = out
 
 
+# ----------------------------------------------------------------- phase 4c
+# the MoE family at full width and 2 layers: deepseek_moe_16b its leading
+# dense layer and one MoE layer (64 experts, top-6, 2 shared),
+# granite_moe_3b_a800m two MoE layers (40 experts, top-8, tied embeddings)
+PARITY_MOE = ("deepseek_moe_16b", "granite_moe_3b_a800m")
+
+
+def phase_parity_moe(torch, np):
+    """Phase 4's check for the MoE family, fp32 with TF32 off: the same
+    params on the card and on the CPU, two prompts right-padded to one
+    prefill (the pad tokens route and take capacity on both sides), then
+    4 paged decode steps: logits within phase 4's fp32 limit and equal
+    greedy tokens; exact launches.  Routing is a top-k of fp32
+    probabilities that the two sides compute in other summation orders
+    (~1e-6 apart), so only a near-tie could flip an expert."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    steps, out = 4, {}
+    for arch in PARITY_MOE:
+        t0 = time.perf_counter()
+        cfg = replace(get_config(arch), num_layers=2, dtype="float32")
+        params = Model(cfg, device="cpu").init(SEED)
+        rng = np.random.default_rng(SEED + 6)
+        prompts = [rng.integers(1, cfg.vocab_size, size=n).tolist() for n in (37, 20)]
+        ref_logits, ref_tok = _path(torch, cfg, params, "cpu", prompts, steps)
+        ops.reset_launch_counts()
+        gpu_logits, gpu_tok = _path(torch, cfg, params, "cuda", prompts, steps,
+                                    forced=ref_tok)
+        launches = ops.launch_counts()
+        _check_launches(f"parity {arch}", launches,
+                        {"flash_attention": 2, "paged_decode_attention": 2 * steps})
+        errs = [(a - b).abs().max().item() for a, b in zip(gpu_logits, ref_logits)]
+        scale = max(b.abs().max().item() for b in ref_logits)
+        same = [bool(torch.equal(a, b)) for a, b in zip(gpu_tok, ref_tok)]
+        out[arch] = {"layers": 2, "first_dense": cfg.first_dense, "max_abs_err": max(errs),
+                     "per_step": errs, "tol": PARITY_ATOL["float32"],
+                     "max_abs_logit": scale, "greedy_equal": same, "launches": launches,
+                     "seconds": time.perf_counter() - t0}
+        log(f"[parity] {arch} (2 layers, first_dense {cfg.first_dense}) float32: logits "
+            f"max abs err {max(errs):.3g} (tol {PARITY_ATOL['float32']}, |logit| ≤ "
+            f"{scale:.3g}), greedy equal {same}; launches {launches}")
+        check(max(errs) <= PARITY_ATOL["float32"], f"parity {arch}: logits differ")
+        check(all(same), f"parity {arch}: greedy tokens differ")
+        del params
+    REPORT["parity_moe"] = out
+
+
 # ------------------------------------------------------------------ phase 5
 def _drive(torch, router, eng, reqs, max_new, card, vocab):
     """Run ``reqs`` [(prompt, sampling)] through the router, each streamed,
@@ -1173,7 +1368,15 @@ def _check_launches(tag, launches, want):
     check(launches == full, f"{tag}: launches {launches} != {full}")
 
 
-def phase_serve(torch, np, card):
+def _serve_paged(torch, np, card, arch, tag):
+    """Phases 5 and 5c: ``arch`` at full width and depth through
+    ``Router.replicate`` with one paged engine and pipelined admission
+    (random init from SEED, made one tensor at a time in bf16; max_batch
+    8, cache_len 1024, page 16): 16 greedy requests with prompts of
+    16–512 tokens and 2 sampled (T=0.8, top-k 40), 64 new tokens each;
+    exactly one flash launch per layer a prefill and one paged decode per
+    layer a step; then phase 6's profile of the engine's model.  Returns
+    the path's launches."""
     import repro_torch.core as core
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
@@ -1181,25 +1384,26 @@ def phase_serve(torch, np, card):
     from repro_torch.serve.router import Router, default_extra_inputs
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_config("starcoder2_3b")
+    cfg = get_config(arch)
     max_new = 64
     core.init(pools={"default": 4, "prefill": 2, "io": 1})
     try:
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         model = Model(cfg)  # cuda
-        params = model.init(SEED)
+        params = model.init_compute(SEED)
         scfg = ServeConfig(max_batch=8, cache_len=1024, page_size=16,
                            max_new_tokens=max_new, seed=SEED)
         router = Router.replicate(model, params, scfg, 1,
                                   extra_inputs=default_extra_inputs(cfg))
-        del params  # the engine holds the bf16 compute copy
-        torch.cuda.empty_cache()
+        del params  # the engine holds them
         eng = router.engines[0]
         torch.cuda.synchronize()  # init and cast are enqueued, not done
         setup_s = time.perf_counter() - t0
+        setup_peak = torch.cuda.max_memory_allocated()
         # warm-up request (cuBLAS handles, allocator), outside the measured run
         check(len(router.submit([1] * 16, max_new=2).get(timeout=600)) == 3,
-              "serve: warm-up failed")
+              f"{tag}: warm-up failed")
 
         rng = np.random.default_rng(SEED)
         greedy = [rng.integers(1, cfg.vocab_size, size=n).tolist()
@@ -1209,19 +1413,34 @@ def phase_serve(torch, np, card):
         hot = SamplingParams(temperature=0.8, top_k=40)
         reqs = [(p, None) for p in greedy] + [(p, hot) for p in sampled]
         serve = _drive(torch, router, eng, reqs, max_new, card, cfg.vocab_size)
-        serve["setup_s"] = setup_s
+        serve.update(setup_s=setup_s, setup_peak_bytes=setup_peak, arch=arch)
         launches, prefills, steps = serve["launches"], serve["prefills"], serve["decode_steps"]
         L = cfg.num_layers
-        _check_launches("serve", launches, {"flash_attention": L * prefills,
-                                            "paged_decode_attention": L * steps})
-        REPORT["serve"] = serve
-        _log_serve("serve", serve)
-        log(f"[serve] launches {launches} = {L} × {prefills} prefills, "
-            f"{L} × {steps} decode steps")
-        phase_profile(torch, np, eng, card)
+        _check_launches(tag, launches, {"flash_attention": L * prefills,
+                                        "paged_decode_attention": L * steps})
+        REPORT[tag.replace(" ", "_")] = serve
+        _log_serve(tag, serve)
+        log(f"[{tag}] setup {setup_s:.1f} s, peak {setup_peak / 2**30:.2f} GiB; launches "
+            f"{launches} = {L} × {prefills} prefills, {L} × {steps} decode steps")
+        phase_profile(torch, np, eng, card, tag.replace("serve", "profile").replace(" ", "_"))
+        eng.close()
         return launches
     finally:
         core.finalize()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_serve(torch, np, card):
+    return _serve_paged(torch, np, card, "starcoder2_3b", "serve")
+
+
+def phase_serve_moe(torch, np, card):
+    """Phase 5c: full deepseek_moe_16b (28 layers: one dense, 27 MoE with
+    64 routed experts top-6 and 2 shared; 16.4 B params, 32.8 GB in bf16)
+    on phase 5's traffic: 28 flash launches a prefill, 28 paged decodes a
+    step."""
+    return _serve_paged(torch, np, card, "deepseek_moe_16b", "serve deepseek_moe_16b")
 
 
 # ----------------------------------------------------------------- phase 5b
@@ -1230,8 +1449,6 @@ def _serve_one(torch, np, card, arch, scfg, prompts, max_new):
     engine, full width and depth, random init from SEED; a warm-up request
     runs first, outside the measured run.  The masters are freed once the
     engine holds its compute copy, and the model and engine once done."""
-    import gc
-
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
     from repro_torch.serve.router import Router, default_extra_inputs
@@ -1336,7 +1553,7 @@ def phase_serve_families(torch, np, card):
 # ------------------------------------------------------------------ phase 6
 # kernel kinds of a profile, by words in the kernel's name, first match
 PROFILE_GROUPS = (("flash", ("flash_fwd",)), ("decode", ("repro_torch::decode::",)),
-                  ("gemm", ("gemm", "xmma", "cutlass", "sm90_", "sm80_")),
+                  ("gemm", ("gemm", "xmma", "cutlass", "sm90_", "sm80_", "nvjet")),
                   ("reduce", ("reduce",)), ("elementwise", ("elementwise",)))
 
 
@@ -1389,10 +1606,11 @@ def _device_profile(torch, fn, n):
                     for e in top]}
 
 
-def phase_profile(torch, np, eng, card):
+def phase_profile(torch, np, eng, card, key="profile"):
     """Where a decode step's and a prefill's time goes, outside the
     engine's threads: the engine's own model, params and cache layout;
-    decode at B=8 with ~300 live tokens per slot, prefill of a 512 bucket."""
+    decode at B=8 with ~300 live tokens per slot, prefill of a 512 bucket.
+    Reported under ``key``."""
     from repro_torch.serve.kv_cache import PagedKVCache
 
     model, params, cfg = eng.model, eng.params, eng.model.cfg
@@ -1400,10 +1618,11 @@ def phase_profile(torch, np, eng, card):
     B, page, maxp = 8, 16, 64
     kv = PagedKVCache(model, num_pages=B * maxp + 1, page_size=page, max_batch=B,
                       max_pages_per_req=maxp, name="profile")
-    L, KV, Dh = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    KV, Dh = cfg.num_kv_heads, cfg.head_dim
     for b, n in enumerate(rng.integers(250, 350, size=B).tolist()):
-        zeros = torch.zeros(L, 1, n, KV, Dh, dtype=torch.bfloat16, device="cuda")
-        check(kv.admit(b, {"k": zeros, "v": zeros}, n), "profile: admit failed")
+        zeros = {name: torch.zeros(pool.shape[0], 1, n, KV, Dh, dtype=torch.bfloat16,
+                                   device="cuda") for name, pool in kv.pools.items()}
+        check(kv.admit(b, zeros, n), "profile: admit failed")
     tok = torch.from_numpy(rng.integers(1, cfg.vocab_size, size=(B, 1))).cuda()
 
     def decode():
@@ -1433,9 +1652,10 @@ def phase_profile(torch, np, eng, card):
                     f"{r['decode_attention_kernels']:.0f} kernels; flash "
                     f"{r['flash_attention_ms']:.3f} ms in "
                     f"{r['flash_attention_kernels']:.0f} kernels")
-            log(f"[profile] {name}: wall {r['wall_ms']:.2f} ms (profiled "
+            log(f"[{key}] {name}: wall {r['wall_ms']:.2f} ms (profiled "
                 f"{r['profiled_wall_ms']:.2f} ms), {busy}")
-    REPORT["profile"] = out
+    kv.close()
+    REPORT[key] = out
 
 
 # ------------------------------------------------------------------ phase 7
@@ -1701,8 +1921,6 @@ def phase_train(torch, np, card):
     a batch whose futurized loss and grads were just taken: 60 flash
     launches, the same loss, grads and grad norm within bf16 limits; then
     two steps at ``TRAIN_WIDE`` tokens (``_train_wide``)."""
-    import gc
-
     import repro_torch.core as core
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, synth_batch
@@ -1831,12 +2049,198 @@ def phase_train(torch, np, card):
             log(f"[train] {wide['tokens_per_step']} tokens, one step profiled: device busy "
                 f"{wp['device_ms']:.1f} ms ({100 * wp['busy_share']:.1f}%), kernel kinds, "
                 f"device ms: { {g: round(t, 1) for g, t in wp['groups_ms'].items()} }")
+        tr.close()
         del tr, bsp
         return {k: launches[k] + bsp_launches[k] + wide["launches"][k] for k in launches}
     finally:
         core.finalize()
         gc.collect()
         torch.cuda.empty_cache()
+
+
+# ----------------------------------------------------------------- phase 8c
+# the families this slice trains, at full width: the layers kept for the
+# card-vs-CPU parity (recurrentgemma_2b: one (rec, rec, attn) group, so
+# that both scans' backward and the local attention are held)
+TRAIN_FAMILIES = (("granite_moe_3b_a800m", 2), ("mamba2_780m", 2), ("recurrentgemma_2b", 3))
+
+
+def _microbatch_launches(cfg, layers):
+    """Kernel launches of one microbatch's forward and backward under the
+    futurized plan (no remat): the flash forward per attention layer, the
+    SSD forward per Mamba-2 block, the RG-LRU forward and its reversed
+    twin in the backward per recurrent layer."""
+    if cfg.family == "ssm":
+        return {"ssd_scan": layers}
+    if cfg.family == "hybrid":
+        groups = layers // len(cfg.block_pattern)
+        return {"rglru_scan": 2 * (layers - groups), "flash_attention": groups}
+    return {"flash_attention": layers}
+
+
+def _train_family_parity(torch, cfg, layers):
+    """Phase 8a's loss-and-gradient check for another family: one step's
+    loss and every gradient at full width and ``layers`` layers, fp32 (TF32
+    off), on the card against the CPU, same params and batch; exact
+    launches."""
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+    from repro_torch.train import step as step_mod
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _, B, S = TRAIN_PARITY
+    t0 = time.perf_counter()
+    cfg = replace(cfg, num_layers=layers, dtype="float32")
+    cpu = Model(cfg, device="cpu")
+    params = cpu.init(SEED)
+    batch = synth_batch(cfg, DataConfig(batch_size=B, seq_len=S, seed=SEED), 0)
+    loss_c, grads_c = step_mod.value_and_grad(cpu.loss, params, batch)
+    pg = {k: v.cuda() for k, v in params.items()}
+    ops.reset_launch_counts()
+    loss_g, grads_g = step_mod.value_and_grad(Model(cfg).loss, pg,
+                                              {k: v.cuda() for k, v in batch.items()})
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    _check_launches(f"train parity {cfg.name}", launches, _microbatch_launches(cfg, layers))
+    loss_err = abs(loss_g.item() - loss_c.item())
+    rel = {}
+    for k, gc_ in grads_c.items():
+        gg = grads_g[k].cpu()
+        scale = gc_.abs().max().item()
+        rel[k] = (gg - gc_).abs().max().item() / max(scale, 1e-30)
+        check(bool(torch.isfinite(gg).all().item()) and gg.abs().max().item() > 0,
+              f"train parity {cfg.name}: {k} grad not finite or all zero")
+    worst = max(rel, key=rel.get)
+    check(loss_err <= TRAIN_LOSS_TOL and rel[worst] <= TRAIN_GRAD_RTOL,
+          f"train parity {cfg.name}: loss err {loss_err} (tol {TRAIN_LOSS_TOL}), grad "
+          f"{worst} off by {rel[worst]} of its max (tol {TRAIN_GRAD_RTOL})")
+    return {"layers": layers, "batch": B, "seq": S, "loss_card": loss_g.item(),
+            "loss_cpu": loss_c.item(), "loss_err": loss_err, "loss_tol": TRAIN_LOSS_TOL,
+            "grad_rel_err": rel, "worst_grad": worst, "grad_rtol": TRAIN_GRAD_RTOL,
+            "launches": launches, "seconds": time.perf_counter() - t0}
+
+
+def _train_family(torch, card, arch):
+    """``arch`` at full width and depth through ``Trainer.fit`` under the
+    futurized plan at ``TRAIN_WIDE`` tokens a step (8 microbatches of one
+    2048-token sequence), fp32 masters and moments, bf16 compute: 2 steps,
+    exact launches, finite loss and grad norm, step times, tokens/s, peak;
+    then one step more as the train step runs it (the microbatches'
+    grads, then AdamW, CUDA events between), and again under
+    torch.profiler: forward + backward against AdamW and the device-busy
+    share.  Returns the report; its launches are the 2 steps'."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.dist.plan import get_plan
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as step_mod
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    cfg = get_config(arch)
+    B, S, n_mb = TRAIN_WIDE
+    steps = 2
+    opt = adamw.AdamWConfig(**TRAIN_OPT)
+    dcfg = DataConfig(batch_size=B, seq_len=S, seed=SEED)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = Model(cfg, plan=get_plan("futurized", microbatches=n_mb))
+    tr = Trainer(model, opt, dcfg, TrainConfig(steps=steps, log_every=1), rng_seed=SEED)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in tr.params.values())
+    hist, step_s = [], []
+    ops.reset_launch_counts()  # ← the training path starts here
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        hist += tr.fit(1)
+        step_s.append(time.perf_counter() - t0)
+    launches = ops.launch_counts()  # ← and ends here
+    peak = torch.cuda.max_memory_allocated()
+    per_mb = _microbatch_launches(cfg, cfg.num_layers)
+    _check_launches(f"train {arch}", launches,
+                    {k: n * n_mb * steps for k, n in per_mb.items()})
+    check(len(hist) == steps and all(math.isfinite(h["loss"]) and
+                                     math.isfinite(h["grad_norm"]) for h in hist),
+          f"train {arch}: loss or grad norm not finite: {hist}")
+    batch = {k: v.cuda() for k, v in synth_batch(cfg, dcfg, 10 ** 6).items()}
+    splits = []
+
+    def step():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        _, grads = step_mod._microbatch_grads(model.loss, tr.params, batch, n_mb)
+        ev[1].record()
+        tr.params, tr.opt_state, _ = adamw.update(opt, tr.params, grads, tr.opt_state)
+        ev[2].record()
+        del grads
+        torch.cuda.synchronize()
+        splits.append((ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])))
+
+    prof = _device_profile(torch, step, 1)
+    fb, ad = splits[0]  # the step outside the profiler
+    p50 = statistics.median(step_s)
+    out = {"card": card, "arch": arch, "layers": cfg.num_layers, "params": n_params,
+           "batch": B, "seq": S, "microbatches": n_mb, "tokens_per_step": B * S,
+           "plan": "futurized", "history": hist, "step_s": step_s, "step_p50_s": p50,
+           "tokens_per_s": B * S / p50, "setup_s": setup_s,
+           "max_memory_allocated_bytes": peak, "launches": launches,
+           "launches_per_microbatch": per_mb,
+           "split_ms": {"forward_backward": fb, "adamw": ad, "adamw_share": ad / (fb + ad)},
+           "profile_one_step": prof}
+    busy = ("device time not measured (the profiler saw none)" if prof["device_ms"] is None
+            else f"device busy {prof['device_ms']:.1f} ms ({100 * prof['busy_share']:.1f}%), "
+                 f"{prof['kernels_per_call']:.0f} kernels, kinds "
+                 f"{ {g: round(t, 1) for g, t in prof['groups_ms'].items()} }")
+    log(f"[train {arch}] {card}: {n_params / 1e9:.2f} B params, {cfg.num_layers} layers, "
+        f"{B * S} tokens a step ({n_mb} microbatches of S={S}), futurized: losses "
+        f"{[round(h['loss'], 4) for h in hist]}; steps "
+        f"{[round(t * 1e3, 1) for t in step_s]} ms, p50 {p50 * 1e3:.1f} ms, "
+        f"{B * S / p50:.0f} tokens/s; max_memory_allocated {peak / 2**30:.2f} GiB; "
+        f"launches {launches}")
+    log(f"[train {arch}] one step: wall {prof['wall_ms']:.1f} ms, {busy}; device clock: "
+        f"forward + backward {fb:.1f} ms, AdamW {ad:.1f} ms ({100 * ad / (fb + ad):.1f}%)")
+    tr.close()
+    del tr, model, batch
+    return out
+
+
+def phase_train_families(torch, np, card):
+    """Phase 8c: granite_moe_3b_a800m, mamba2_780m and recurrentgemma_2b,
+    each first held card against CPU at full width and a few layers, then
+    trained at full width and depth (``_train_family``).  Exact launches a
+    microbatch: 32 flash (granite_moe_3b_a800m), 48 SSD (mamba2_780m), 18
+    RG-LRU forward + 18 backward and 8 flash (recurrentgemma_2b).  Returns
+    the launches summed over the three training paths."""
+    import repro_torch.core as core
+    from repro_torch.configs import get_config
+
+    out, total = {}, {}
+    core.init(pools={"default": 4, "io": 1})
+    try:
+        for arch, layers in TRAIN_FAMILIES:
+            parity = _train_family_parity(torch, get_config(arch), layers)
+            log(f"[train parity] {arch} ({layers} layers, B={parity['batch']}, "
+                f"S={parity['seq']}) float32: loss {parity['loss_card']:.6f} (err "
+                f"{parity['loss_err']:.3g}, tol {TRAIN_LOSS_TOL}); worst grad "
+                f"{parity['worst_grad']} off by {parity['grad_rel_err'][parity['worst_grad']]:.3g}"
+                f" of its max (tol {TRAIN_GRAD_RTOL}); launches {parity['launches']}")
+            gc.collect()
+            torch.cuda.empty_cache()
+            run = _train_family(torch, card, arch)
+            run["parity"] = parity
+            out[arch] = run
+            for k, n in run["launches"].items():
+                total[k] = total.get(k, 0) + n
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        core.finalize()
+    REPORT["train_families"] = out
+    return total
 
 
 def phase_train_checkpoint(torch, np):
@@ -1884,6 +2288,7 @@ def phase_train_checkpoint(torch, np):
             log(f"[train checkpoint] 2 layers: saved async at step 2, resumed equal; "
                 f"step 3 loss {resumed['loss']:.6f} (uninterrupted {nxt['loss']:.6f}), "
                 f"{time.perf_counter() - t0:.1f} s")
+            tr2.close()  # the record both trainers bound in turn
             del tr, tr2
     finally:
         core.finalize()
@@ -1897,6 +2302,12 @@ MAIN_ROW = {"flash_attention": 1, "ssd_scan": 1, "rglru_scan": 1}
 
 
 def main() -> int:
+    # the caching allocator grows segments in place instead of keeping
+    # freed blocks of fixed-size segments apart: phase 8c's 16,384-token
+    # step of granite_moe_3b_a800m (3.3 B params, ~69 GiB live at its
+    # peak) otherwise finds its reserved memory split too finely for its
+    # 3.75 GiB stacked expert gradients.  Set before CUDA starts.
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import numpy as np
     import torch
 
@@ -1911,13 +2322,15 @@ def main() -> int:
     timings = phase_kernels(torch, np)
     phase_parity(torch, np)
     phase_parity_families(torch, np)
+    phase_parity_moe(torch, np)
     # each path's launches (counts set to 0 just before it, read just
     # after), summed over the paths
-    paths = [phase_serve(torch, np, card), phase_serve_families(torch, np, card),
-             phase_ops(torch, np, card, timings)]
+    paths = [phase_serve(torch, np, card), phase_serve_moe(torch, np, card),
+             phase_serve_families(torch, np, card), phase_ops(torch, np, card, timings)]
     phase_train_parity(torch, np)
     paths.append(phase_train(torch, np, card))
     phase_train_checkpoint(torch, np)
+    paths.append(phase_train_families(torch, np, card))
     launches = {k: sum(p.get(k, 0) for p in paths) for k in paths[0]}
 
     kernels = []

@@ -96,13 +96,13 @@ class ModelConfig:
 
 
 # architectures whose family the port serves today
-ARCH_IDS: List[str] = ["starcoder2_3b", "mamba2_780m", "recurrentgemma_2b"]
+ARCH_IDS: List[str] = [
+    "mamba2_780m", "qwen25_3b", "starcoder2_3b", "granite_34b", "starcoder2_15b",
+    "deepseek_moe_16b", "granite_moe_3b_a800m", "recurrentgemma_2b",
+]
 
 # architectures of the reference that later slices of the port bring over
-NOT_PORTED: List[str] = [
-    "whisper_small", "qwen25_3b", "granite_34b", "starcoder2_15b",
-    "deepseek_moe_16b", "granite_moe_3b_a800m", "internvl2_2b",
-]
+NOT_PORTED: List[str] = ["whisper_small", "internvl2_2b"]
 
 # accept dashed spellings on the CLI
 _ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS + NOT_PORTED}

@@ -14,9 +14,14 @@ Gradients: a kernel writes its output from outside autograd, so no
 wrapper of a bare kernel may be differentiated.  Each raises a
 ``RuntimeError`` naming the missing backward when grad mode is on and an
 input requires grad — on both devices, so the CPU (whose plain versions
-autograd could differentiate) and the card never disagree.  Training
-attention goes through :func:`flash_attention_trainable`, the kernel
-forward paired with :func:`~repro_torch.kernels.flash_attention.flash_attention_bwd`.
+autograd could differentiate) and the card never disagree.  Training goes
+through the ``*_trainable`` ops, each a ``torch.autograd.Function`` whose
+forward is the kernel (the plain version on CPU tensors):
+:func:`flash_attention_trainable` with
+:func:`~repro_torch.kernels.flash_attention.flash_attention_bwd`,
+:func:`ssd_scan_trainable`, whose backward differentiates the plain
+chunked form, and :func:`rglru_scan_trainable`, whose backward is the
+same recurrence run in reverse through the kernel again.
 
 The wrappers keep the reference's shapes and semantics but drop its TPU
 tile arguments (``block_q``, ``block_k``, ``block_s``, ``block_w``,
@@ -27,7 +32,7 @@ kernels here choose their own.
 from __future__ import annotations
 
 import threading
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -203,6 +208,87 @@ def flash_attention_trainable(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q: (B,S,H,Dh), k/v: (B,S,KV,Dh) → (B,S,H,Dh).  Outside grad mode it
     records nothing, so serving pays nothing for it."""
     return _FlashTrainable.apply(q, k, v, causal, window)
+
+
+def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+                 Cm: torch.Tensor, dy: torch.Tensor, chunk: int = 256,
+                 needs=(True,) * 5) -> Tuple[Optional[torch.Tensor], ...]:
+    """The SSD scan's backward: (dx, ddt, dA, dBm, dCm) for the cotangent
+    ``dy`` of y, by autograd through :func:`ssd_scan_plain` (the chunked
+    dual form, every chunk at once) recomputed from the inputs, as the
+    reference differentiates its jnp ``ssd_chunked``.  PyTorch math on
+    either device (the reference has no backward kernel); ``needs`` picks
+    the gradients to take (the others come back None)."""
+    inputs = [t.detach().requires_grad_(n) for t, n in zip((x, dt, A, Bm, Cm), needs)]
+    wanted = [t for t in inputs if t.requires_grad]
+    with torch.enable_grad():
+        y = ssd_scan_plain(*inputs, chunk=min(chunk, x.shape[1]))
+        got = iter(torch.autograd.grad(y, wanted, dy))
+    return tuple(next(got) if t.requires_grad else None for t in inputs)
+
+
+def rglru_scan_bwd(a: torch.Tensor, h: torch.Tensor,
+                   dh: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The RG-LRU scan's backward: (da, db) for the cotangent ``dh`` of
+    h_t = a_t·h_{t−1} + b_t, from a and the forward's h.  The cotangent
+    g_t = dh_t + a_{t+1}·g_{t+1} is the same recurrence over the flipped
+    sequence with a shifted by one step (0 past the end), so it is one more
+    :func:`rglru_scan` (a launch on the card); then db = g and
+    da_t = g_t·h_{t−1}."""
+    a_next = torch.cat([a[:, 1:], torch.zeros_like(a[:, :1])], dim=1)
+    g = rglru_scan(a_next.flip(1), dh.to(a.dtype).flip(1)).flip(1)
+    h_prev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], dim=1)
+    return g * h_prev, g
+
+
+class _SSDTrainable(torch.autograd.Function):
+    """The SSD kernel forward (counted) with :func:`ssd_scan_bwd`; saves
+    the inputs.  The final state is an output without a gradient:
+    training never reads it."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, chunk, return_final_state):
+        ctx.save_for_backward(x, dt, A, Bm, Cm)
+        ctx.chunk = chunk
+        out = ssd_scan(x, dt, A, Bm, Cm, chunk=chunk,
+                       return_final_state=return_final_state)
+        if return_final_state:
+            ctx.mark_non_differentiable(out[1])
+        return out
+
+    @staticmethod
+    def backward(ctx, dy, *_):
+        return (*ssd_scan_bwd(*ctx.saved_tensors, dy, ctx.chunk,
+                              needs=ctx.needs_input_grad[:5]), None, None)
+
+
+def ssd_scan_trainable(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                       Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int = 256,
+                       return_final_state: bool = False):
+    """Training-path SSD scan: :func:`ssd_scan`'s shapes and results, with
+    a backward for x, dt, A, Bm and Cm (the final state carries none)."""
+    return _SSDTrainable.apply(x, dt, A, Bm, Cm, chunk, return_final_state)
+
+
+class _RGLRUTrainable(torch.autograd.Function):
+    """The RG-LRU kernel forward (counted) with :func:`rglru_scan_bwd`;
+    saves a and h."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        h = rglru_scan(a, b)
+        ctx.save_for_backward(a, h)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        return rglru_scan_bwd(*ctx.saved_tensors, dh)
+
+
+def rglru_scan_trainable(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Training-path RG-LRU scan: :func:`rglru_scan`'s shapes and result,
+    with a backward for a and b."""
+    return _RGLRUTrainable.apply(a, b)
 
 
 def gather_paged_kv(k_pages: torch.Tensor, v_pages: torch.Tensor,

@@ -78,36 +78,54 @@ def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                    Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int = 256,
                    return_final_state: bool = False):
     """Plain PyTorch version of the kernel: the same chunked dual form in
-    fp32, all (batch, head) rows at once.  → y (B,S,H,P) in x's dtype, and
-    with ``return_final_state`` also the fp32 state after step S,
-    (B,H,P,N)."""
+    fp32, all (batch, head) rows and every chunk at once — a few large ops,
+    which autograd differentiates in a few more (the training backward,
+    ``ops.ssd_scan_bwd``, recomputes through it).  → y (B,S,H,P) in x's
+    dtype, and with ``return_final_state`` also the fp32 state after step
+    S, (B,H,P,N).
+
+    S is padded to whole chunks with dt = 0: a step that neither decays
+    nor adds, so the padding is inert (and causal).  Within a chunk y =
+    ((C·Bᵀ) ⊙ L ⊙ dtᵀ)·x with L = exp(cum_i − cum_j) for j ≤ i; each chunk's
+    own end state from its steps; the state entering chunk c is
+    Σ_{z<c} exp(T_{z+1} + … + T_{c−1}) · state_z for the chunk totals
+    T = Σ dt·A, the sums taken by a masked cumsum (no difference of large
+    running sums), then read through exp(cum)·(C·S)."""
     B, S, H, P = x.shape
-    G = Bm.shape[2]
-    rep = H // G
-    xf, dtf, Af = x.float(), dt.float(), A.float()
-    Bf = Bm.float().repeat_interleave(rep, dim=2)  # (B,S,H,N)
-    Cf = Cm.float().repeat_interleave(rep, dim=2)
-    state = torch.zeros(B, H, Bm.shape[3], P, dtype=torch.float32, device=x.device)
-    ys = []
-    for t0 in range(0, S, chunk):
-        sl = slice(t0, min(t0 + chunk, S))
-        d = dtf[:, sl].transpose(1, 2)                     # (B,H,Q)
-        cum = torch.cumsum(d * Af[None, :, None], dim=-1)  # (B,H,Q)
-        Q = cum.shape[-1]
-        later = torch.ones(Q, Q, dtype=torch.bool, device=x.device).triu(1)
-        # exp(cum_i − cum_j) only for j ≤ i; above the diagonal exp(−inf) = 0
-        L = (cum[..., :, None] - cum[..., None, :]).masked_fill(later, -torch.inf).exp()
-        scores = torch.einsum("bihn,bjhn->bhij", Cf[:, sl], Bf[:, sl]) * L * d[..., None, :]
-        y = torch.einsum("bhij,bjhp->bihp", scores, xf[:, sl])
-        y = y + torch.exp(cum).transpose(1, 2)[..., None] * torch.einsum(
-            "bihn,bhnp->bihp", Cf[:, sl], state)
-        w = torch.exp(cum[..., -1:] - cum) * d             # (B,H,Q)
-        state = state * torch.exp(cum[..., -1])[..., None, None] + torch.einsum(
-            "bhj,bjhn,bjhp->bhnp", w, Bf[:, sl], xf[:, sl])
-        ys.append(y)
-    y = torch.cat(ys, dim=1).to(x.dtype)
+    G, N = Bm.shape[2], Bm.shape[3]
+    Q = chunk
+    nc = -(-S // Q)
+    pad = nc * Q - S
+    xf, dtf = x.float(), dt.float()
+    Bf = Bm.float().repeat_interleave(H // G, dim=2)
+    Cf = Cm.float().repeat_interleave(H // G, dim=2)
+    if pad:
+        xf, dtf, Bf, Cf = (torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2) + (0, pad))
+                           for t in (xf, dtf, Bf, Cf))
+    xc = xf.reshape(B, nc, Q, H, P)
+    Bc, Cc = Bf.reshape(B, nc, Q, H, N), Cf.reshape(B, nc, Q, H, N)
+    d = dtf.reshape(B, nc, Q, H).permute(0, 3, 1, 2)            # (B,H,nc,Q)
+    cum = torch.cumsum(d * A.float()[None, :, None, None], dim=-1)
+    later = torch.ones(Q, Q, dtype=torch.bool, device=x.device).triu(1)
+    # exp(cum_i − cum_j) only for j ≤ i; above the diagonal exp(−inf) = 0
+    L = (cum[..., :, None] - cum[..., None, :]).masked_fill(later, -torch.inf).exp()
+    scores = torch.einsum("bcihn,bcjhn->bhcij", Cc, Bc) * L * d[..., None, :]
+    y = torch.einsum("bhcij,bcjhp->bcihp", scores, xc)
+    # each chunk's end state from its own steps, (B,nc,H,N,P)
+    w = torch.exp(cum[..., -1:] - cum) * d
+    states = torch.einsum("bhcj,bcjhn,bcjhp->bchnp", w, Bc, xc)
+    # the states entering chunks 0..nc (the last: the final state): a zero
+    # state, then the chunks' own, carried by exp of the chunk totals' sums
+    T = torch.nn.functional.pad(cum[..., -1], (1, 0))          # (B,H,nc+1)
+    tril = torch.ones(nc + 1, nc + 1, dtype=torch.bool, device=x.device).tril
+    seg = T[..., :, None].expand(*T.shape, nc + 1).masked_fill(~tril(-1), 0.0)
+    seg = torch.cumsum(seg, dim=-2).masked_fill(~tril(0), -torch.inf)
+    carried = torch.einsum("bhzc,bchnp->bzhnp", seg.exp(),
+                           torch.cat([torch.zeros_like(states[:, :1]), states], dim=1))
+    y = y + torch.einsum("bcihn,bchnp,bhci->bcihp", Cc, carried[:, :nc], torch.exp(cum))
+    y = y.reshape(B, nc * Q, H, P)[:, :S].to(x.dtype)
     if return_final_state:
-        return y, state.transpose(-1, -2).contiguous()
+        return y, carried[:, nc].transpose(-1, -2).contiguous()
     return y
 
 

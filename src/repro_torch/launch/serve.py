@@ -1,14 +1,18 @@
 """Serving launcher: batched requests through the continuous-batching
 serving stack (engine replicas behind the least-loaded router), in one
-process, on the GPU unless ``--device cpu`` is given.  The dense family
-serves from the paged cache; ``--no-paged --no-pipeline`` is the seed's
-baseline (dense per-slot cache, inline prefill).  The ssm and hybrid
-families always serve from dense slots.
+process, on the GPU unless ``--device cpu`` is given.  The dense and moe
+families serve from the paged cache; ``--no-paged --no-pipeline`` is the
+seed's baseline (dense per-slot cache, inline prefill).  The ssm and
+hybrid families always serve from dense slots.  The params are made one
+tensor at a time in the compute dtype (``Model.init_compute``), so the
+fp32 masters of a large model never exist together.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2_3b \\
       --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2_780m \\
+      --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek_moe_16b \\
       --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2_3b \\
       --smoke --device cpu --no-paged --no-pipeline
@@ -68,7 +72,7 @@ def main() -> None:
                            max_new_tokens=args.max_new, page_size=args.page_size,
                            paged=not args.no_paged,
                            pipeline_admission=not args.no_pipeline)
-        params = model.init(args.seed)
+        params = model.init_compute(args.seed)
         router = Router.replicate(model, params, scfg, args.engines,
                                   extra_inputs=default_extra_inputs(cfg),
                                   device=model.device)

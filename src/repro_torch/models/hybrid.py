@@ -18,10 +18,12 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.plan import ShardingPlan
 from repro_torch.models import layers as Lx
 from repro_torch.models.params import ParamSpec, TensorSpec
 from repro_torch.models.rglru import rec_block, rec_block_decode, rec_param_specs
-from repro_torch.models.transformer import attn_specs, layer_params, logits, mlp_specs
+from repro_torch.models.transformer import (attn_specs, layer_params, logits, mlp_specs,
+                                            unbind_layers)
 
 Params = Dict[str, torch.Tensor]
 
@@ -67,13 +69,14 @@ def _rec_with_state(cfg: ModelConfig, x: torch.Tensor, lp: Params, prefix: str,
 
 
 def _attn_with_kv(cfg: ModelConfig, x: torch.Tensor, lp: Params, prefix: str,
-                  positions: torch.Tensor, collect: bool):
+                  positions: torch.Tensor, collect: bool,
+                  plan: Optional[ShardingPlan] = None):
     """Local attention + MLP; with ``collect`` also the last
     min(window, S) positions' K/V in ring-buffer layout (slot = position
     mod window): the slice rolled by S mod W."""
     h = Lx.norm(cfg, x, lp[f"{prefix}ln1"])
     out = Lx.attention(cfg, h, lp, prefix, positions, causal=True,
-                       window=cfg.window, return_kv=collect)
+                       window=cfg.window, return_kv=collect, plan=plan)
     h_attn, kv = out if collect else (out, None)
     x = _mlp_res(cfg, x + h_attn, lp, prefix)
     if collect:
@@ -95,20 +98,36 @@ def _embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> torch.Tens
     return x * math.sqrt(cfg.d_model)  # gemma-style embedding scale
 
 
-def forward(cfg: ModelConfig, params: Params,
-            tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens: (B, S) → (logits fp32 (B,S,V), aux_loss 0)."""
+def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+            plan: Optional[ShardingPlan] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens: (B, S) → (logits fp32 (B,S,V), aux_loss 0).  Each (rec,
+    rec, attn) group and each tail layer runs under the plan's remat
+    policy (``Lx.remat_wrap``), as the reference wraps its scan bodies."""
     x = _embed(cfg, params, tokens)
     positions = torch.arange(tokens.shape[1], dtype=torch.int32, device=x.device)
-    groups, tails = _groups(cfg, params)
-    for lp in groups:
+    G, tail = _pattern(cfg)
+
+    def group(x, lp):
         x, _ = _rec_with_state(cfg, x, lp, "ra/", False)
         x, _ = _rec_with_state(cfg, x, lp, "rb/", False)
-        x, _ = _attn_with_kv(cfg, x, lp, "at/", positions, False)
-    for lp in tails:
-        x, _ = _rec_with_state(cfg, x, lp, "", False)
+        return _attn_with_kv(cfg, x, lp, "at/", positions, False, plan=plan)[0]
+
+    group = Lx.remat_wrap(plan, group)
+    rec = Lx.remat_wrap(plan, lambda x, lp: _rec_with_state(cfg, x, lp, "", False)[0])
+    for lp in unbind_layers(params, G, "grp/"):
+        x = group(x, lp)
+    for lp in unbind_layers(params, tail, "tail/"):
+        x = rec(x, lp)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return logits(cfg, params, x), aux
+
+
+def loss_fn(cfg: ModelConfig, plan: ShardingPlan, params: Params,
+            batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Next-token loss: tokens[:, :-1] → logits, labels tokens[:, 1:]."""
+    tokens = batch["tokens"]
+    lg, _ = forward(cfg, params, tokens[:, :-1], plan=plan)
+    return Lx.cross_entropy(lg, tokens[:, 1:])
 
 
 # --------------------------------------------------------------------- cache

@@ -1,12 +1,12 @@
 """Model facade of the port, ported from the reference's ``models/model.py``
-for the dense, ssm and hybrid families.
+for the dense, moe, ssm and hybrid families.
 
 ``Model(cfg, device=None, *, plan=None)`` runs on ``cuda`` unless the
 caller passes ``device="cpu"``; asking for CUDA where there is none
 raises.  ``plan`` (default ``get_plan("futurized")``) is the training
 step's plan: its remat policy and bf16 boundaries.
 
-    param_specs() / init(seed) / compute_params(params)
+    param_specs() / init(seed) / compute_params(params) / init_compute(seed)
     loss(params, batch)                             train objective
     prefill(params, inputs, cache_len, valid_len)   → (last logits, cache)
     decode(params, cache, token)                    → (logits, new cache)
@@ -17,6 +17,7 @@ step's plan: its remat policy and bf16 boundaries.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Union
 
 import torch
@@ -32,6 +33,7 @@ Params = Dict[str, torch.Tensor]
 # family → (its module, its param specs)
 _FAMILIES = {
     "dense": (transformer, transformer.decoder_param_specs),
+    "moe": (transformer, transformer.decoder_param_specs),
     "ssm": (ssm_lm, ssm_lm.lm_param_specs),
     "hybrid": (hybrid, hybrid.hybrid_param_specs),
 }
@@ -67,17 +69,22 @@ class Model:
     def compute_params(self, params: Params) -> Params:
         return transformer.compute_params(self.cfg, params)
 
+    def init_compute(self, seed: int = 0) -> Params:
+        """The serving params, ``compute_params(init(seed))`` bit for bit,
+        made one tensor at a time: each is drawn in fp32 on the model's
+        device and cast at once, so the fp32 masters never exist together
+        (deepseek_moe_16b: 65.5 GB of fp32 masters beside a 32.8 GB bf16
+        copy would not fit one 80 GB card)."""
+        params = init_params(self._specs, seed, self.device,
+                             convert=functools.partial(transformer.cast_param, self.cfg))
+        return self.compute_params(params)
+
     # ----------------------------------------------------------------- train
     def loss(self, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """The train objective on ``batch`` (tokens on the model's device).
-        The ssm and hybrid families run their scans through forward-only
-        kernels, so their loss raises until the scans have a backward."""
-        scan = {"ssm": "ssd_scan", "hybrid": "rglru_scan"}.get(self.cfg.family)
-        if scan is not None:
-            raise NotImplementedError(
-                f"training the {self.cfg.family!r} family needs a backward of "
-                f"its {scan} kernel, which is not ported yet")
-        return transformer.loss_fn(self.cfg, self.plan, params, batch)
+        """The train objective on ``batch`` (tokens on the model's device):
+        next-token cross-entropy, plus ``router_aux_weight`` times the MoE
+        aux loss for the moe family."""
+        return self._m.loss_fn(self.cfg, self.plan, params, batch)
 
     # ----------------------------------------------------------------- serve
     def prefill(self, params: Params, inputs: Dict[str, torch.Tensor],
@@ -86,8 +93,8 @@ class Model:
         """``cache_len`` sizes the dense family's KV cache (the SSM state
         and the hybrid's ring do not grow with it).  ``valid_len`` supports
         right-padded prompts (the serve engine's bucketed admission):
-        dense family only, as in the reference."""
-        if self.cfg.family == "dense":
+        dense and moe families only, as in the reference."""
+        if self._m is transformer:
             return transformer.prefill(self.cfg, params, inputs["tokens"],
                                        cache_len=cache_len, valid_len=valid_len)
         if valid_len is not None:

@@ -13,7 +13,7 @@ from __future__ import annotations
 import math
 import zlib
 from dataclasses import dataclass
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -52,21 +52,29 @@ def init_param(spec: ParamSpec, generator: torch.Generator,
         return torch.ones(spec.shape, dtype=spec.dtype, device=device)
     std = spec.scale if spec.scale is not None else 1.0 / math.sqrt(_fan_in(spec.shape))
     x = torch.randn(spec.shape, generator=generator, dtype=torch.float32, device=device)
-    return (x * std).to(spec.dtype)
+    return x.mul_(std).to(spec.dtype)
 
 
-def init_params(specs: Dict[str, ParamSpec], seed: int,
-                device: torch.device) -> Dict[str, torch.Tensor]:
+def init_params(specs: Dict[str, ParamSpec], seed: int, device: torch.device,
+                convert: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None
+                ) -> Dict[str, torch.Tensor]:
     """The reference's rule (normal × 1/√fan_in, ``scale`` overrides, ones
     and zeros), drawn on ``device`` from one ``torch.Generator`` per path,
     seeded by the root seed and crc32 of the path (not ``hash()``, which is
     salted per process).  torch cannot replay ``jax.random``'s draws: parity
-    with the reference goes through :func:`from_reference` instead."""
+    with the reference goes through :func:`from_reference` instead.
+
+    ``convert(path, tensor)``, if given, is applied to each tensor as soon
+    as it is drawn, and the draw is dropped before the next: the peak is
+    then the converted params plus one fp32 tensor (and its converted
+    copy), not all the fp32 params."""
     out: Dict[str, torch.Tensor] = {}
     for path in sorted(specs):
         gen = torch.Generator(device=device)
         gen.manual_seed((seed << 32) | (zlib.crc32(path.encode()) % (2**31)))
-        out[path] = init_param(specs[path], gen, device)
+        x = init_param(specs[path], gen, device)
+        out[path] = x if convert is None else convert(path, x)
+        del x
     return out
 
 

@@ -9,8 +9,9 @@ RG-LRU recurrence (per channel):
     a_t = exp(-c · softplus(Λ) · r_t)        c = 8
     h_t = a_t ⊙ h_{t-1} + sqrt(1 − a_t²) ⊙ (i_t ⊙ x_t)
 
-Prefill runs the recurrence through ``ops.rglru_scan`` (the Hopper kernel
-on CUDA tensors, its plain version on CPU ones), with fp32 a and b.
+Prefill and training run the recurrence through ``ops.rglru_scan_trainable``
+(the Hopper kernel on CUDA tensors, its plain version on CPU ones), with
+fp32 a and b; its backward is the reverse recurrence on the same kernel.
 Decode is the O(1) recurrence in plain tensor ops.
 """
 
@@ -66,12 +67,13 @@ def _gates(p: Params, prefix: str, xw: torch.Tensor) -> Tuple[torch.Tensor, torc
 
 def rglru_scan(a: torch.Tensor, b: torch.Tensor,
                h0: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """h_t = a_t h_{t-1} + b_t through ``ops.rglru_scan``. a/b: (B,S,W)
-    fp32; ``h0`` (B,W) is folded into the first step: b_0 += a_0·h0."""
+    """h_t = a_t h_{t-1} + b_t through ``ops.rglru_scan_trainable`` (the
+    kernel forward, with a backward in grad mode). a/b: (B,S,W) fp32;
+    ``h0`` (B,W) is folded into the first step: b_0 += a_0·h0."""
     if h0 is not None:
         b = b.clone()
         b[:, 0, :] += a[:, 0, :] * h0
-    return ops.rglru_scan(a, b)
+    return ops.rglru_scan_trainable(a, b)
 
 
 def rec_block(cfg: ModelConfig, x: torch.Tensor, p: Params, prefix: str,

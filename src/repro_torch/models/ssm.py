@@ -5,7 +5,8 @@ The chunked "dual" algorithm: within a chunk the recurrence is computed in
 matmul form, across chunks the fp32 (H, P, N) state is carried.  The same
 math lives in three places with one oracle:
 
-- here (`ssd_chunked`): the model's path, through ``ops.ssd_scan``;
+- here (`ssd_chunked`): the model's path, through ``ops.ssd_scan_trainable``
+  (the kernel forward, a backward through the plain version);
 - ``kernels/ssd_scan.py``: the Hopper kernel (chunks in parallel across
   blocks) and its plain PyTorch version, which ``ops`` runs on CPU tensors;
 - ``kernels/ref.py::ssd``: the O(S) sequential oracle both are tested
@@ -71,16 +72,19 @@ def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Te
 
 
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
-                Cm: torch.Tensor, chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """SSD in chunked matmul form through ``ops.ssd_scan``: the kernel on
-    CUDA tensors, its plain version on CPU ones.
+                Cm: torch.Tensor, chunk: int, return_final_state: bool = True):
+    """SSD in chunked matmul form through ``ops.ssd_scan_trainable``: the
+    kernel on CUDA tensors, its plain version on CPU ones, with a backward
+    in grad mode.
 
     x: (B,S,H,P)  dt: (B,S,H), fp32 or x's dtype  A: (H,) fp32 (negative)
     Bm/Cm: (B,S,G,N), G|H.  Returns (y (B,S,H,P) in x's dtype, final state
-    (B,H,P,N) fp32).  The chunk is clipped to S; a ragged last chunk ends
-    at step S, so the final state is the state after S steps.
+    (B,H,P,N) fp32), or y alone without ``return_final_state``.  The chunk
+    is clipped to S; a ragged last chunk ends at step S, so the final
+    state is the state after S steps.
     """
-    return ops.ssd_scan(x, dt, A, Bm, Cm, chunk=chunk, return_final_state=True)
+    return ops.ssd_scan_trainable(x, dt, A, Bm, Cm, chunk=chunk,
+                                  return_final_state=return_final_state)
 
 
 def ssd_decode_step(state: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
@@ -131,7 +135,9 @@ def ssm_block(cfg: ModelConfig, x: torch.Tensor, p: Params, prefix: str,
     Cm = Cm.reshape(B, S, d["G"], d["N"]).contiguous()
     dt = F.softplus(dt.float() + p[f"{prefix}dt_bias"][None, None, :].float())
     A = -torch.exp(p[f"{prefix}A_log"].float())
-    y, final_state = ssd_chunked(xs.contiguous(), dt, A, Bm, Cm, cfg.ssm_chunk)
+    out = ssd_chunked(xs.contiguous(), dt, A, Bm, Cm, cfg.ssm_chunk,
+                      return_final_state=collect_state)
+    y, final_state = out if collect_state else (out, None)
     y = y + p[f"{prefix}D"].to(dt_)[None, None, :, None] * xs
     y = y.reshape(B, S, d["d_inner"])
     # gated RMSNorm (Mamba-2: norm(y * silu(z)))

@@ -15,10 +15,11 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.plan import ShardingPlan
 from repro_torch.models import layers as Lx
 from repro_torch.models.params import ParamSpec, TensorSpec
 from repro_torch.models.ssm import ssm_block, ssm_block_decode, ssm_dims, ssm_param_specs
-from repro_torch.models.transformer import layer_params, logits
+from repro_torch.models.transformer import layer_params, logits, unbind_layers
 
 Params = Dict[str, torch.Tensor]
 
@@ -33,14 +34,25 @@ def lm_param_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     return specs
 
 
-def forward(cfg: ModelConfig, params: Params,
-            tokens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens: (B, S) → (logits fp32 (B,S,V), aux_loss 0)."""
+def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+            plan: Optional[ShardingPlan] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens: (B, S) → (logits fp32 (B,S,V), aux_loss 0).  Each block runs
+    under the plan's remat policy (``Lx.remat_wrap``), as the reference
+    wraps its scan body."""
     x = Lx.embed(cfg, params["tok_embed"], tokens)
-    for i in range(cfg.num_layers):
-        x = ssm_block(cfg, x, layer_params(params, i), "")
+    body = Lx.remat_wrap(plan, lambda x, lp: ssm_block(cfg, x, lp, ""))
+    for lp in unbind_layers(params, cfg.num_layers):
+        x = body(x, lp)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return logits(cfg, params, x), aux
+
+
+def loss_fn(cfg: ModelConfig, plan: ShardingPlan, params: Params,
+            batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Next-token loss: tokens[:, :-1] → logits, labels tokens[:, 1:]."""
+    tokens = batch["tokens"]
+    lg, _ = forward(cfg, params, tokens[:, :-1], plan=plan)
+    return Lx.cross_entropy(lg, tokens[:, 1:])
 
 
 # --------------------------------------------------------------------- cache

@@ -1,21 +1,27 @@
-"""Decoder-only transformer, dense family — ported from the reference's
-``models/transformer.py``.
+"""Decoder-only transformer, dense and MoE families — ported from the
+reference's ``models/transformer.py``.
 
 Per-layer params keep the reference's stacked layout (a leading ``L``
-dim); where the reference runs one ``lax.scan`` over the stack, the port
-runs a Python loop over layer slices.  The training forward
-(:func:`forward`, :func:`loss_fn`) wraps each layer in the plan's remat
-policy, as the reference wraps its scan body.  The MoE and VLM variants
-of the reference's decoder wait for later slices.
+dim); where the reference runs one ``lax.scan`` over a stack, the port
+runs a Python loop over layer slices.  Two stacks, as in the reference:
+the leading dense layers ``d0/`` (``cfg.first_dense`` of them, DeepSeekMoE's
+layer 0, with ``dense_d_ff``), then ``blk/``, whose FFN is the MoE layer
+(:mod:`repro_torch.models.moe`) for the MoE family and a dense MLP
+otherwise.  The training forward (:func:`forward`, :func:`loss_fn`) wraps
+each layer in the plan's remat policy, as the reference wraps its scan
+body, and sums the MoE layers' aux losses.  The VLM variant of the
+reference's decoder waits for a later slice.
 
 Two decode caches: the paged block pool (:func:`paged_cache_specs`) and
-the seed's dense per-slot cache (:func:`init_cache_specs`).  Both decode
-steps write the new token's K/V into the cache's tensors in place and
-return a cache holding the same tensors and ``pos + 1``.
+the seed's dense per-slot cache (:func:`init_cache_specs`), each with
+``k0``/``v0`` for the ``d0/`` stack.  Both decode steps write the new
+token's K/V into the cache's tensors in place and return a cache holding
+the same tensors and ``pos + 1``.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -23,6 +29,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist.plan import ShardingPlan
 from repro_torch.models import layers as Lx
+from repro_torch.models.moe import moe_ffn, moe_param_specs
 from repro_torch.models.params import ParamSpec, TensorSpec
 
 Params = Dict[str, torch.Tensor]
@@ -68,7 +75,7 @@ def mlp_specs(cfg: ModelConfig, L: int, prefix: str, d_ff: int) -> Dict[str, Par
 
 
 def decoder_param_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
-    if cfg.family != "dense" or cfg.first_dense or cfg.is_moe:
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     D, V = cfg.d_model, cfg.padded_vocab
     specs: Dict[str, ParamSpec] = {
@@ -77,9 +84,34 @@ def decoder_param_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     }
     if not cfg.tie_embeddings:
         specs["lm_head"] = ParamSpec((D, V), ("embed", "vocab"))
-    specs.update(attn_specs(cfg, cfg.num_layers, "blk/"))
-    specs.update(mlp_specs(cfg, cfg.num_layers, "blk/", cfg.d_ff))
+    fd, Lm = cfg.first_dense, cfg.num_layers - cfg.first_dense
+    if fd > 0:  # leading dense layers (DeepSeekMoE layer 0)
+        specs.update(attn_specs(cfg, fd, "d0/"))
+        specs.update(mlp_specs(cfg, fd, "d0/", cfg.dense_d_ff or cfg.d_ff))
+    specs.update(attn_specs(cfg, Lm, "blk/"))
+    if cfg.is_moe:
+        specs["blk/ln2"] = ParamSpec((Lm, D), ("layers", None), init="ones")
+        specs.update(moe_param_specs(cfg, Lm, "blk/moe/"))
+    else:
+        specs.update(mlp_specs(cfg, Lm, "blk/", cfg.d_ff))
     return specs
+
+
+def stacks(cfg: ModelConfig) -> List[Tuple[str, int, bool]]:
+    """The layer stacks in order: (path prefix, layers, MoE FFN?)."""
+    fd = cfg.first_dense
+    return ([("d0/", fd, False)] if fd > 0 else []) + \
+        [("blk/", cfg.num_layers - fd, cfg.is_moe)]
+
+
+def _cache_keys(prefix: str) -> Tuple[str, str]:
+    return ("k0", "v0") if prefix == "d0/" else ("k", "v")
+
+
+def cast_param(cfg: ModelConfig, path: str, v: torch.Tensor) -> torch.Tensor:
+    """One param as the compute sees it: fp32 if the reference reads it in
+    fp32 (:data:`FP32_PARAMS`), else cast to the compute dtype."""
+    return v if path.rsplit("/", 1)[-1] in FP32_PARAMS else v.to(Lx.cdtype(cfg))
 
 
 def compute_params(cfg: ModelConfig, params: Params) -> Params:
@@ -90,9 +122,7 @@ def compute_params(cfg: ModelConfig, params: Params) -> Params:
     ``unembed`` is the unembedding's fp32 weight, made here once rather
     than cast from the table at every step (``Lx.unembed_weight``).
     Idempotent: the engine may get params the router already converted."""
-    dt = Lx.cdtype(cfg)
-    out = {k: (v if k.rsplit("/", 1)[-1] in FP32_PARAMS else v.to(dt))
-           for k, v in params.items()}
+    out = {k: cast_param(cfg, k, v) for k, v in params.items()}
     if "unembed" not in out:
         table = out["tok_embed"] if cfg.tie_embeddings else out["lm_head"]
         out["unembed"] = Lx.unembed_weight(cfg, table, transpose=cfg.tie_embeddings)
@@ -114,16 +144,27 @@ def unbind_layers(params: Params, L: int, prefix: str = "blk/") -> List[Params]:
     return [{k: c[i] for k, c in cols.items()} for i in range(L)]
 
 
+def _ffn(cfg: ModelConfig, x: torch.Tensor, lp: Params,
+         moe_layer: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The FFN half of a layer: x + FFN(norm(x)), and the MoE aux loss
+    (None for a dense FFN)."""
+    h = Lx.norm(cfg, x, lp["ln2"])
+    if moe_layer:
+        ffn, aux = moe_ffn(cfg, h, lp, "moe/")
+        return x + ffn, aux
+    return x + Lx.mlp(cfg, h, lp, ""), None
+
+
 def _layer_body(cfg: ModelConfig, x: torch.Tensor, lp: Params,
                 positions: torch.Tensor, collect_kv: bool = False,
-                plan: Optional[ShardingPlan] = None):
+                plan: Optional[ShardingPlan] = None, moe_layer: bool = False):
+    """→ (x, aux loss or None, (k, v) or None)."""
     h = Lx.norm(cfg, x, lp["ln1"])
     out = Lx.attention(cfg, h, lp, "", positions, causal=cfg.causal,
                        window=cfg.window, return_kv=collect_kv, plan=plan)
     h, kv = out if collect_kv else (out, None)
-    x = x + h
-    h = Lx.norm(cfg, x, lp["ln2"])
-    return x + Lx.mlp(cfg, h, lp, ""), kv
+    x, aux = _ffn(cfg, x + h, lp, moe_layer)
+    return x, aux, kv
 
 
 def logits(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -139,18 +180,19 @@ def logits(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
 # ------------------------------------------------------------------ forward
 def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             plan: Optional[ShardingPlan] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens: (B, S) → (logits fp32 (B,S,V), aux_loss).  Each layer runs
-    under the plan's remat policy (``Lx.remat_wrap``)."""
+    """tokens: (B, S) → (logits fp32 (B,S,V), aux_loss: the sum over the
+    MoE layers).  Each layer runs under the plan's remat policy
+    (``Lx.remat_wrap``)."""
     x = Lx.embed(cfg, params["tok_embed"], tokens)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-
-    def body(x, lp):
-        return _layer_body(cfg, x, lp, positions, plan=plan)[0]
-
-    body = Lx.remat_wrap(plan, body)
-    for lp in unbind_layers(params, cfg.num_layers):
-        x = body(x, lp)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for prefix, L, moe_layer in stacks(cfg):
+        body = Lx.remat_wrap(plan, functools.partial(
+            _layer_body, cfg, positions=positions, plan=plan, moe_layer=moe_layer))
+        for lp in unbind_layers(params, L, prefix):
+            x, a, _ = body(x, lp)
+            if a is not None:
+                aux = aux + a
     return logits(cfg, params, x), aux
 
 
@@ -180,13 +222,17 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     dev = tokens.device
     x = Lx.embed(cfg, params["tok_embed"], tokens)
     positions = torch.arange(S, dtype=torch.int32, device=dev)
-    ks, vs = [], []
-    for i in range(cfg.num_layers):
-        x, (k, v) = _layer_body(cfg, x, layer_params(params, i), positions, collect_kv=True)
-        ks.append(k)
-        vs.append(v)
     dt = Lx.cdtype(cfg)
-    cache = {"k": torch.stack(ks).to(dt), "v": torch.stack(vs).to(dt)}
+    cache = {}
+    for prefix, L, moe_layer in stacks(cfg):
+        ks, vs = [], []
+        for i in range(L):
+            x, _, (k, v) = _layer_body(cfg, x, layer_params(params, i, prefix), positions,
+                                       collect_kv=True, moe_layer=moe_layer)
+            ks.append(k)
+            vs.append(v)
+        kn, vn = _cache_keys(prefix)
+        cache[kn], cache[vn] = torch.stack(ks).to(dt), torch.stack(vs).to(dt)
     if T > S:
         pad = (0, 0, 0, 0, 0, T - S)  # zero-fill positions S..T-1
         cache = {n: torch.nn.functional.pad(c, pad) for n, c in cache.items()}
@@ -204,14 +250,15 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 # -------------------------------------------------------------------- cache
 def init_cache_specs(cfg: ModelConfig, batch: int, cache_len: int) -> Dict[str, TensorSpec]:
     """The seed's dense per-slot KV cache: (L, batch, cache_len, KV, Dh)
-    K and V, and each slot's fill position."""
-    KV, Dh, L = cfg.num_kv_heads, cfg.head_dim, cfg.num_layers
+    K and V for each stack (``k0``/``v0`` for ``d0/``), and each slot's
+    fill position."""
+    KV, Dh = cfg.num_kv_heads, cfg.head_dim
     dt = Lx.cdtype(cfg)
-    return {
-        "k": TensorSpec((L, batch, cache_len, KV, Dh), dt),
-        "v": TensorSpec((L, batch, cache_len, KV, Dh), dt),
-        "pos": TensorSpec((batch,), torch.int32),
-    }
+    specs = {"pos": TensorSpec((batch,), torch.int32)}
+    for prefix, L, _ in stacks(cfg):
+        for name in _cache_keys(prefix):
+            specs[name] = TensorSpec((L, batch, cache_len, KV, Dh), dt)
+    return specs
 
 
 def decode_step(cfg: ModelConfig, params: Params, cache: Dict[str, torch.Tensor],
@@ -222,13 +269,14 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Dict[str, torch.Tensor]
     tensors and ``pos + 1``."""
     pos = cache["pos"]
     x = Lx.embed(cfg, params["tok_embed"], token)
-    for i in range(cfg.num_layers):
-        lp = layer_params(params, i)
-        h = Lx.norm(cfg, x, lp["ln1"])
-        h, _, _ = Lx.decode_attention(cfg, h, lp, "", cache["k"][i], cache["v"][i], pos,
-                                      window=cfg.window)
-        x = x + h
-        x = x + Lx.mlp(cfg, Lx.norm(cfg, x, lp["ln2"]), lp, "")
+    for prefix, L, moe_layer in stacks(cfg):
+        kc, vc = (cache[n] for n in _cache_keys(prefix))
+        for i in range(L):
+            lp = layer_params(params, i, prefix)
+            h = Lx.norm(cfg, x, lp["ln1"])
+            h, _, _ = Lx.decode_attention(cfg, h, lp, "", kc[i], vc[i], pos,
+                                          window=cfg.window)
+            x, _ = _ffn(cfg, x + h, lp, moe_layer)
     new_cache = dict(cache)
     new_cache["pos"] = pos + 1
     return logits(cfg, params, x)[:, 0, :], new_cache
@@ -239,15 +287,17 @@ def paged_cache_specs(cfg: ModelConfig, num_pages: int, page_size: int,
     """The *paged* KV cache: a block pool of ``num_pages`` fixed
     ``page_size`` pages shared by every layer (the same page index holds a
     request's tokens in all layers), plus per-slot page tables and fill
-    positions.  Memory scales with live tokens, not max_batch × cache_len."""
-    KV, Dh, L = cfg.num_kv_heads, cfg.head_dim, cfg.num_layers
+    positions.  Memory scales with live tokens, not max_batch × cache_len.
+    Each stack has its pools (``k0``/``v0`` for ``d0/``)."""
+    KV, Dh = cfg.num_kv_heads, cfg.head_dim
     dt = Lx.cdtype(cfg)
-    return {
-        "k": TensorSpec((L, num_pages, page_size, KV, Dh), dt),
-        "v": TensorSpec((L, num_pages, page_size, KV, Dh), dt),
-        "page_table": TensorSpec((max_batch, max_pages_per_req), torch.int32),
-        "pos": TensorSpec((max_batch,), torch.int32),
-    }
+    specs = {}
+    for prefix, L, _ in stacks(cfg):
+        for name in _cache_keys(prefix):
+            specs[name] = TensorSpec((L, num_pages, page_size, KV, Dh), dt)
+    specs["page_table"] = TensorSpec((max_batch, max_pages_per_req), torch.int32)
+    specs["pos"] = TensorSpec((max_batch,), torch.int32)
+    return specs
 
 
 def decode_step_paged(cfg: ModelConfig, params: Params,
@@ -259,13 +309,13 @@ def decode_step_paged(cfg: ModelConfig, params: Params,
     pool tensors and ``pos + 1``."""
     pos, pt = cache["pos"], cache["page_table"]
     x = Lx.embed(cfg, params["tok_embed"], token)
-    for i in range(cfg.num_layers):
-        lp = layer_params(params, i)
-        h = Lx.norm(cfg, x, lp["ln1"])
-        h, _, _ = Lx.paged_decode_attention(cfg, h, lp, "", cache["k"][i],
-                                            cache["v"][i], pt, pos)
-        x = x + h
-        x = x + Lx.mlp(cfg, Lx.norm(cfg, x, lp["ln2"]), lp, "")
+    for prefix, L, moe_layer in stacks(cfg):
+        kp, vp = (cache[n] for n in _cache_keys(prefix))
+        for i in range(L):
+            lp = layer_params(params, i, prefix)
+            h = Lx.norm(cfg, x, lp["ln1"])
+            h, _, _ = Lx.paged_decode_attention(cfg, h, lp, "", kp[i], vp[i], pt, pos)
+            x, _ = _ffn(cfg, x + h, lp, moe_layer)
     new_cache = dict(cache)
     new_cache["pos"] = pos + 1
     return logits(cfg, params, x)[:, 0, :], new_cache

@@ -329,6 +329,13 @@ class Engine:
         """The paged backend's block pool (no dense backend has one)."""
         return self.backend.kv
 
+    def close(self) -> None:
+        """Drop the engine's AGAS record (the paged backend's pools), so
+        that its cache is freed with the engine; call once it has stopped
+        serving."""
+        if self.paged:
+            self.kv.close()
+
     # --------------------------------------------------------------- decode
     def _decode(self, cache: Dict[str, torch.Tensor], token: torch.Tensor):
         self._decode_signatures.add(tuple(

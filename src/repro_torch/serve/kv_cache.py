@@ -39,7 +39,7 @@ import torch.nn.functional as F
 from repro_torch.core import agas as _agas
 from repro_torch.core import counters as _counters
 
-_POOL_KEYS = ("k", "v")
+_POOL_KEYS = ("k", "v", "k0", "v0")  # k0/v0: the leading dense layers' pools
 
 
 def _scatter_pages(pool: torch.Tensor, src: torch.Tensor,
@@ -87,6 +87,13 @@ class PagedKVCache:
         self.c_fail = reg.counter(f"/serve{{{name}}}/pages/alloc_failures")
         self.gid = _agas.default().register(self.pools, name=None,
                                             placement=str(self.device))
+
+    def close(self) -> None:
+        """Drop the pools' AGAS record, which otherwise holds them for the
+        life of the process."""
+        reg = _agas.default()
+        if reg.contains(self.gid):
+            reg.unregister(self.gid)
 
     # ------------------------------------------------------------ free list
     def free_pages(self) -> int:

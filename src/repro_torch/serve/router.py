@@ -30,10 +30,10 @@ from repro_torch.serve.engine import Engine, SamplingParams, ServeConfig
 
 
 def default_extra_inputs(cfg) -> Dict[str, Any]:
-    """Family-dependent synthetic side inputs.  The dense, ssm and hybrid
-    families need none; the vlm and encdec inputs come with those
+    """Family-dependent synthetic side inputs.  The dense, moe, ssm and
+    hybrid families need none; the vlm and encdec inputs come with those
     families."""
-    if cfg.family not in ("dense", "ssm", "hybrid"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     return {}
 

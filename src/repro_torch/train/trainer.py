@@ -87,6 +87,14 @@ class Trainer:
     def state(self) -> Dict[str, Any]:
         return {"params": self.params, "opt": self.opt_state}
 
+    def close(self) -> None:
+        """Drop the trainer's AGAS record, which otherwise holds its params
+        and moments for the life of the process.  Trainers of one arch
+        bind the same name, hence the same record: closing either drops it."""
+        reg = _agas.default()
+        if reg.contains(self.gid):
+            reg.unregister(self.gid)
+
     # ------------------------------------------------------------------ fit
     def fit(self, steps: Optional[int] = None) -> List[Dict[str, float]]:
         steps = steps or self.tcfg.steps

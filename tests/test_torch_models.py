@@ -2,6 +2,11 @@
 smoke config, on the reference's own params carried across by
 ``from_reference``.  The reference runs once with ``attn_impl="pallas"``
 (its flash/paged kernels in interpret mode) and once with ``"xla"``.
+For every ported smoke config, the full forward and the loss are held
+against the reference's in fp32, and the ports of
+``test_models_smoke.py``'s shape test and ``test_models_consistency.py``'s
+prefill/decode-vs-forward tests hold the port against its own full
+forward.
 
 Tolerances: fp32 1e-4 — the same math in another summation order, with
 fp32 softmax on both sides (the xla path's own fp32 einsums differ from
@@ -21,11 +26,15 @@ import torch
 
 from repro.configs import get_config as ref_config
 from repro.dist.plan import get_plan
+from repro.models import hybrid as RH
 from repro.models import layers as RL
+from repro.models import ssm_lm as RS
 from repro.models import transformer as RT
 from repro.models.model import build_model as ref_build
 from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.models import hybrid as TH
 from repro_torch.models import layers as TL
+from repro_torch.models import ssm_lm as TS
 from repro_torch.models import transformer as TT
 from repro_torch.models.model import build_model
 from repro_torch.models.params import from_reference
@@ -193,8 +202,10 @@ def test_forward_prefill_decode_match(ref_params, impl, dtype):
     tok = rng.integers(1, tcfg.vocab_size, size=(2, 1)).astype(np.int32)
     rcache = {"k": jnp.asarray(pools[0], rcfg.dtype), "v": jnp.asarray(pools[1], rcfg.dtype),
               "page_table": jnp.asarray(pt), "pos": jnp.asarray(pos)}
-    tcache = {"k": torch.from_numpy(pools[0]).to(getattr(torch, dtype)),
-              "v": torch.from_numpy(pools[1]).to(getattr(torch, dtype)),
+    # the port writes the new K/V into its pools in place: its own copies,
+    # since jnp.asarray may share the numpy buffer with the reference's step
+    tcache = {"k": torch.from_numpy(pools[0].copy()).to(getattr(torch, dtype)),
+              "v": torch.from_numpy(pools[1].copy()).to(getattr(torch, dtype)),
               "page_table": torch.from_numpy(pt), "pos": torch.from_numpy(pos)}
     rlog, rnew = RT.decode_step_paged(rcfg, PLAN, rp, rcache, jnp.asarray(tok))
     tlog, tnew = TT.decode_step_paged(tcfg, tp, tcache, torch.from_numpy(tok))
@@ -296,3 +307,88 @@ def test_arch_prefill_decode_shapes(arch):
     # padded vocab columns are masked: argmax must stay within real vocab
     assert int(logits2.argmax(-1).max()) < cfg.vocab_size
     assert cache2["pos"].tolist() == [S + 1] * B
+
+
+def _forward(cfg, params, tokens):
+    """The port's full forward of ``cfg``'s family → logits (B, S, V)."""
+    mod = {"ssm": TS, "hybrid": TH}.get(cfg.family, TT)
+    with torch.inference_mode():
+        return mod.forward(cfg, params, tokens)[0]
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_prefill_then_decode_matches_forward(arch):
+    """test_models_consistency.py: prefill + one decode step reproduce the
+    full forward's next-token logits, for every ported smoke config in its
+    compute dtype (bf16) and the reference's limit 0.05.  The MoE configs
+    run with capacity 64, so that nothing drops: capacity drops are the
+    one legitimate divergence (test_torch_moe.py)."""
+    cfg = get_config(arch, smoke=True)
+    if cfg.is_moe:
+        cfg = replace(cfg, capacity_factor=64.0)
+    model = build_model(cfg, device="cpu")
+    params = model.compute_params(model.init(0))
+    B, S = 2, 32
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, size=(B, S + 1)))
+    with torch.inference_mode():
+        logits_p, cache = model.prefill(params, {"tokens": tokens[:, :S]}, cache_len=S + 8)
+        err_p = float((logits_p - _forward(cfg, params, tokens[:, :S])[:, -1]).abs().max())
+        assert err_p < 0.05, f"{arch} prefill mismatch {err_p}"
+        logits_d, _ = model.decode(params, cache, tokens[:, S:S + 1])
+        err_d = float((logits_d - _forward(cfg, params, tokens)[:, -1]).abs().max())
+    assert err_d < 0.05, f"{arch} decode mismatch {err_d}"
+
+
+def test_multi_step_decode_matches_forward():
+    """test_models_consistency.py: 4 tokens decoded one at a time equal the
+    forward over the grown sequence (qwen25_3b: GQA with QKV bias)."""
+    cfg = get_config("qwen25_3b", smoke=True)
+    model = build_model(cfg, device="cpu")
+    params = model.compute_params(model.init(0))
+    B, S, N = 2, 16, 4
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, size=(B, S + N)))
+    with torch.inference_mode():
+        _, cache = model.prefill(params, {"tokens": tokens[:, :S]}, cache_len=S + N + 2)
+        for t in range(N):
+            logits, cache = model.decode(params, cache, tokens[:, S + t:S + t + 1])
+            full = _forward(cfg, params, tokens[:, :S + t + 1])[:, -1]
+            err = float((logits - full).abs().max())
+            assert err < 0.05, f"step {t}: {err}"
+
+
+NORM_SCALES = ("ln1", "ln2", "ln", "gate_ln", "final_ln")
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_arch_forward_and_loss_match_reference(arch):
+    """Every ported smoke config's logits and loss against the reference's,
+    fp32, on the reference's params carried across by ``from_reference``
+    (norm scales and QKV biases made non-trivial): granite_34b's single KV
+    head, qwen25_3b's QKV bias with RMSNorm, SwiGLU and RoPE theta 1e6,
+    the MoE configs' routing, drops and aux loss among them.  Limit 1e-4,
+    as the dense decoder's above."""
+    rcfg = replace(ref_config(arch, smoke=True), dtype="float32")
+    tcfg = replace(get_config(arch, smoke=True), dtype="float32")
+    rmodel = ref_build(rcfg, PLAN)
+    rng = np.random.default_rng(5)
+    flat = {k: np.asarray(v, np.float32) for k, v in rmodel.init(jax.random.PRNGKey(1)).items()}
+    for k, v in flat.items():
+        if k.split("/")[-1] in NORM_SCALES:
+            flat[k] = 1.0 + 0.1 * rng.standard_normal(v.shape).astype(np.float32)
+        elif k.split("/")[-1] in ("bq", "bk", "bv"):
+            flat[k] = 0.1 * rng.standard_normal(v.shape).astype(np.float32)
+    rp = {k: jnp.asarray(v) for k, v in flat.items()}
+    tp = from_reference(flat, tcfg, "cpu")
+    toks = rng.integers(0, tcfg.vocab_size, size=(2, 25)).astype(np.int32)
+    rmod = {"ssm": RS, "hybrid": RH}.get(rcfg.family, RT)
+    rl = rmod.forward(rcfg, PLAN, rp, jnp.asarray(toks[:, :-1]))[0]
+    tl = _forward(tcfg, tp, torch.from_numpy(toks[:, :-1]))
+    V = tcfg.vocab_size
+    assert tl.shape == (2, 24, tcfg.padded_vocab) and tl.dtype == torch.float32
+    _close(tl[..., :V], rl[..., :V], LOGIT_ATOL["float32"])
+    rloss = rmodel.loss(rp, {"tokens": jnp.asarray(toks)})
+    with torch.inference_mode():
+        tloss = build_model(tcfg, device="cpu").loss(tp, {"tokens": torch.from_numpy(toks)})
+    assert abs(float(tloss) - float(rloss)) <= ATOL["float32"], (float(tloss), float(rloss))

@@ -512,3 +512,106 @@ def test_attention_gradient_reaches_the_projections():
     grads = torch.autograd.grad(out.square().sum(), [lp[n] for n in names])
     for n, g in zip(names, grads):
         assert g.abs().max() > 0, n
+
+
+# -------------------------------------------------- the scans' trainable ops
+def _grads(fn, inputs, w):
+    """Gradients of Σ w·fn(inputs) wrt every input, fp32, detached."""
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+    out = fn(*leaves)
+    return [g.float() for g in torch.autograd.grad((out.float() * w).sum(), leaves)]
+
+
+def _rglru_draw(B, S, W, seed):
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(0.5, 1.0, (B, S, W)).astype(np.float32)
+    b = rng.standard_normal((B, S, W)).astype(np.float32)
+    w = rng.standard_normal((B, S, W)).astype(np.float32)
+    return torch.from_numpy(a), torch.from_numpy(b), torch.from_numpy(w)
+
+
+@pytest.mark.parametrize("B,S,W", [(1, 1, 8), (2, 5, 16), (1, RGLRU_CHUNK + 7, 33), (3, 200, 4)])
+def test_rglru_scan_trainable_backward_matches_autograd(B, S, W):
+    """The reversed-scan backward (g_t = dh_t + a_{t+1}·g_{t+1}; db = g,
+    da_t = g_t·h_{t−1}) against autograd through the plain sequential
+    version, and the reference's jax.grad of its associative scan; the
+    forward equals ops.rglru_scan."""
+    import jax
+
+    from repro.models import rglru as RR
+
+    a, b, w = _rglru_draw(B, S, W, S)
+    with torch.no_grad():
+        torch.testing.assert_close(ops.rglru_scan_trainable(a, b), ops.rglru_scan(a, b),
+                                   atol=0, rtol=0)
+    got = _grads(ops.rglru_scan_trainable, (a, b), w)
+    want = _grads(ref.rglru, (a, b), w)
+    jwant = jax.grad(lambda a_, b_: (RR.rglru_scan(a_, b_) * jnp.asarray(w.numpy())).sum(),
+                     argnums=(0, 1))(jnp.asarray(a.numpy()), jnp.asarray(b.numpy()))
+    for g, e, j in zip(got, want, jwant):
+        _close(g, e.numpy(), 1e-5, 1e-5)
+        _close(g, j, 1e-4, 1e-5)
+
+
+def _ssd_draw(B, S, H, P, G, N, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, S, H, P)).astype(np.float32)
+    dt = rng.uniform(0.01, 0.1, (B, S, H)).astype(np.float32)
+    A = -rng.uniform(0.5, 2.0, (H,)).astype(np.float32)
+    Bm = rng.standard_normal((B, S, G, N)).astype(np.float32)
+    Cm = rng.standard_normal((B, S, G, N)).astype(np.float32)
+    w = rng.standard_normal((B, S, H, P)).astype(np.float32)
+    return [torch.from_numpy(t) for t in (x, dt, A, Bm, Cm)], torch.from_numpy(w)
+
+
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", [(1, 16, 2, 8, 1, 4, 16),
+                                               (2, 37, 4, 8, 2, 8, 16),
+                                               (1, 5, 3, 4, 1, 8, 8)])
+def test_ssd_scan_trainable_backward_matches_autograd(B, S, H, P, G, N, chunk):
+    """The backward (autograd through the plain chunked form, recomputed)
+    against autograd through the sequential oracle and the reference's
+    jax.grad of its ``ssd_chunked``, for x, dt, A, Bm and Cm; with the
+    final state asked for, it comes back without a gradient."""
+    import jax
+
+    from repro.models import ssm as RS
+
+    inputs, w = _ssd_draw(B, S, H, P, G, N, S)
+    scan = lambda *t: ops.ssd_scan_trainable(*t, chunk=chunk)  # noqa: E731
+    got = _grads(scan, inputs, w)
+    want = _grads(lambda *t: ref.ssd(*t)[0], inputs, w)
+    jwant = jax.grad(lambda *t: (RS.ssd_chunked(*t, chunk)[0] * jnp.asarray(w.numpy())).sum(),
+                     argnums=(0, 1, 2, 3, 4))(*(jnp.asarray(t.numpy()) for t in inputs))
+    for g, e, j in zip(got, want, jwant):
+        scale = float(e.abs().max())
+        _close(g, e.numpy(), 1e-5 * scale)
+        _close(g, j, 1e-5 * scale)
+    leaves = [t.clone().requires_grad_() for t in inputs]
+    y, state = ops.ssd_scan_trainable(*leaves, chunk=chunk, return_final_state=True)
+    assert y.requires_grad and not state.requires_grad
+    with torch.no_grad():
+        y0, s0 = ops.ssd_scan(*inputs, chunk=chunk, return_final_state=True)
+    torch.testing.assert_close(y.detach(), y0, atol=0, rtol=0)
+    torch.testing.assert_close(state, s0, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk,steep", [(1, 16, 2, 8, 1, 4, 16, False),
+                                                     (2, 37, 4, 8, 2, 8, 16, False),
+                                                     (1, 5, 3, 4, 1, 8, 8, False),
+                                                     (1, 300, 6, 16, 2, 8, 64, False),
+                                                     (1, 100, 2, 4, 1, 4, 16, True)])
+def test_ssd_scan_plain_pads_and_carries_like_the_oracle(B, S, H, P, G, N, chunk, steep):
+    """The plain version takes every chunk at once: S on a chunk edge,
+    ragged (padded with inert dt = 0 steps) and below one chunk; the state
+    carried across chunks by exp of summed chunk totals, also where every
+    step decays by e⁻⁶⁰ (the totals reach −960 a chunk).  y and the final
+    state against the sequential oracle."""
+    inputs, _ = _ssd_draw(B, S, H, P, G, N, S + 1)
+    if steep:
+        inputs[1] = torch.full_like(inputs[1], 60.0)
+        inputs[2] = -torch.ones_like(inputs[2])
+    y, state = ssd_scan_plain(*inputs, chunk=chunk, return_final_state=True)
+    assert y.shape == (B, S, H, P) and state.shape == (B, H, P, N)
+    want_y, want_state = ref.ssd(*inputs)
+    _close(y, want_y.numpy(), 2e-5, 1e-5)
+    _close(state, want_state.numpy(), 2e-5, 1e-5)

@@ -316,3 +316,22 @@ def test_engine_with_serve_plan(port_rt, served):
     eng2 = _engine(model2, params, max_batch=2, cache_len=64, max_new_tokens=4)
     p = [9, 8, 7, 6]
     assert eng1.submit(p).get(timeout=300) == eng2.submit(p).get(timeout=300)
+
+
+@pytest.mark.parametrize("paged", [True, False])
+def test_engine_close_drops_its_agas_record(port_rt, served, paged):
+    """A paged engine's pools stay AGAS-registered (and alive) until the
+    engine is closed; closing twice, or a dense-slot engine, is harmless."""
+    from repro_torch.core import agas
+
+    cfg, model, params, _ = served
+    eng = _engine(model, params, max_batch=2, cache_len=32, max_new_tokens=2,
+                  paged=paged, name=f"close{int(paged)}#0")
+    assert len(eng.submit([5, 4, 3]).get(timeout=300)) == 3
+    if paged:
+        gid = eng.kv.gid
+        assert agas.default().resolve(gid) is eng.kv.pools
+    eng.close()
+    eng.close()
+    if paged:
+        assert not agas.default().contains(gid)

@@ -1,6 +1,10 @@
 """The port's training path on the CPU against the reference: the
 starcoder2_3b smoke model's loss and every gradient (the reference's
-``jax.value_and_grad(model.loss)``, its flash path in interpret mode), the
+``jax.value_and_grad(model.loss)``, its flash path in interpret mode) and
+those of the mamba2_780m, recurrentgemma_2b, granite_moe_3b_a800m and
+deepseek_moe_16b smoke models (fp32: loss within 1e-5, each gradient
+within 1e-4 of that tensor's largest), one train step of every ported
+smoke config, the
 AdamW update and schedule, the plans (registry, bsp ≡ futurized, remat
 none ≡ full ≡ dots, microbatching ≡ full batch, bf16 cotangents), the
 synthetic token stream, the trainer and the launcher.
@@ -33,9 +37,10 @@ from repro.dist import plan as rplan
 from repro.models import layers as RL
 from repro.models.model import build_model as ref_build
 from repro.optim import adamw as radamw
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.data import pipeline as tpipe
 from repro_torch.dist import plan as tplan
+from repro_torch.kernels import ops
 from repro_torch.models import layers as TL
 from repro_torch.models.model import Model, build_model
 from repro_torch.models.params import from_reference
@@ -130,10 +135,77 @@ def test_grads_with_padded_vocab_match_reference():
 
 
 def test_recurrent_families_refuse_to_train():
-    for arch, scan in (("mamba2_780m", "ssd_scan"), ("recurrentgemma_2b", "rglru_scan")):
-        model = Model(get_config(arch, smoke=True), "cpu")
-        with pytest.raises(NotImplementedError, match=scan):
-            model.loss(model.init(0), {"tokens": torch.zeros(1, 9, dtype=torch.int32)})
+    """The bare scan wrappers, the families' only route before they had a
+    backward, still refuse autograd: a gradient through them would be lost
+    on the card.  The families train through the trainable ops instead
+    (``test_recurrent_families_train``)."""
+    x = torch.rand(1, 8, 2, 4, requires_grad=True)
+    with pytest.raises(RuntimeError, match="ssd_scan has no backward"):
+        ops.ssd_scan(x, x[..., 0], torch.zeros(2), x, x)
+    with pytest.raises(RuntimeError, match="rglru_scan has no backward"):
+        ops.rglru_scan(x[0], x[0])
+
+
+@pytest.mark.parametrize("arch", ["mamba2_780m", "recurrentgemma_2b"])
+def test_recurrent_families_train(arch):
+    """The recurrent families' loss has a finite value and a gradient for
+    every param, through ``ops.ssd_scan_trainable`` / ``rglru_scan_trainable``."""
+    model = Model(get_config(arch, smoke=True), "cpu")
+    params = model.init(0)
+    loss, grads = step_mod.value_and_grad(
+        model.loss, params, {"tokens": torch.arange(9, dtype=torch.int32)[None]})
+    assert torch.isfinite(loss)
+    assert set(grads) == set(params)
+
+
+# the families this slice trains, at their smoke configs in fp32: loss within
+# 1e-5 of the reference's, each gradient within 1e-4 of that tensor's largest
+FAMILY_ARCHS = ["mamba2_780m", "recurrentgemma_2b", "granite_moe_3b_a800m",
+                "deepseek_moe_16b"]
+FAMILY_LOSS_TOL = 1e-5
+FAMILY_GRAD_RTOL = 1e-4
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_loss_and_grads_match_reference(arch):
+    """The port's loss and autograd gradients (the scans' trainable ops;
+    the MoE aux loss through loss_fn) against the reference's
+    ``jax.value_and_grad(model.loss)``, fp32, on the reference's params."""
+    rcfg = replace(ref_config(arch, smoke=True), dtype="float32")
+    tcfg = replace(get_config(arch, smoke=True), dtype="float32")
+    rmodel = ref_build(rcfg, rplan.get_plan("futurized"))
+    flat = _ref_flat(rcfg)
+    rb, tb = _batch(rcfg)
+    rloss, rgrads = jax.jit(jax.value_and_grad(rmodel.loss))(
+        {k: jnp.asarray(v) for k, v in flat.items()}, rb)
+    tmodel = Model(tcfg, "cpu", plan=tplan.get_plan("futurized"))
+    tloss, tgrads = step_mod.value_and_grad(tmodel.loss, from_reference(flat, tcfg, "cpu"), tb)
+    assert abs(float(tloss) - float(rloss)) <= FAMILY_LOSS_TOL
+    assert set(tgrads) == set(rgrads)
+    for k, rg in rgrads.items():
+        rg = np.asarray(rg, np.float32)
+        scale = float(np.abs(rg).max())
+        assert scale > 0, k
+        np.testing.assert_allclose(tgrads[k].numpy(), rg, atol=FAMILY_GRAD_RTOL * scale,
+                                   rtol=0, err_msg=k)
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_remat_policies_give_equal_grads_over_the_families(arch):
+    """bsp (full remat) against futurized (none), and dots: the same ops on
+    the same inputs, through the scans' trainable ops and the MoE layer,
+    so the same loss and grads (on the CPU, bit for bit)."""
+    cfg = replace(get_config(arch, smoke=True), dtype="float32")
+    batch = tpipe.synth_batch(cfg, tpipe.DataConfig(batch_size=2, seq_len=24), 3)
+    params = Model(cfg, "cpu").init(0)
+    got = {}
+    for name, plan in (("futurized", tplan.futurized_plan()), ("bsp", tplan.bsp_plan()),
+                       ("dots", tplan.get_plan("futurized", remat_policy="dots"))):
+        got[name] = step_mod.value_and_grad(Model(cfg, "cpu", plan=plan).loss, params, batch)
+    for name in ("bsp", "dots"):
+        assert float(got[name][0]) == float(got["futurized"][0])
+        for k, g in got["futurized"][1].items():
+            torch.testing.assert_close(got[name][1][k], g, atol=0, rtol=0, msg=k)
 
 
 # ------------------------------------------------------------------- plans
@@ -242,8 +314,12 @@ def test_adamw_update_matches_reference():
         grads = {k: gscale * rng.standard_normal(s).astype(np.float32)
                  for k, s in shapes.items()}
         rp, rstate, rm = rupdate(rp, {k: jnp.asarray(g) for k, g in grads.items()}, rstate)
-        tp, tstate, tm = adamw.update(cfg, tp, {k: torch.from_numpy(g) for k, g in grads.items()},
-                                      tstate)
+        # the port gets its own copy of each gradient: adamw.update writes
+        # the grads it is given in place (the caller gives them up), and
+        # jnp.asarray may share g's buffer with the reference's update,
+        # which runs asynchronously
+        tp, tstate, tm = adamw.update(cfg, tp, {k: torch.from_numpy(g.copy())
+                                                for k, g in grads.items()}, tstate)
         assert int(tstate["step"]) == int(rstate["step"]) == step + 1
         assert tstate["step"].dtype == torch.int32
         np.testing.assert_allclose(float(tm["grad_norm"]), float(rm["grad_norm"]), rtol=1e-6)
@@ -270,6 +346,27 @@ def test_smoke_train_step_keeps_shapes_and_finite_values():
     """The reference's ``test_arch_smoke_forward_and_train_step`` for the
     dense smoke config."""
     cfg = get_config("starcoder2_3b", smoke=True)
+    model = Model(cfg, "cpu")
+    params = model.init(0)
+    shapes = {k: v.shape for k, v in params.items()}
+    batch = tpipe.synth_batch(cfg, tpipe.DataConfig(batch_size=2, seq_len=16), 0)
+    loss = model.loss(params, batch)
+    assert loss.shape == () and torch.isfinite(loss)
+    p2, o2, m = step_mod.make_train_step(model, adamw.AdamWConfig(lr=1e-3))(
+        params, adamw.init(params), batch)
+    assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"])
+    assert int(o2["step"]) == 1
+    for k, v in p2.items():
+        assert v.shape == shapes[k] and v.dtype == torch.float32, k
+        assert torch.isfinite(v).all(), k
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_arch_smoke_forward_and_train_step(arch):
+    """The reference's ``test_arch_smoke_forward_and_train_step`` for every
+    ported smoke config: a finite loss, then one step that keeps every
+    param's shape and dtype and finite values."""
+    cfg = get_config(arch, smoke=True)
     model = Model(cfg, "cpu")
     params = model.init(0)
     shapes = {k: v.shape for k, v in params.items()}
@@ -340,6 +437,44 @@ def test_loss_decreases_over_training(port_rt):
     assert hist[-1]["loss"] < hist[0]["loss"]
     assert agas.default().resolve(f"/train/state/{cfg.name}")["params"] is tr.params
     assert tr.t_step.count - logged == 4 and tr.c_steps.get_value() - steps == 40
+
+
+def test_trainer_close_drops_its_agas_record(port_rt):
+    """The trainer's params and moments stay AGAS-registered until it is
+    closed; closing twice is harmless."""
+    from repro_torch.core import agas
+
+    cfg = get_config("starcoder2_3b", smoke=True)
+    tr = Trainer(build_model(cfg, "cpu"), adamw.AdamWConfig(),
+                 tpipe.DataConfig(batch_size=1, seq_len=8), TrainConfig(steps=1),
+                 device="cpu")
+    assert agas.default().resolve(tr.gid)["params"] is tr.params
+    tr.close()
+    tr.close()
+    assert not agas.default().contains(tr.gid)
+    assert not agas.default().contains(f"/train/state/{cfg.name}")
+
+
+def test_launch_train_grows_cuda_segments_in_place():
+    """The launcher asks the CUDA allocator for expandable segments before
+    CUDA starts; a caller's own setting wins."""
+    script = (
+        "import os, sys\n"
+        "from repro_torch.launch import train\n"
+        "sys.argv = ['train', '--arch', 'starcoder2_3b', '--smoke', '--device', 'cpu',"
+        " '--steps', '1', '--batch', '1', '--seq', '8', '--log-every', '1']\n"
+        "train.main()\n"
+        "print(os.environ['PYTORCH_CUDA_ALLOC_CONF'])\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTORCH_CUDA_ALLOC_CONF"}
+    env["PYTHONPATH"] = str(ROOT / "src")
+    for given, want in ((None, "expandable_segments:True"),
+                        ("max_split_size_mb:512", "max_split_size_mb:512")):
+        r = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
+                           env={**env, **({"PYTORCH_CUDA_ALLOC_CONF": given} if given else {})},
+                           timeout=120)
+        assert r.returncode == 0, r.stderr
+        lines = r.stdout.splitlines()
+        assert json.loads(lines[0])["step"] == 1 and lines[-1] == want
 
 
 def test_trainer_refuses_a_model_on_another_device():
