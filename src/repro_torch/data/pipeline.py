@@ -6,11 +6,12 @@ reproduce it) with the reference's draws, so a batch is bit-equal to the
 reference's; host-side batch assembly on the resource partitioner's "io"
 pool; a prefetch window so batch i+1 is built while the device runs step
 i.  The trainer consumes ``Future[batch]``s; batches are CPU tensors and
-the train step moves them to the model's device.
+the train step moves every field to the model's device.  The vlm family's
+batches carry ``patches`` (B, n_patches, D) and the encdec family's
+``enc`` (B, seq_len, D), the stub frontends' embeddings, in bf16.
 
-The families with extra batch fields (VLM patches, enc-dec frames) and
-the locality-sharded dataset (``ShardedTokenDataset``,
-``LocalShardFeeder``) come with their slices.
+The locality-sharded dataset (``ShardedTokenDataset``,
+``LocalShardFeeder``) comes with the multi-locality slice.
 """
 
 from __future__ import annotations
@@ -38,8 +39,12 @@ class DataConfig:
 
 def synth_batch(cfg: ModelConfig, dcfg: DataConfig, step: int) -> Dict[str, torch.Tensor]:
     """Deterministic synthetic batch for ``step``: ``tokens`` (B, S+1)
-    int32 on the CPU.  The stream has learnable structure (a noisy cyclic
-    grammar) so the train loss falls below the uniform entropy floor."""
+    int32 on the CPU, and the vlm family's ``patches`` or the encdec
+    family's ``enc``: standard normal draws from the same generator after
+    the tokens', cast to bf16 as the reference casts them (round to
+    nearest even, so bit-equal).  The stream has learnable structure (a
+    noisy cyclic grammar) so the train loss falls below the uniform
+    entropy floor."""
     rng = np.random.default_rng(dcfg.seed * 1_000_003 + step)
     B, S = dcfg.batch_size, dcfg.seq_len + 1
     V = cfg.vocab_size
@@ -49,7 +54,15 @@ def synth_batch(cfg: ModelConfig, dcfg: DataConfig, step: int) -> Dict[str, torc
     noise = rng.integers(0, V, size=(B, S))
     keep = rng.random((B, S)) < 0.85  # 85% grammar, 15% noise
     tokens = np.where(keep, base, noise).astype(np.int32)
-    return {"tokens": torch.from_numpy(tokens)}
+    batch = {"tokens": torch.from_numpy(tokens)}
+    if cfg.family == "vlm":
+        batch["patches"] = rng.standard_normal((B, cfg.n_patches, cfg.d_model))
+    if cfg.family == "encdec":
+        batch["enc"] = rng.standard_normal((B, dcfg.seq_len, cfg.d_model))
+    for k in ("patches", "enc"):
+        if k in batch:
+            batch[k] = torch.from_numpy(batch[k].astype(np.float32)).to(torch.bfloat16)
+    return batch
 
 
 class Prefetcher:

@@ -1,9 +1,13 @@
 """Serving launcher: batched requests through the continuous-batching
 serving stack (engine replicas behind the least-loaded router), in one
-process, on the GPU unless ``--device cpu`` is given.  The dense and moe
-families serve from the paged cache; ``--no-paged --no-pipeline`` is the
-seed's baseline (dense per-slot cache, inline prefill).  The ssm and
-hybrid families always serve from dense slots.  The params are made one
+process, on the GPU unless ``--device cpu`` is given.  The dense, moe and
+vlm families serve from the paged cache; ``--no-paged --no-pipeline`` is
+the seed's baseline (dense per-slot cache, inline prefill).  The ssm,
+hybrid and encdec families always serve from dense slots.  The vlm and
+encdec families get the reference's synthetic side inputs
+(``default_extra_inputs``: zero patches, 64 zero encoder frames).  As in
+the reference, the prompts are 4–31 tokens, so a vlm request shorter than
+its ``n_patches`` image positions fails with ``ValueError``.  The params are made one
 tensor at a time in the compute dtype (``Model.init_compute``), so the
 fp32 masters of a large model never exist together.
 
@@ -14,6 +18,10 @@ Examples:
       --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek_moe_16b \\
       --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper_small \\
+      --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2_2b \\
+      --smoke --device cpu --requests 6
   PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2_3b \\
       --smoke --device cpu --no-paged --no-pipeline
   PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2_3b \\
@@ -74,7 +82,7 @@ def main() -> None:
                            pipeline_admission=not args.no_pipeline)
         params = model.init_compute(args.seed)
         router = Router.replicate(model, params, scfg, args.engines,
-                                  extra_inputs=default_extra_inputs(cfg),
+                                  extra_inputs=default_extra_inputs(cfg, model.device),
                                   device=model.device)
         del params  # the engines hold their compute-dtype copy
         sampling = SamplingParams(temperature=args.temperature,

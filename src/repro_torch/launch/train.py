@@ -11,9 +11,13 @@ Examples:
       --steps 6 --batch 2 --seq 512 --log-every 1
   PYTHONPATH=src python -m repro_torch.launch.train --arch granite_moe_3b_a800m \\
       --smoke --device cpu --steps 6 --batch 2 --seq 32 --log-every 3
+  PYTHONPATH=src python -m repro_torch.launch.train --arch whisper_small \\
+      --smoke --device cpu --steps 6 --batch 2 --seq 32 --log-every 3
 
-Every ported family trains: dense, moe (its router aux loss in the
-objective), ssm and hybrid (their scans through the trainable ops).
+Every family trains: dense, moe (its router aux loss in the objective),
+vlm (no loss on the image positions), ssm and hybrid (their scans
+through the trainable ops) and encdec (the encoder over ``enc`` frames,
+one per decoder position, as the reference's synthetic batches carry).
 
 The reference's fleet, trace-export, metrics and timeline flags
 (``--localities``, ``--sharded-rows``, ``--trace``, ``--print-counters``,

@@ -1,7 +1,7 @@
 """Shared model primitives: norms, RoPE, GQA attention (prefill, dense and
-paged decode), MLPs, embeddings, cross-entropy, the bf16 cotangent
-boundary and remat — ported from the reference's ``models/layers.py`` for
-the dense decoder family.
+paged decode, the enc-dec decoder's cross-attention), MLPs, embeddings,
+sinusoidal positions, cross-entropy, the bf16 cotangent boundary and
+remat — ported from the reference's ``models/layers.py``.
 
 Compute dtype is ``cfg.dtype``; norms, RoPE, softmax and logits work in
 fp32, as in the reference.  The reference casts each fp32 param to the
@@ -23,6 +23,7 @@ from __future__ import annotations
 import functools
 from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
@@ -164,6 +165,17 @@ def attention(cfg: ModelConfig, x: torch.Tensor, p: Params, prefix: str,
     return out
 
 
+def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
+    """The reference's unmasked ``_sdpa`` in plain PyTorch: q (B,Sq,KV,G,Dh),
+    k/v (B,T,KV,Dh) → (B,Sq,KV,G,Dh).  fp32 scores (products of the
+    compute dtype are exact in fp32), fp32 softmax, P cast to v's dtype
+    for P·V.  The reference computes the enc-dec cross-attention so, in
+    XLA and in no Pallas kernel; no kernel of the port replaces it."""
+    s = torch.einsum("bqkgd,btkd->bkgqt", q.float(), k.float()) * scale
+    pr = torch.softmax(s, dim=-1)
+    return torch.einsum("bkgqt,btkd->bqkgd", pr.to(v.dtype), v)
+
+
 # ------------------------------------------------------------- decode attn
 def _decode_qkv(cfg: ModelConfig, x: torch.Tensor, p: Params, prefix: str,
                 pos: torch.Tensor):
@@ -181,7 +193,8 @@ def _decode_qkv(cfg: ModelConfig, x: torch.Tensor, p: Params, prefix: str,
 
 def decode_attention(cfg: ModelConfig, x: torch.Tensor, p: Params, prefix: str,
                      k_cache: torch.Tensor, v_cache: torch.Tensor, pos: torch.Tensor,
-                     window: int = 0) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                     window: int = 0, cross: bool = False
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One-token attention against a dense KV cache, per-slot positions.
 
     x: (B, 1, D); k_cache/v_cache: (B, T, KV, Dh); pos: (B,) int32, each
@@ -199,11 +212,19 @@ def decode_attention(cfg: ModelConfig, x: torch.Tensor, p: Params, prefix: str,
 
     The reference returns new caches (JAX arrays are immutable); the port
     writes the token into the caches in place and returns the same
-    tensors.  The reference's ``cross=True`` (attend to an encoder's
-    cache) comes with the encoder-decoder family.
+    tensors.  ``cross=True`` attends to a fixed encoder cache instead
+    (the enc-dec decoder's cross-attention, weights ``{prefix}wq`` etc.):
+    no cache write, RoPE on q only, and every row over all T positions.
     Returns (out (B,1,D), k_cache, v_cache).
     """
     B, T = x.shape[0], k_cache.shape[1]
+    if cross:
+        q = _proj(cfg, x, p, prefix, "q").reshape(B, cfg.num_heads, cfg.head_dim)
+        if cfg.rope:
+            q = _rope_single(cfg, q, pos)
+        lengths = torch.full((B,), T, dtype=torch.int32, device=x.device)
+        o = ops.decode_attention(q, k_cache, v_cache, lengths)
+        return o.reshape(B, 1, -1) @ p[f"{prefix}wo"].to(cdtype(cfg)), k_cache, v_cache
     q, k, v = _decode_qkv(cfg, x, p, prefix, pos)
     pos_l = pos.long()
     slot = pos_l % T if window > 0 else pos_l.clamp_max(T - 1)
@@ -313,3 +334,19 @@ def remat_wrap(plan: Optional[ShardingPlan], fn: Callable) -> Callable:
         return checkpoint(fn, *args, use_reentrant=False, **kw)
 
     return wrapped
+
+
+@functools.lru_cache(maxsize=8)
+def _sinusoids(n: int, d: int) -> np.ndarray:
+    half = d // 2
+    freqs = np.exp(-np.log(10000.0) * np.arange(half) / max(half - 1, 1))
+    ang = np.arange(n)[:, None] * freqs[None, :]
+    out = np.concatenate([np.sin(ang), np.cos(ang)], axis=1).astype(np.float32)
+    out.flags.writeable = False
+    return out
+
+
+def sinusoidal_positions(n: int, d: int, device=None) -> torch.Tensor:
+    """Whisper-style sinusoidal embeddings (n, d) fp32 on ``device``: the
+    reference's numpy (fp64, then cast), so bit-equal to it."""
+    return torch.tensor(_sinusoids(n, d), device=device)

@@ -1,5 +1,5 @@
 """Model facade of the port, ported from the reference's ``models/model.py``
-for the dense, moe, ssm and hybrid families.
+for all six families: dense, moe, vlm, ssm, hybrid and encdec.
 
 ``Model(cfg, device=None, *, plan=None)`` runs on ``cuda`` unless the
 caller passes ``device="cpu"``; asking for CUDA where there is none
@@ -10,7 +10,7 @@ step's plan: its remat policy and bf16 boundaries.
     loss(params, batch)                             train objective
     prefill(params, inputs, cache_len, valid_len)   → (last logits, cache)
     decode(params, cache, token)                    → (logits, new cache)
-    cache_specs(batch, cache_len) / init_cache(batch, cache_len)
+    cache_specs(batch, cache_len, enc_len) / init_cache(batch, cache_len, enc_len)
     decode_paged(params, cache, token)              → (logits, new cache)
     paged_cache_specs(num_pages, page_size, max_batch, max_pages_per_req)
 """
@@ -25,7 +25,7 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist.plan import ShardingPlan, get_plan
-from repro_torch.models import hybrid, ssm_lm, transformer
+from repro_torch.models import encdec, hybrid, ssm_lm, transformer
 from repro_torch.models.params import ParamSpec, TensorSpec, init_params
 
 Params = Dict[str, torch.Tensor]
@@ -34,17 +34,19 @@ Params = Dict[str, torch.Tensor]
 _FAMILIES = {
     "dense": (transformer, transformer.decoder_param_specs),
     "moe": (transformer, transformer.decoder_param_specs),
+    "vlm": (transformer, transformer.decoder_param_specs),
     "ssm": (ssm_lm, ssm_lm.lm_param_specs),
     "hybrid": (hybrid, hybrid.hybrid_param_specs),
+    "encdec": (encdec, encdec.encdec_param_specs),
 }
 
 
 def param_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     """The param specs of ``cfg``'s family; a family the port does not
-    serve yet raises ``NotImplementedError`` naming it."""
+    know raises ``NotImplementedError`` naming it."""
     if cfg.family not in _FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ported: {sorted(_FAMILIES)})")
+            f"family {cfg.family!r} is not ported (ported: {sorted(_FAMILIES)})")
     return _FAMILIES[cfg.family][1](cfg)
 
 
@@ -81,25 +83,32 @@ class Model:
 
     # ----------------------------------------------------------------- train
     def loss(self, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """The train objective on ``batch`` (tokens on the model's device):
-        next-token cross-entropy, plus ``router_aux_weight`` times the MoE
-        aux loss for the moe family."""
+        """The train objective on ``batch`` (its fields on the model's
+        device: ``tokens``, and the vlm family's ``patches`` or the encdec
+        family's ``enc``): next-token cross-entropy, plus
+        ``router_aux_weight`` times the MoE aux loss for the moe family."""
         return self._m.loss_fn(self.cfg, self.plan, params, batch)
 
     # ----------------------------------------------------------------- serve
     def prefill(self, params: Params, inputs: Dict[str, torch.Tensor],
                 cache_len: Optional[int] = None,
                 valid_len: Optional[torch.Tensor] = None):
-        """``cache_len`` sizes the dense family's KV cache (the SSM state
-        and the hybrid's ring do not grow with it).  ``valid_len`` supports
+        """``inputs``: ``tokens``, and the vlm family's ``patches`` or the
+        encdec family's ``enc`` (the encoder's frames).  ``cache_len``
+        sizes the KV cache of the decoder families (the SSM state and the
+        hybrid's ring do not grow with it).  ``valid_len`` supports
         right-padded prompts (the serve engine's bucketed admission):
-        dense and moe families only, as in the reference."""
+        dense, moe and vlm families only, as in the reference."""
         if self._m is transformer:
             return transformer.prefill(self.cfg, params, inputs["tokens"],
-                                       cache_len=cache_len, valid_len=valid_len)
+                                       cache_len=cache_len, valid_len=valid_len,
+                                       patches=inputs.get("patches"))
         if valid_len is not None:
             raise ValueError(f"family {self.cfg.family!r} prefills at the exact "
                              f"prompt length (no valid_len)")
+        if self._m is encdec:
+            return encdec.prefill(self.cfg, params, inputs["enc"], inputs["tokens"],
+                                  cache_len=cache_len)
         return self._m.prefill(self.cfg, params, inputs["tokens"])
 
     def decode(self, params: Params, cache: Dict[str, torch.Tensor],
@@ -108,18 +117,27 @@ class Model:
         (:meth:`cache_specs`); the cache's tensors are updated in place."""
         return self._m.decode_step(self.cfg, params, cache, token)
 
-    def cache_specs(self, batch: int, cache_len: int) -> Dict[str, TensorSpec]:
+    def cache_specs(self, batch: int, cache_len: int,
+                    enc_len: Optional[int] = None) -> Dict[str, TensorSpec]:
+        """``enc_len`` sizes the encdec family's cross-attention cache
+        (default ``cache_len``, as in the reference); other families
+        ignore it."""
+        if self._m is encdec:
+            return encdec.init_cache_specs(self.cfg, batch, cache_len, enc_len or cache_len)
         return self._m.init_cache_specs(self.cfg, batch, cache_len)
 
-    def init_cache(self, batch: int, cache_len: int) -> Dict[str, torch.Tensor]:
+    def init_cache(self, batch: int, cache_len: int,
+                   enc_len: Optional[int] = None) -> Dict[str, torch.Tensor]:
         """The family's cache as zeros on the model's device."""
         return {k: torch.zeros(s.shape, dtype=s.dtype, device=self.device)
-                for k, s in self.cache_specs(batch, cache_len).items()}
+                for k, s in self.cache_specs(batch, cache_len, enc_len).items()}
 
     @property
     def supports_paged(self) -> bool:
-        """Paged KV serving applies to families with a dense KV cache; the
-        ssm and hybrid families carry recurrent or ring-buffer state."""
+        """Paged KV serving applies to the decoder families with a dense KV
+        cache; the ssm and hybrid families carry recurrent or ring-buffer
+        state, the encdec family a fixed cross-attention cache beside its
+        self-attention's."""
         return self.cfg.family in ("dense", "moe", "vlm")
 
     def decode_paged(self, params: Params, cache: Dict[str, torch.Tensor],

@@ -1,4 +1,4 @@
-"""Decoder-only transformer, dense and MoE families — ported from the
+"""Decoder-only transformer, dense, MoE and VLM families — ported from the
 reference's ``models/transformer.py``.
 
 Per-layer params keep the reference's stacked layout (a leading ``L``
@@ -9,8 +9,10 @@ layer 0, with ``dense_d_ff``), then ``blk/``, whose FFN is the MoE layer
 (:mod:`repro_torch.models.moe`) for the MoE family and a dense MLP
 otherwise.  The training forward (:func:`forward`, :func:`loss_fn`) wraps
 each layer in the plan's remat policy, as the reference wraps its scan
-body, and sums the MoE layers' aux losses.  The VLM variant of the
-reference's decoder waits for a later slice.
+body, and sums the MoE layers' aux losses.  The VLM family is the dense
+decoder whose first ``cfg.n_patches`` positions take precomputed patch
+embeddings (the vision frontend is a stub, as in the reference) and carry
+no next-token loss.
 
 Two decode caches: the paged block pool (:func:`paged_cache_specs`) and
 the seed's dense per-slot cache (:func:`init_cache_specs`), each with
@@ -39,7 +41,7 @@ Params = Dict[str, torch.Tensor]
 # RG-LRU's gate weights, biases and Λ (``models/ssm.py``, ``rglru.py``);
 # every other param it casts to the compute dtype at each use.  ``unembed``
 # is no param of the reference: compute_params adds it, already converted
-FP32_PARAMS = frozenset({"ln", "ln1", "ln2", "gate_ln", "final_ln", "dt_bias",
+FP32_PARAMS = frozenset({"ln", "ln1", "ln2", "lnx", "gate_ln", "final_ln", "dt_bias",
                          "A_log", "lam", "w_a", "b_a", "w_i", "b_i", "unembed"})
 
 
@@ -75,7 +77,7 @@ def mlp_specs(cfg: ModelConfig, L: int, prefix: str, d_ff: int) -> Dict[str, Par
 
 
 def decoder_param_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
     D, V = cfg.d_model, cfg.padded_vocab
     specs: Dict[str, ParamSpec] = {
@@ -124,9 +126,17 @@ def compute_params(cfg: ModelConfig, params: Params) -> Params:
     Idempotent: the engine may get params the router already converted."""
     out = {k: cast_param(cfg, k, v) for k, v in params.items()}
     if "unembed" not in out:
-        table = out["tok_embed"] if cfg.tie_embeddings else out["lm_head"]
-        out["unembed"] = Lx.unembed_weight(cfg, table, transpose=cfg.tie_embeddings)
+        out["unembed"] = Lx.unembed_weight(cfg, *unembed_table(cfg, out))
     return out
+
+
+def unembed_table(cfg: ModelConfig, params: Params) -> Tuple[torch.Tensor, bool]:
+    """(the table the logits multiply by, transposed?): the token embedding
+    where it is tied (the enc-dec decoder always ties it), else
+    ``lm_head``."""
+    if cfg.tie_embeddings or cfg.family == "encdec":
+        return params["tok_embed"], True
+    return params["lm_head"], False
 
 
 # ------------------------------------------------------------------ blocks
@@ -170,20 +180,39 @@ def _layer_body(cfg: ModelConfig, x: torch.Tensor, lp: Params,
 def logits(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
     """The final norm and the unembedding: x (B,S,D) → logits fp32."""
     x = Lx.norm(cfg, x, params["final_ln"])
+    return unembed(cfg, params, x)
+
+
+def unembed(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
+    """x (B,S,D) → logits fp32 through ``params["unembed"]``, or through the
+    table itself where the params have not been through compute_params."""
     w = params.get("unembed")
     if w is None:  # the fp32 masters, not yet through compute_params
-        table = params["tok_embed"] if cfg.tie_embeddings else params["lm_head"]
-        w = Lx.unembed_weight(cfg, table, transpose=cfg.tie_embeddings)
+        w = Lx.unembed_weight(cfg, *unembed_table(cfg, params))
     return Lx.unembed(cfg, x, w)
+
+
+def splice_patches(cfg: ModelConfig, x: torch.Tensor,
+                   patches: Optional[torch.Tensor]) -> torch.Tensor:
+    """The VLM family's input: the patch embeddings (B, n_patches, D) over
+    the first ``n_patches`` positions of the token embeddings x (B, S, D);
+    x itself for the other families, or where no patches are given (a
+    prefill may leave them out, as in the reference)."""
+    if cfg.family != "vlm" or patches is None:
+        return x
+    return torch.cat([patches.to(x.dtype), x[:, cfg.n_patches:, :]], dim=1)
 
 
 # ------------------------------------------------------------------ forward
 def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
-            plan: Optional[ShardingPlan] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+            plan: Optional[ShardingPlan] = None,
+            patches: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens: (B, S) → (logits fp32 (B,S,V), aux_loss: the sum over the
-    MoE layers).  Each layer runs under the plan's remat policy
-    (``Lx.remat_wrap``)."""
-    x = Lx.embed(cfg, params["tok_embed"], tokens)
+    MoE layers).  The VLM family needs ``patches`` (B, n_patches, D).  Each
+    layer runs under the plan's remat policy (``Lx.remat_wrap``)."""
+    if cfg.family == "vlm" and patches is None:
+        raise ValueError("the vlm family needs patch embeddings")
+    x = splice_patches(cfg, Lx.embed(cfg, params["tok_embed"], tokens), patches)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for prefix, L, moe_layer in stacks(cfg):
@@ -198,15 +227,22 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 
 def loss_fn(cfg: ModelConfig, plan: ShardingPlan, params: Params,
             batch: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """Next-token loss: tokens[:, :-1] → logits, labels tokens[:, 1:]."""
+    """Next-token loss: tokens[:, :-1] → logits, labels tokens[:, 1:]; the
+    VLM family's image positions (the first ``n_patches``) carry none."""
     tokens = batch["tokens"]
-    lg, aux = forward(cfg, params, tokens[:, :-1], plan=plan)
-    return Lx.cross_entropy(lg, tokens[:, 1:]) + cfg.router_aux_weight * aux
+    lg, aux = forward(cfg, params, tokens[:, :-1], plan=plan, patches=batch.get("patches"))
+    labels = tokens[:, 1:]
+    mask = None
+    if cfg.family == "vlm":
+        pos = torch.arange(labels.shape[1], device=labels.device)
+        mask = (pos >= cfg.n_patches).float()[None, :].expand(labels.shape)
+    return Lx.cross_entropy(lg, labels, mask) + cfg.router_aux_weight * aux
 
 
 def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             cache_len: Optional[int] = None,
-            valid_len: Optional[torch.Tensor] = None
+            valid_len: Optional[torch.Tensor] = None,
+            patches: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Single-pass forward + KV-cache collection.
 
@@ -214,13 +250,14 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     (L, B, T, KV, Dh) and ``pos`` (B,)).  ``valid_len`` (scalar or (B,))
     supports right-padded prompts: logits are taken at ``valid_len - 1``
     and ``pos`` starts there; causality keeps the pad positions inert.
+    The VLM family's ``patches`` take the first ``n_patches`` positions.
     """
     B, S = tokens.shape
     T = cache_len or S
     if T < S:
         raise ValueError(f"cache_len {T} shorter than the prompt {S}")
     dev = tokens.device
-    x = Lx.embed(cfg, params["tok_embed"], tokens)
+    x = splice_patches(cfg, Lx.embed(cfg, params["tok_embed"], tokens), patches)
     positions = torch.arange(S, dtype=torch.int32, device=dev)
     dt = Lx.cdtype(cfg)
     cache = {}

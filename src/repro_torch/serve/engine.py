@@ -20,9 +20,15 @@ Sampling (temperature / top-k / top-p) runs inside the step with per-slot
 parameter vectors; ``temperature=0`` rows are exact argmax (greedy).
 
 Cache backends: the block-pool paged KV cache
-(:mod:`repro_torch.serve.kv_cache`) for the KV-cache family (dense), and
-the seed's dense per-slot cache for the recurrent families (ssm, hybrid),
-whose prefills run at the prompt's exact length.
+(:mod:`repro_torch.serve.kv_cache`) for the decoder families with a KV
+cache (dense, moe, vlm), and the seed's dense per-slot cache for the
+recurrent families (ssm, hybrid) and the encoder-decoder, whose prefills
+run at the prompt's exact length (an encdec engine asked for pages falls
+back to dense slots, as the reference's does).  ``extra_inputs`` are the
+family's side inputs (:func:`repro_torch.serve.router.default_extra_inputs`):
+every prefill gets the vlm family's ``patches`` or the encdec family's
+encoder frames ``enc``, and ``enc_len`` sizes the dense slots'
+cross-attention cache.
 ``ServeConfig(paged=False, pipeline_admission=False)`` reproduces the seed
 engine (dense cache, prefill inline in the decode loop) for A/B runs.
 
@@ -183,11 +189,13 @@ def _cache_batch_axis(name: str) -> int:
 class _DenseSlots:
     """The seed's dense per-slot cache: the family's own cache at
     ``max_batch`` rows (dense: (L, max_batch, cache_len, KV, Dh) K/V; ssm:
-    conv and SSD states; hybrid: rec states and the window ring).  The
-    decode step updates it in place."""
+    conv and SSD states; hybrid: rec states and the window ring; encdec:
+    self K/V and the cross K/V of ``enc_len`` frames).  The decode step
+    updates it in place."""
 
-    def __init__(self, model: Model, scfg: ServeConfig):
-        self.cache = model.init_cache(scfg.max_batch, scfg.cache_len)
+    def __init__(self, model: Model, scfg: ServeConfig, extra: Dict[str, Any]):
+        self.cache = model.init_cache(scfg.max_batch, scfg.cache_len,
+                                      enc_len=extra.get("enc_len"))
 
     def admit(self, slot: int, prefill_cache: Dict[str, torch.Tensor],
               length: int) -> bool:
@@ -278,9 +286,12 @@ class Engine:
         self.params = model.compute_params(params)
         self.scfg = scfg
         self.extra = extra_inputs or {}
+        # what each prefill gets besides the tokens
+        self.prefill_inputs = {k: v for k, v in self.extra.items() if k != "enc_len"}
         B = scfg.max_batch
         self.paged = scfg.paged and model.supports_paged
-        self.backend = _PagedSlots(model, scfg) if self.paged else _DenseSlots(model, scfg)
+        self.backend = (_PagedSlots(model, scfg) if self.paged
+                        else _DenseSlots(model, scfg, self.extra))
         # bucketed (right-padded) prefill needs valid_len (the KV families)
         # and belongs to the pipelined stack; the seed-parity baseline and
         # the recurrent families prefill at the prompt's exact length
@@ -417,6 +428,12 @@ class Engine:
 
     def _run_prefill_body(self, req: _Request):
         prompt = req.prompt
+        cfg = self.model.cfg
+        if cfg.family == "vlm" and len(prompt) < cfg.n_patches:
+            # the patches take the first n_patches positions; a shorter
+            # prompt would read its logits inside the patch region
+            raise ValueError(f"vlm prompt needs ≥ {cfg.n_patches} tokens, "
+                             f"got {len(prompt)}")
         with torch.inference_mode():
             if self._bucketed:
                 bucket = self._bucket_for(len(prompt))
@@ -424,14 +441,14 @@ class Engine:
                 toks[0, : len(prompt)] = prompt
                 logits, cache1 = self.model.prefill(
                     self.params,
-                    {"tokens": torch.from_numpy(toks).to(self.device), **self.extra},
+                    {"tokens": torch.from_numpy(toks).to(self.device), **self.prefill_inputs},
                     cache_len=bucket if self.paged else self.scfg.cache_len,
                     valid_len=torch.tensor([len(prompt)], dtype=torch.int32,
                                            device=self.device))
             else:
                 toks = torch.tensor([prompt], dtype=torch.int64, device=self.device)
                 logits, cache1 = self.model.prefill(
-                    self.params, {"tokens": toks, **self.extra},
+                    self.params, {"tokens": toks, **self.prefill_inputs},
                     cache_len=self.scfg.cache_len)
             host_logits = logits[0].float().cpu().numpy()
         with self._lock:

@@ -22,6 +22,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 
+from repro_torch._device import resolve_device
 from repro_torch.core import counters as _counters
 from repro_torch.core.future import Channel, Future
 from repro_torch.models.model import Model
@@ -29,13 +30,23 @@ from repro_torch.obs import trace as _trace
 from repro_torch.serve.engine import Engine, SamplingParams, ServeConfig
 
 
-def default_extra_inputs(cfg) -> Dict[str, Any]:
-    """Family-dependent synthetic side inputs.  The dense, moe, ssm and
-    hybrid families need none; the vlm and encdec inputs come with those
-    families."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
-    return {}
+def default_extra_inputs(cfg, device: Optional[Union[str, torch.device]] = None
+                         ) -> Dict[str, Any]:
+    """Family-dependent synthetic side inputs, as the reference's: the vlm
+    family's ``patches`` (zeros (1, n_patches, D) bf16), the encdec
+    family's encoder frames ``enc`` (zeros (1, 64, D) bf16) with their
+    count ``enc_len``; none for the other families.  The tensors are made
+    on ``device`` (``cuda`` unless the caller asks for the CPU), where the
+    engine lives."""
+    extra: Dict[str, Any] = {}
+    if cfg.family == "vlm":
+        extra["patches"] = torch.zeros((1, cfg.n_patches, cfg.d_model),
+                                       dtype=torch.bfloat16, device=resolve_device(device))
+    if cfg.family == "encdec":
+        extra["enc"] = torch.zeros((1, 64, cfg.d_model), dtype=torch.bfloat16,
+                                   device=resolve_device(device))
+        extra["enc_len"] = 64
+    return extra
 
 
 class Router:

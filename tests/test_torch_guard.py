@@ -167,7 +167,8 @@ def test_chip_smoke_fails_without_cuda(no_cuda, tmp_path):
         assert '"ok": true' not in r.stdout
 
 
-@pytest.mark.parametrize("arch", ["mamba2_780m", "recurrentgemma_2b"])
+@pytest.mark.parametrize("arch", ["mamba2_780m", "recurrentgemma_2b", "whisper_small",
+                                  "internvl2_2b"])
 def test_new_architectures_build_on_cpu_only_when_asked(no_cuda, arch):
     """Both configs (full and smoke) come from the registry; the model
     builds on the CPU when asked and refuses without CUDA otherwise."""
@@ -185,13 +186,18 @@ def test_new_architectures_build_on_cpu_only_when_asked(no_cuda, arch):
 
 
 def test_unported_families_raise_naming_the_family():
+    """Every family and architecture of the reference is ported: a made-up
+    family raises ``NotImplementedError`` naming it, an unknown arch
+    ``KeyError``."""
     from dataclasses import replace
 
     from repro_torch.configs import get_config
+    from repro_torch.configs.base import ARCH_IDS, NOT_PORTED
     from repro_torch.models.model import Model
 
-    cfg = replace(get_config("starcoder2_3b", smoke=True), family="encdec")
-    with pytest.raises(NotImplementedError, match="encdec"):
+    cfg = replace(get_config("starcoder2_3b", smoke=True), family="diffusion")
+    with pytest.raises(NotImplementedError, match="diffusion"):
         Model(cfg, device="cpu")
-    with pytest.raises(KeyError, match="not ported yet"):
-        get_config("whisper_small")
+    with pytest.raises(KeyError, match="unknown arch 'whisper_large'"):
+        get_config("whisper_large")
+    assert NOT_PORTED == [] and {"whisper_small", "internvl2_2b"} <= set(ARCH_IDS)

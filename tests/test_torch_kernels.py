@@ -223,6 +223,22 @@ def test_flash_tile_plan_covers_the_mask(S, causal, window, vl_kind, H, KV, Dh, 
         assert all(w >= m - (1 if window else 0) for w, m in zip(work, later))
 
 
+@pytest.mark.parametrize("sms", SMS)
+@pytest.mark.parametrize("S,causal,H,KV,Dh,vl_kind", [
+    (1500, False, 12, 12, 64, "S"),     # whisper_small's encoder: 1500 frames
+    (1500, False, 12, 12, 64, "S-1"),
+    (2048, False, 12, 12, 64, "S"),     # its encoder's training microbatch
+    (64, True, 12, 12, 64, "S"),        # its decoder's prefill
+    (512, True, 16, 8, 128, "S"),       # internvl2_2b's prefill (G = 2)
+    (512, True, 16, 8, 128, "150"),     # a bucketed one
+])
+def test_flash_tile_plan_covers_the_new_families(S, causal, H, KV, Dh, vl_kind, sms):
+    """``test_flash_tile_plan_covers_the_mask`` at the shapes the enc-dec
+    and VLM families give the flash kernel: non-causal at S off the tile
+    with one head per group, and two heads per group at head_dim 128."""
+    test_flash_tile_plan_covers_the_mask(S, causal, 0, vl_kind, H, KV, Dh, sms)
+
+
 def _tile_walk(q, k, v, causal, window, valid_len, sms):
     """The bf16 flash body's arithmetic in plain PyTorch (fp32): each
     consumer warpgroup walks its K tiles in order with an online softmax,
@@ -281,6 +297,8 @@ def _tile_walk(q, k, v, causal, window, valid_len, sms):
     (1, 300, 10, 1, 16, True, 65, 0),    # 2 heads per block, window off a tile
     (2, 260, 4, 4, 16, True, 0, 0),      # MHA: 1 head × 64 positions
     (1, 200, 10, 1, 256, True, 0, 90),   # head_dim 256: one warpgroup per block
+    (1, 190, 2, 2, 64, False, 0, 0),     # whisper's encoder: MHA, non-causal, off the tile
+    (1, 200, 4, 2, 128, True, 0, 150),   # internvl2_2b: G = 2 at head_dim 128, bucketed
 ])
 def test_flash_tile_walk_matches_reference(B, S, H, KV, Dh, causal, window, valid_len,
                                            sms):
@@ -391,6 +409,9 @@ def test_cpu_wrappers_count_no_launches():
     (300, 2, 64, 132, 16, 12),    # more blocks than the card holds: one split
     (1, 1, 1000, 132, 24, 128),   # pages of 24 tokens, 8 m-tiles
     (2, 2, 7, 16, 32, 4),         # a small card, an extent that splits unevenly
+    (8, 12, 24, 132, 64, 1),      # whisper_small's cross-attention, T = 1500
+    (8, 12, 8, 132, 64, 1),       # its self-attention's 512-slot cache
+    (8, 8, 64, 132, 16, 2),       # internvl2_2b, paged, page 16, maxp 64
 ])
 def test_decode_splits_cover_whole_tiles(B, KV, extent, sm, tile, group):
     splits = decode_splits(B, KV, extent, sm, tile, group)

@@ -26,12 +26,14 @@ import torch
 
 from repro.configs import get_config as ref_config
 from repro.dist.plan import get_plan
+from repro.models import encdec as RE
 from repro.models import hybrid as RH
 from repro.models import layers as RL
 from repro.models import ssm_lm as RS
 from repro.models import transformer as RT
 from repro.models.model import build_model as ref_build
 from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.models import encdec as TE
 from repro_torch.models import hybrid as TH
 from repro_torch.models import layers as TL
 from repro_torch.models import ssm_lm as TS
@@ -285,21 +287,41 @@ def test_dense_cache_decode_step_matches(ref_params, impl, dtype):
         _close(tc["v"], rc["v"], ATOL[dtype])
 
 
+def _side_inputs(cfg, rng, B, S):
+    """The side inputs of ``cfg``'s family as numpy fp32, the way the
+    reference's ``test_models_consistency.py`` draws them: the vlm
+    family's patches (B, n_patches, D), the encdec family's frames
+    (B, S, D)."""
+    if cfg.family == "vlm":
+        return {"patches": rng.standard_normal((B, cfg.n_patches, cfg.d_model)).astype(np.float32)}
+    if cfg.family == "encdec":
+        return {"enc": rng.standard_normal((B, S, cfg.d_model)).astype(np.float32)}
+    return {}
+
+
+def _port_inputs(side):
+    """The side inputs as the port's bf16 tensors (the reference draws them
+    in bf16)."""
+    return {k: torch.from_numpy(v).to(torch.bfloat16) for k, v in side.items()}
+
+
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_arch_prefill_decode_shapes(arch):
     """test_models_smoke.py's shape test for each ported architecture: the
     smoke config in its compute dtype (bf16), prefill then one decode
-    step, finite logits over the padded vocab, argmax inside the vocab."""
+    step, finite logits over the padded vocab, argmax inside the vocab
+    (the vlm and encdec families with their side inputs)."""
     cfg = get_config(arch, smoke=True)
     model = build_model(cfg, device="cpu")
     params = model.compute_params(model.init(0))
     B, S = 2, 16
     rng = np.random.default_rng(0)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(B, S)))
+    side = _port_inputs(_side_inputs(cfg, rng, B, S))
     with torch.inference_mode():
-        logits, cache = model.prefill(params, {"tokens": toks}, cache_len=S + 4)
+        logits, cache = model.prefill(params, {"tokens": toks, **side}, cache_len=S + 4)
         assert logits.shape == (B, cfg.padded_vocab) and torch.isfinite(logits).all()
-        specs = model.cache_specs(B, S + 4)
+        specs = model.cache_specs(B, S + 4, enc_len=S)
         assert {k: (tuple(v.shape), v.dtype) for k, v in cache.items()} == \
             {k: (s.shape, s.dtype) for k, s in specs.items()}
         logits2, cache2 = model.decode(params, cache, torch.zeros(B, 1, dtype=torch.long))
@@ -309,10 +331,16 @@ def test_arch_prefill_decode_shapes(arch):
     assert cache2["pos"].tolist() == [S + 1] * B
 
 
-def _forward(cfg, params, tokens):
-    """The port's full forward of ``cfg``'s family → logits (B, S, V)."""
-    mod = {"ssm": TS, "hybrid": TH}.get(cfg.family, TT)
+def _forward(cfg, params, tokens, side=None):
+    """The port's full forward of ``cfg``'s family → logits (B, S, V);
+    ``side``: the family's side inputs (``_port_inputs``)."""
+    side = side or {}
     with torch.inference_mode():
+        if cfg.family == "encdec":
+            return TE.forward(cfg, params, side["enc"], tokens)[0]
+        if cfg.family == "vlm":
+            return TT.forward(cfg, params, tokens, patches=side["patches"])[0]
+        mod = {"ssm": TS, "hybrid": TH}.get(cfg.family, TT)
         return mod.forward(cfg, params, tokens)[0]
 
 
@@ -322,21 +350,25 @@ def test_prefill_then_decode_matches_forward(arch):
     full forward's next-token logits, for every ported smoke config in its
     compute dtype (bf16) and the reference's limit 0.05.  The MoE configs
     run with capacity 64, so that nothing drops: capacity drops are the
-    one legitimate divergence (test_torch_moe.py)."""
+    one legitimate divergence (test_torch_moe.py).  The vlm family's
+    patches and the encdec family's frames (S of them) as the reference's
+    test draws them."""
     cfg = get_config(arch, smoke=True)
     if cfg.is_moe:
         cfg = replace(cfg, capacity_factor=64.0)
     model = build_model(cfg, device="cpu")
     params = model.compute_params(model.init(0))
     B, S = 2, 32
-    tokens = torch.from_numpy(np.random.default_rng(1).integers(
-        0, cfg.vocab_size, size=(B, S + 1)))
+    rng = np.random.default_rng(1)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(B, S + 1)))
+    side = _port_inputs(_side_inputs(cfg, rng, B, S))
     with torch.inference_mode():
-        logits_p, cache = model.prefill(params, {"tokens": tokens[:, :S]}, cache_len=S + 8)
-        err_p = float((logits_p - _forward(cfg, params, tokens[:, :S])[:, -1]).abs().max())
+        logits_p, cache = model.prefill(params, {"tokens": tokens[:, :S], **side},
+                                        cache_len=S + 8)
+        err_p = float((logits_p - _forward(cfg, params, tokens[:, :S], side)[:, -1]).abs().max())
         assert err_p < 0.05, f"{arch} prefill mismatch {err_p}"
         logits_d, _ = model.decode(params, cache, tokens[:, S:S + 1])
-        err_d = float((logits_d - _forward(cfg, params, tokens)[:, -1]).abs().max())
+        err_d = float((logits_d - _forward(cfg, params, tokens, side)[:, -1]).abs().max())
     assert err_d < 0.05, f"{arch} decode mismatch {err_d}"
 
 
@@ -358,7 +390,7 @@ def test_multi_step_decode_matches_forward():
             assert err < 0.05, f"step {t}: {err}"
 
 
-NORM_SCALES = ("ln1", "ln2", "ln", "gate_ln", "final_ln")
+NORM_SCALES = ("ln1", "ln2", "lnx", "ln", "gate_ln", "final_ln")
 
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
@@ -367,8 +399,9 @@ def test_arch_forward_and_loss_match_reference(arch):
     fp32, on the reference's params carried across by ``from_reference``
     (norm scales and QKV biases made non-trivial): granite_34b's single KV
     head, qwen25_3b's QKV bias with RMSNorm, SwiGLU and RoPE theta 1e6,
-    the MoE configs' routing, drops and aux loss among them.  Limit 1e-4,
-    as the dense decoder's above."""
+    the MoE configs' routing, drops and aux loss among them, whisper_small's
+    encoder and cross-attention over its frames and internvl2_2b's patches
+    and masked image positions.  Limit 1e-4, as the dense decoder's above."""
     rcfg = replace(ref_config(arch, smoke=True), dtype="float32")
     tcfg = replace(get_config(arch, smoke=True), dtype="float32")
     rmodel = ref_build(rcfg, PLAN)
@@ -377,18 +410,28 @@ def test_arch_forward_and_loss_match_reference(arch):
     for k, v in flat.items():
         if k.split("/")[-1] in NORM_SCALES:
             flat[k] = 1.0 + 0.1 * rng.standard_normal(v.shape).astype(np.float32)
-        elif k.split("/")[-1] in ("bq", "bk", "bv"):
+        elif k.split("/")[-1] in ("bq", "bk", "bv", "xbq", "xbk", "xbv"):
             flat[k] = 0.1 * rng.standard_normal(v.shape).astype(np.float32)
     rp = {k: jnp.asarray(v) for k, v in flat.items()}
     tp = from_reference(flat, tcfg, "cpu")
     toks = rng.integers(0, tcfg.vocab_size, size=(2, 25)).astype(np.int32)
-    rmod = {"ssm": RS, "hybrid": RH}.get(rcfg.family, RT)
-    rl = rmod.forward(rcfg, PLAN, rp, jnp.asarray(toks[:, :-1]))[0]
-    tl = _forward(tcfg, tp, torch.from_numpy(toks[:, :-1]))
+    side = _side_inputs(tcfg, rng, 2, 24)
+    rside = {k: jnp.asarray(v) for k, v in side.items()}
+    tside = {k: torch.from_numpy(v) for k, v in side.items()}
+    if rcfg.family == "encdec":
+        rl = RE.forward(rcfg, PLAN, rp, rside["enc"], jnp.asarray(toks[:, :-1]))[0]
+    elif rcfg.family == "vlm":
+        rl = RT.forward(rcfg, PLAN, rp, jnp.asarray(toks[:, :-1]),
+                        patches=rside["patches"])[0]
+    else:
+        rmod = {"ssm": RS, "hybrid": RH}.get(rcfg.family, RT)
+        rl = rmod.forward(rcfg, PLAN, rp, jnp.asarray(toks[:, :-1]))[0]
+    tl = _forward(tcfg, tp, torch.from_numpy(toks[:, :-1]), tside)
     V = tcfg.vocab_size
     assert tl.shape == (2, 24, tcfg.padded_vocab) and tl.dtype == torch.float32
     _close(tl[..., :V], rl[..., :V], LOGIT_ATOL["float32"])
-    rloss = rmodel.loss(rp, {"tokens": jnp.asarray(toks)})
+    rloss = rmodel.loss(rp, {"tokens": jnp.asarray(toks), **rside})
     with torch.inference_mode():
-        tloss = build_model(tcfg, device="cpu").loss(tp, {"tokens": torch.from_numpy(toks)})
+        tloss = build_model(tcfg, device="cpu").loss(tp, {"tokens": torch.from_numpy(toks),
+                                                          **tside})
     assert abs(float(tloss) - float(rloss)) <= ATOL["float32"], (float(tloss), float(rloss))

@@ -308,7 +308,9 @@ def test_dense_slot_engine_matches_reference_engine(rt, port_rt):
 @pytest.mark.parametrize("arch,dtype", [("deepseek_moe_16b", "bfloat16"),
                                         ("granite_moe_3b_a800m", "bfloat16"),
                                         ("mamba2_780m", "bfloat16"),
-                                        ("starcoder2_3b", "float32")])
+                                        ("starcoder2_3b", "float32"),
+                                        ("whisper_small", "bfloat16"),
+                                        ("internvl2_2b", "bfloat16")])
 def test_init_compute_equals_compute_params_of_init(arch, dtype):
     """The serving params drawn one tensor at a time are
     ``compute_params(init(seed))`` bit for bit."""

@@ -89,8 +89,14 @@ def _ref_and_port(dtype, vocab=None, plan="futurized", impl="pallas"):
 
 
 def _batch(cfg, B=2, S=32, step=0):
+    """The reference's batch and the same batch as the port's tensors:
+    tokens, and the vlm family's patches or the encdec family's frames
+    (bf16, carried across exactly through fp32)."""
     b = rpipe.synth_batch(cfg, rpipe.DataConfig(batch_size=B, seq_len=S), step)
-    return b, {"tokens": torch.from_numpy(np.array(b["tokens"]))}
+    t = {"tokens": torch.from_numpy(np.array(b["tokens"]))}
+    for k in set(b) - {"tokens"}:
+        t[k] = torch.from_numpy(np.asarray(b[k], np.float32)).to(torch.bfloat16)
+    return b, t
 
 
 def _grads_close(tg, rg, atol, rtol):
@@ -158,19 +164,26 @@ def test_recurrent_families_train(arch):
     assert set(grads) == set(params)
 
 
-# the families this slice trains, at their smoke configs in fp32: loss within
-# 1e-5 of the reference's, each gradient within 1e-4 of that tensor's largest
+# the families beyond the dense one, at their smoke configs in fp32: loss
+# within 1e-5 of the reference's, each gradient within 1e-4 of that tensor's
+# largest
 FAMILY_ARCHS = ["mamba2_780m", "recurrentgemma_2b", "granite_moe_3b_a800m",
-                "deepseek_moe_16b"]
+                "deepseek_moe_16b", "whisper_small", "internvl2_2b"]
 FAMILY_LOSS_TOL = 1e-5
 FAMILY_GRAD_RTOL = 1e-4
+# key biases (whisper_small's self- and cross-attention): b adds q·b to every
+# score of a row, which softmax does not see, so their exact gradient is 0;
+# each side's is rounding noise, held within 1e-4 of the largest gradient
+ZERO_GRAD = ("bk", "xbk")
 
 
 @pytest.mark.parametrize("arch", FAMILY_ARCHS)
 def test_family_loss_and_grads_match_reference(arch):
     """The port's loss and autograd gradients (the scans' trainable ops;
-    the MoE aux loss through loss_fn) against the reference's
-    ``jax.value_and_grad(model.loss)``, fp32, on the reference's params."""
+    the MoE aux loss through loss_fn; the encoder's non-causal flash and
+    the plain cross-attention; the VLM's patches and masked image
+    positions) against the reference's ``jax.value_and_grad(model.loss)``,
+    fp32, on the reference's params and batch."""
     rcfg = replace(ref_config(arch, smoke=True), dtype="float32")
     tcfg = replace(get_config(arch, smoke=True), dtype="float32")
     rmodel = ref_build(rcfg, rplan.get_plan("futurized"))
@@ -182,8 +195,13 @@ def test_family_loss_and_grads_match_reference(arch):
     tloss, tgrads = step_mod.value_and_grad(tmodel.loss, from_reference(flat, tcfg, "cpu"), tb)
     assert abs(float(tloss) - float(rloss)) <= FAMILY_LOSS_TOL
     assert set(tgrads) == set(rgrads)
+    largest = max(float(np.abs(np.asarray(g, np.float32)).max()) for g in rgrads.values())
     for k, rg in rgrads.items():
         rg = np.asarray(rg, np.float32)
+        if k.split("/")[-1] in ZERO_GRAD:  # both sides' rounding noise only
+            assert max(float(np.abs(rg).max()), float(tgrads[k].abs().max())) <= \
+                FAMILY_GRAD_RTOL * largest, k
+            continue
         scale = float(np.abs(rg).max())
         assert scale > 0, k
         np.testing.assert_allclose(tgrads[k].numpy(), rg, atol=FAMILY_GRAD_RTOL * scale,
@@ -297,6 +315,33 @@ def test_microbatched_grads_match_full_batch():
         step_mod._microbatch_grads(loss_fn, params, batch, 3)
 
 
+@pytest.mark.parametrize("arch", ["whisper_small", "internvl2_2b"])
+def test_microbatches_split_every_batch_field(arch):
+    """The microbatch split slices the side inputs (whisper_small's frames,
+    internvl2_2b's patches) with the tokens, row for row: fp32, the same
+    loss and grads as the full batch; the step moves every field to the
+    model's device."""
+    cfg = replace(get_config(arch, smoke=True), dtype="float32")
+    model = Model(cfg, "cpu")
+    params = model.init(0)
+    batch = tpipe.synth_batch(cfg, tpipe.DataConfig(batch_size=4, seq_len=24), 0)
+    assert len(batch) == 2
+    loss_fn = step_mod.make_loss_fn(model)
+    l1, g1 = step_mod.value_and_grad(loss_fn, params, batch)
+    l2, g2 = step_mod._microbatch_grads(loss_fn, params, batch, 4)
+    assert abs(float(l1) - float(l2)) < 1e-5
+    for k in g1:
+        torch.testing.assert_close(g2[k], g1[k], atol=1e-6, rtol=1e-4, msg=k)
+    # rows' side inputs swapped: another loss, so each row met its own
+    side = next(k for k in batch if k != "tokens")
+    swapped = {**batch, side: batch[side].flip(0)}
+    l3, _ = step_mod._microbatch_grads(loss_fn, params, swapped, 4)
+    assert abs(float(l3) - float(l1)) > 1e-4
+    p2, _, m = step_mod.make_train_step(model, adamw.AdamWConfig(lr=1e-3))(
+        params, adamw.init(params), batch)
+    assert torch.isfinite(m["loss"]) and abs(float(m["loss"]) - float(l1)) < 1e-5
+
+
 # ------------------------------------------------------------------- adamw
 def test_adamw_update_matches_reference():
     rng = np.random.default_rng(0)
@@ -399,15 +444,25 @@ def test_grad_clip_bounds_update():
 
 # -------------------------------------------------------------------- data
 @pytest.mark.parametrize("seed,step,B,S", [(0, 0, 4, 32), (3, 17, 2, 100), (1, 5, 1, 7)])
-@pytest.mark.parametrize("arch", ["starcoder2_3b", "mamba2_780m"])
+@pytest.mark.parametrize("arch", ["starcoder2_3b", "mamba2_780m", "whisper_small",
+                                  "internvl2_2b"])
 def test_synth_batch_is_bit_equal_to_reference(arch, seed, step, B, S):
+    """Tokens, and the vlm family's ``patches`` (B, n_patches, D) or the
+    encdec family's ``enc`` (B, S, D) in bf16, bit for bit."""
     cfg = get_config(arch, smoke=True)
     t = tpipe.synth_batch(cfg, tpipe.DataConfig(batch_size=B, seq_len=S, seed=seed), step)
     r = rpipe.synth_batch(ref_config(arch, smoke=True),
                           rpipe.DataConfig(batch_size=B, seq_len=S, seed=seed), step)
-    assert set(t) == set(r) == {"tokens"}
+    extra = {"vlm": {"patches"}, "encdec": {"enc"}}.get(cfg.family, set())
+    assert set(t) == set(r) == {"tokens"} | extra
     assert t["tokens"].dtype == torch.int32 and t["tokens"].device.type == "cpu"
     np.testing.assert_array_equal(t["tokens"].numpy(), np.asarray(r["tokens"]))
+    for k in extra:
+        want = np.asarray(r[k])
+        assert t[k].dtype == torch.bfloat16 and tuple(t[k].shape) == want.shape
+        assert t[k].shape[-1] == cfg.d_model
+        assert t[k].shape[1] == (cfg.n_patches if k == "patches" else S)
+        np.testing.assert_array_equal(t[k].view(torch.int16).numpy(), want.view(np.int16))
 
 
 def test_prefetcher_returns_future_batches(port_rt):
