@@ -164,10 +164,30 @@ Phases (any failure exits non-zero; no phase catches its own failure):
 8d. The same for whisper_small (parity at 2 + 2 layers; its synthetic
    batches carry ``seq_len`` encoder frames) and internvl2_2b (2 layers;
    256 patch positions without loss): 24 flash launches a microbatch each.
+9. The HPX local runtime — (a) the fourteen parallel algorithms of
+   ``core.algorithms`` (reduce and both scans also under an elementwise
+   maximum) under ``vec`` on CUDA tensors of 2²⁷ int64 and fp32 elements,
+   each held against the port's ``vec`` on the CPU over the same data
+   (exact, or fp32 sums and scans within ``RUNTIME_SUM_RTOL`` of the
+   magnitudes they add), then against ``seq``, ``par`` and ``par_task``
+   over a 2¹⁶-element host cut, ``par_task`` and ``vec`` with ``task``
+   returning futures; each timed, GB/s beside phase 7's triad.  (b) Full
+   starcoder2_3b's compute params in AGAS: a parcel takes their global
+   norm where they live (equal to the direct one; the parcel counters
+   step by one), a migration to the host and back (generations 0 → 1 →
+   2, the GID kept, bit-equal, GB/s each way); ``save_gid`` /
+   ``restore_gid`` of phase 8's 2-layer training state (bit-equal, the
+   name kept, a new GID).  (c) The dataflow 1F1B pipeline
+   (``train/pipeline.py``) over full starcoder2_3b in 4 stages by
+   ``split_stages``, 4 microbatches of one 512-token sequence: fp32 at 4
+   layers against one monolithic autograd pass (``PIPE_TOL``), exactly 36
+   tasks and 16 flash launches; then 30 layers in bf16, 2 steps with
+   exactly 120 flash launches each, finite loss and grads, the step's wall
+   time, peak memory and a profiled step, beside the monolithic pass.
 
 The second-to-last line of standard output is the ``kernels`` JSON, each
-kernel's launches summed over the paths of phases 5, 5c, 5b, 5d, 7, 8b, 8c
-and 8d; the last
+kernel's launches summed over the paths of phases 5, 5c, 5b, 5d, 7, 8b, 8c,
+8d and 9; the last
 is ``{"ok": true, "device": {...}}``.  A fuller report is written to
 ``chiprun_out/chip_smoke.json``.
 """
@@ -2611,6 +2631,553 @@ def phase_train_checkpoint(torch, np):
         core.finalize()
 
 
+# ------------------------------------------------------------------ phase 9
+# The HPX local runtime on the card.  (a) The fourteen parallel algorithms
+# of ``core.algorithms`` (reduce and both scans also under a non-add op,
+# ``_maximum``) under ``vec`` on CUDA tensors of STREAM_N elements, int64
+# and fp32 drawn from the seed with numpy; each result held against the
+# port's ``vec`` over the same data on the CPU: integers, orderings,
+# extrema and predicates exact; fp32 sums and scans within
+# RUNTIME_SUM_RTOL of the sum of the magnitudes each output adds (the
+# card's sums run as fp32 trees, the CPU's cumsum accumulates in fp64, so
+# an output near 0 after cancellation differs by more than itself); then
+# each against ``seq`` and ``par`` (and ``par_task`` / ``vec`` with
+# ``task`` returning futures) over the first RUNTIME_HOST_N elements as a
+# host list, whose floats add in fp64 (so ``transform`` too is held to
+# the limit there).  Each ``vec`` algorithm timed on the device with
+# ``_time_ms`` (L2 flushed, a spin kernel covering the host's enqueue, so
+# a lowering of many small kernels reads its device time, not the host's
+# launch gaps) after the CPU's results are in (their pool threads would
+# otherwise share the host with the card's launches), GB/s beside phase
+# 7's triad, and its wall time a call ending in a synchronize (report
+# only).  count_if, all_of and any_of return host numbers, so their
+# device window also holds one round trip to the host.  (b) Parcels and migration at
+# full width: full starcoder2_3b's compute params in AGAS, a parcel that
+# takes their global norm where they live, a migration to the host and
+# back; ``save_gid`` / ``restore_gid`` of phase 8's 2-layer training state.
+# (c) The dataflow 1F1B pipeline (``train/pipeline.py``) over full
+# starcoder2_3b, PIPE_STAGES stages by ``split_stages``, PIPE_MB
+# microbatches of one PIPE_SEQ-token sequence.
+RUNTIME_HOST_N = 2 ** 16
+RUNTIME_SUM_RTOL = 1e-5
+RUNTIME_REPS = 10                           # timed calls of each vec algorithm
+PIPE_STAGES, PIPE_MB, PIPE_SEQ = 4, 4, 512
+PIPE_CHECK_LAYERS = 4                       # one layer a stage for check (i)
+PIPE_TOL = 1e-5                             # of each tensor's largest, fp32
+RUNTIME_NAME = "/chip_smoke/runtime/starcoder2_3b"
+
+
+def _maximum(a, b):
+    """The non-add op of phase 9's reductions and scans: elementwise on
+    tensors (``vec``), Python's ``max`` on host numbers (``seq``, ``par``)."""
+    import torch
+
+    return torch.maximum(a, b) if isinstance(a, torch.Tensor) else max(a, b)
+
+
+def _global_norm(obj):
+    """Phase 9's parcel action: the fp32 L2 norm over every tensor of the
+    object, computed where the tensors live."""
+    import torch
+
+    return torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(t, dtype=torch.float32) for t in obj.values()]))
+
+
+def _runtime_algos():
+    """(name, call(alg, policy, data), bytes moved in units of n·itemsize,
+    "sum" where the output adds values up)."""
+    return (
+        ("for_each", lambda a, p, d: a.for_each(p, d, lambda x: x * 2), 1, None),
+        ("transform", lambda a, p, d: a.transform(p, d, lambda x: 3 * x + 1), 2, "transform"),
+        ("reduce", lambda a, p, d: a.reduce(p, d, init=5), 1, "sum"),
+        ("reduce_max", lambda a, p, d: a.reduce(p, d, init=-10 ** 4, op=_maximum), 1, None),
+        ("transform_reduce", lambda a, p, d: a.transform_reduce(p, d, lambda x: x * x), 1,
+         "sum"),
+        ("inclusive_scan", lambda a, p, d: a.inclusive_scan(p, d), 2, "sum"),
+        ("inclusive_scan_max", lambda a, p, d: a.inclusive_scan(p, d, op=_maximum), 2, None),
+        ("exclusive_scan", lambda a, p, d: a.exclusive_scan(p, d, init=7), 2, "sum"),
+        ("exclusive_scan_max",
+         lambda a, p, d: a.exclusive_scan(p, d, init=-10 ** 4, op=_maximum), 2, None),
+        ("sort", lambda a, p, d: a.sort(p, d), 2, None),
+        ("count_if", lambda a, p, d: a.count_if(p, d, lambda x: x > 0), 1, None),
+        ("all_of", lambda a, p, d: a.all_of(p, d, lambda x: x > -2000), 1, None),
+        ("any_of", lambda a, p, d: a.any_of(p, d, lambda x: x > 0.999), 1, None),
+        ("fill", lambda a, p, d: a.fill(p, d, 3), 1, None),
+        ("min_element", lambda a, p, d: a.min_element(p, d), 1, None),
+        ("max_element", lambda a, p, d: a.max_element(p, d), 1, None),
+        ("copy", lambda a, p, d: a.copy(p, d), 2, None),
+    )
+
+
+def _sum_scale(torch, name, mag):
+    """What an output adds up, in magnitudes (``mag`` = |x| in fp64 on the
+    CPU): the limit of a fp32 sum or scan is RUNTIME_SUM_RTOL of it."""
+    if name == "reduce":
+        return 5 + mag.sum()
+    if name == "transform_reduce":
+        return (mag * mag).sum()
+    if name == "inclusive_scan":
+        return torch.cumsum(mag, 0)
+    if name == "exclusive_scan":
+        return 7 + torch.cat([mag.new_zeros(1), torch.cumsum(mag, 0)[:-1]])
+    return 3 * mag + 1  # transform, where the host's fp64 meets fp32
+
+
+def _host_value(torch, x):
+    """An algorithm's result as host values: a Future's value, a tensor's
+    elements (fp64 for floats), lists and numbers as they are."""
+    from repro_torch.core.future import Future
+
+    if isinstance(x, Future):
+        x = x.get(timeout=600)
+    if isinstance(x, torch.Tensor):
+        x = x.cpu()
+        return x.double() if x.is_floating_point() else x
+    if isinstance(x, (list, int, float)) and not isinstance(x, bool):
+        floats = any(isinstance(v, float) for v in (x if isinstance(x, list) else [x]))
+        return torch.tensor(x, dtype=torch.float64 if floats else torch.int64)
+    return x
+
+
+def _held(torch, got, want, kind, mag, name, what):
+    """Exact, or within RUNTIME_SUM_RTOL of the magnitudes added where
+    ``kind`` names a sum over floats."""
+    got, want = _host_value(torch, got), _host_value(torch, want)
+    if not isinstance(want, torch.Tensor):  # None (for_each), a bool (all_of, any_of)
+        check(got is want, f"runtime: {what} {name}: {got} vs {want}")
+        return 0.0
+    check(got.shape == want.shape, f"runtime: {what} {name}: shape {tuple(got.shape)} "
+                                   f"vs {tuple(want.shape)}")
+    if kind is None or not want.is_floating_point():
+        check(torch.equal(got.to(want.dtype), want), f"runtime: {what} {name} differs")
+        return 0.0
+    scale = _sum_scale(torch, name, mag)
+    err = ((got.double() - want.double()).abs() / scale).max().item()
+    check(err <= RUNTIME_SUM_RTOL, f"runtime: {what} {name} off by {err:.3g} of the "
+                                   f"magnitudes it adds (limit {RUNTIME_SUM_RTOL})")
+    return err
+
+
+def _runtime_algorithms(torch, np, rt):
+    """Phase 9(a): see the block comment above."""
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core.executor import par, par_task, seq, vec
+    from repro_torch.core.future import Future
+
+    rng = np.random.default_rng(SEED + 9)
+    data = {"int64": torch.from_numpy(rng.integers(-1000, 1000, size=STREAM_N)),
+            "float32": torch.from_numpy(rng.uniform(-1.0, 1.0, size=STREAM_N)
+                                        .astype(np.float32))}
+    # the CPU's vec results, as tasks on the runtime's pool, the two sorts
+    # (each one thread's work for ~10-25 s) queued first; all in before
+    # the card is timed
+    t0 = time.perf_counter()
+    cpu_vec = vec.on(rt.get_executor("default")).with_(task=True)
+    jobs = sorted(((dt, name, call) for dt in data for name, call, _, _ in _runtime_algos()),
+                  key=lambda job: job[1] != "sort")
+    refs = {(dt, name): call(alg, cpu_vec, data[dt]) for dt, name, call in jobs}
+    refs = {k: f.get(timeout=600) for k, f in refs.items()}
+    out = {"N": STREAM_N, "host_cut": RUNTIME_HOST_N, "sum_rtol": RUNTIME_SUM_RTOL,
+           "reps": RUNTIME_REPS, "cpu_reference_s": time.perf_counter() - t0,
+           "card": {}, "worst_sum_err": {}}
+    flush = torch.empty(16 * 1024 * 1024, dtype=torch.float32, device="cuda")
+    for dt, x in data.items():
+        gpu = x.cuda()
+        mag = x.abs().double()
+        host = x[:RUNTIME_HOST_N].tolist()
+        hmag = mag[:RUNTIME_HOST_N]
+        for name, call, units, kind in _runtime_algos():
+            got = call(alg, vec, gpu)  # the first call: vmap's set-up
+            torch.cuda.synchronize()
+            if isinstance(got, torch.Tensor):
+                check(got.device.type == "cuda", f"runtime: vec {name} left the card")
+            ms = _time_ms(torch, lambda: call(alg, vec, gpu), flush, reps=RUNTIME_REPS)
+            wall = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                call(alg, vec, gpu)
+                torch.cuda.synchronize()
+                wall.append((time.perf_counter() - t0) * 1e3)
+            nbytes = units * STREAM_N * x.element_size()
+            err = _held(torch, got, refs[(dt, name)], kind, mag, name, f"card vs CPU {dt}")
+            del got
+            # the host cut: seq, par and par_task over a host list, vec
+            # (eager and task) over the card's first elements
+            want = call(alg, seq, list(host))
+            vec_cut = call(alg, vec, gpu[:RUNTIME_HOST_N])
+            _held(torch, vec_cut, want, kind, hmag, name, f"vec vs seq {dt}")
+            _held(torch, call(alg, par, list(host)), want, kind, hmag, name, f"par vs seq {dt}")
+            fut = call(alg, par_task, list(host))
+            check(isinstance(fut, Future), f"runtime: par_task {name} returned {type(fut)}")
+            _held(torch, fut, want, kind, hmag, name, f"par_task vs seq {dt}")
+            fut = call(alg, vec.with_(task=True), gpu[:RUNTIME_HOST_N])
+            check(isinstance(fut, Future), f"runtime: vec task {name} returned {type(fut)}")
+            _held(torch, fut, vec_cut, kind, hmag, name, f"vec task vs vec {dt}")
+            out["card"][f"{name} {dt}"] = {"ms": ms, "bytes": nbytes,
+                                           "GB_per_s": nbytes / ms / 1e6,
+                                           "wall_ms": statistics.median(wall)}
+            if kind == "sum":
+                out["worst_sum_err"][f"{name} {dt}"] = err
+        check(torch.equal(gpu.cpu(), x), f"runtime: an algorithm wrote into its {dt} input")
+        del gpu
+    del refs
+    stream = REPORT.get("stream", {})
+    out["triad_GB_per_s"] = stream.get("float32", {}).get("GB_per_s")
+    out["torch_add_GB_per_s"] = stream.get("native_float32", {}).get("GB_per_s")
+    return out
+
+
+def _runtime_parcels(torch, params):
+    """Phase 9(b), parcels and migration: the params in AGAS, a parcel
+    taking their global norm where they live (equal to the direct
+    computation; the port's counters step by one), then a migration to
+    the host and back: generations 0 → 1 → 2, the GID kept, every leaf
+    bit-equal, GB/s each way."""
+    from repro_torch.core import agas, counters, migration, parcel
+
+    a = agas.default()
+    gid = a.register_name(RUNTIME_NAME, params, replace=True)
+    port = parcel.default_port()
+    names = ("/parcel{port#0}/count/sent", "/parcel{port#0}/actions/executed")
+    before = [counters.get_value(n) for n in names]
+    want = _global_norm(params)
+    got = parcel.apply(_global_norm, RUNTIME_NAME).get(timeout=300)
+    after = [counters.get_value(n) for n in names]
+    check(got.device.type == "cuda" and torch.equal(got, want),
+          f"runtime: the parcel's norm {got} vs the direct {want}")
+    check(after == [b + 1 for b in before], f"runtime: parcel counters {before} → {after}")
+    check(a.record(gid).generation == 0, "runtime: a fresh record's generation")
+    nbytes = sum(t.numel() * t.element_size() for t in params.values())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gen1 = migration.migrate(gid, "cpu")
+    d2h = time.perf_counter() - t0
+    rec = a.record(gid)
+    check(gen1 == 1 and rec.gid == gid and rec.generation == 1 and
+          all(t.device.type == "cpu" for t in rec.obj.values()),
+          f"runtime: migration to the host: generation {gen1}")
+    t0 = time.perf_counter()
+    gen2 = migration.migrate(RUNTIME_NAME, "cuda")
+    torch.cuda.synchronize()
+    h2d = time.perf_counter() - t0
+    rec = a.record(RUNTIME_NAME)
+    check(gen2 == 2 and rec.gid == gid and rec.generation == 2 and
+          rec.obj.keys() == params.keys() and
+          all(v.device.type == "cuda" and torch.equal(v, params[k])
+              for k, v in rec.obj.items()),
+          f"runtime: migration back to the card: generation {gen2}, leaves differ")
+    a.unregister(gid)
+    del rec
+    return {"params": len(params), "bytes": nbytes, "norm": got.item(),
+            "parcel_counters": dict(zip(names, after)), "generations": [0, gen1, gen2],
+            "to_host_s": d2h, "to_host_GB_per_s": nbytes / d2h / 1e9,
+            "to_card_s": h2d, "to_card_GB_per_s": nbytes / h2d / 1e9}
+
+
+def _runtime_gid_checkpoint(torch):
+    """Phase 9(b), checkpoints by GID: phase 8's 2-layer training state
+    after one step, registered by its trainer, saved by name under
+    ``TMPDIR``; the trainer closed (its record gone), then restored: the
+    old name, a new GID, every leaf bit-equal; migrated back to the card
+    under the same GID."""
+    import tempfile
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.core import agas, migration
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    cfg = replace(get_config("starcoder2_3b"), num_layers=2)
+    tr = Trainer(Model(cfg), adamw.AdamWConfig(**TRAIN_OPT),
+                 DataConfig(batch_size=1, seq_len=64, seed=SEED),
+                 TrainConfig(steps=1, log_every=1), rng_seed=SEED)
+    tr.fit()
+    a = agas.default()
+    name, old = f"/train/state/{cfg.name}", tr.gid
+    state = tr.state()
+    flat = ckpt._flatten(state)
+    nbytes = sum(t.numel() * t.element_size() for t in flat.values())
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        ckpt.save_gid(d, 1, name)
+        save_s = time.perf_counter() - t0
+        tr.close()
+        check(not a.contains(name), "runtime: the trainer's record outlived close()")
+        t0 = time.perf_counter()
+        step, gid = ckpt.restore_gid(d)
+        restore_s = time.perf_counter() - t0
+    check(step == 1 and gid != old and a.gid_of(name) == gid,
+          f"runtime: restore_gid gave step {step}, GID {gid} (was {old})")
+    gen = migration.migrate(gid, "cuda")
+    back = ckpt._flatten(a.resolve(gid))
+    check(gen == 1 and back.keys() == flat.keys() and
+          all(back[k].device.type == "cuda" and torch.equal(back[k], flat[k]) for k in flat),
+          "runtime: the GID checkpoint did not restore bit-equal")
+    a.unregister(gid)
+    leaves = len(flat)
+    del tr, state, flat, back
+    return {"layers": 2, "leaves": leaves, "bytes": nbytes, "save_s": save_s, "restore_s": restore_s,
+            "old_gid": str(old), "new_gid": str(gid)}
+
+
+def _stage_fns(cfg, n_stages):
+    """The pipeline's stage functions, from the model's own pieces: stage
+    0 embeds (``layers.embed``), every stage runs its layers
+    (``transformer._layer_body``), the last norms and unembeds
+    (``transformer.logits``)."""
+    import torch
+
+    from repro_torch.models import layers as Lx
+    from repro_torch.models import transformer as T
+
+    def make(s):
+        def fn(p, x):
+            if s == 0:
+                x = Lx.embed(cfg, p["tok_embed"], x)
+            positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+            for lp in p["layers"]:
+                x, _, _ = T._layer_body(cfg, x, lp, positions)
+            return T.logits(cfg, p, x) if s == n_stages - 1 else x
+        return fn
+
+    return [make(s) for s in range(n_stages)]
+
+
+def _stage_params(cfg, params, n_stages):
+    """Each stage's params: its layers' slices (``unbind_layers``, split by
+    ``split_stages``), the embedding on stage 0, the final norm and
+    ``lm_head`` on the last."""
+    from repro_torch.models import transformer as T
+    from repro_torch.train.pipeline import split_stages
+
+    groups = split_stages(T.unbind_layers(params, cfg.num_layers), n_stages)
+    out = [{"layers": g} for g in groups]
+    out[0]["tok_embed"] = params["tok_embed"]
+    out[-1]["final_ln"], out[-1]["lm_head"] = params["final_ln"], params["lm_head"]
+    return out
+
+
+def _monolithic(torch, cfg, sp, tokens):
+    """One autograd pass of the same stage functions over the whole batch:
+    (loss, every stage's grads as flat lists, in the pipeline's leaf
+    order)."""
+    from repro_torch.models import layers as Lx
+    from repro_torch.train.pipeline import _leaves, _tree_map
+
+    leaves = [_tree_map(lambda t: t.detach().requires_grad_(), p) for p in sp]
+    x = tokens[:, :-1]
+    for fn, p in zip(_stage_fns(cfg, len(sp)), leaves):
+        x = fn(p, x)
+    loss = Lx.cross_entropy(x, tokens[:, 1:])
+    flat = [_leaves(p) for p in leaves]
+    grads = torch.autograd.grad(loss, [t for f in flat for t in f])
+    out, i = [], 0
+    for f in flat:
+        out.append(list(grads[i:i + len(f)]))
+        i += len(f)
+    return loss.detach(), out
+
+
+def _pipeline_step(torch, cfg, sp, tokens):
+    """One step of the dataflow 1F1B pipeline over ``tokens`` (B = PIPE_MB
+    sequences, one a microbatch): (loss, every stage's grads), both read."""
+    from repro_torch.models import layers as Lx
+    from repro_torch.train.pipeline import pipeline_value_and_grad
+
+    mbs = [(tokens[m:m + 1, :-1], tokens[m:m + 1, 1:]) for m in range(tokens.shape[0])]
+    loss_f, grad_fs = pipeline_value_and_grad(_stage_fns(cfg, len(sp)), Lx.cross_entropy,
+                                              sp, mbs)
+    return loss_f.get(timeout=600), [g.get(timeout=600) for g in grad_fs]
+
+
+def _pipeline_tokens(cfg, step):
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+
+    return synth_batch(cfg, DataConfig(batch_size=PIPE_MB, seq_len=PIPE_SEQ, seed=SEED),
+                       step)["tokens"].cuda()
+
+
+def _runtime_pipeline(torch, np, card, params):
+    """Phase 9(c): (i) fp32 at full width, PIPE_CHECK_LAYERS layers one a
+    stage: the pipeline's loss and every stage's grads against one
+    monolithic autograd pass (PIPE_TOL of each tensor's largest), exactly
+    2·S·M + M tasks and layers × M flash launches; (iv) the full 30 layers
+    in bf16, two steps (the first a warm-up) with exactly layers × M flash
+    launches each: finite loss and grads, the step's wall time, peak
+    memory and a profiled step, beside one monolithic pass of the same
+    work.  Returns the 30-layer steps' launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import counters
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+    from repro_torch.train.pipeline import _leaves
+
+    tasks = counters.counter("/pipeline{1f1b}/tasks/cumulative")
+    S, M = PIPE_STAGES, PIPE_MB
+
+    # (i) fp32, full width, one layer a stage
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("starcoder2_3b")
+    c4 = replace(cfg, num_layers=PIPE_CHECK_LAYERS, dtype="float32")
+    sp = _stage_params(c4, Model(c4).init(SEED), S)
+    tokens = _pipeline_tokens(c4, 0)
+    before = tasks.get_value()
+    ops.reset_launch_counts()
+    loss, grads = _pipeline_step(torch, c4, sp, tokens)
+    launches = ops.launch_counts()
+    check_tasks = tasks.get_value() - before
+    want_loss, want = _monolithic(torch, c4, sp, tokens)
+    check(check_tasks == 2 * S * M + M,
+          f"pipeline: {check_tasks} tasks ran, not {2 * S * M + M}")
+    _check_launches("pipeline fp32", launches, {"flash_attention": PIPE_CHECK_LAYERS * M})
+    loss_err = abs(loss.item() - want_loss.item()) / abs(want_loss.item())
+    worst = 0.0
+    for s in range(S):
+        got = _leaves(grads[s])
+        check(len(got) == len(want[s]), f"pipeline: stage {s}'s grads")
+        for g, w in zip(got, want[s]):
+            worst = max(worst, (g - w).abs().max().item() / max(w.abs().max().item(), 1e-30))
+    check(loss_err <= PIPE_TOL and worst <= PIPE_TOL,
+          f"pipeline fp32: loss off by {loss_err:.3g}, worst grad by {worst:.3g} of its "
+          f"largest (limit {PIPE_TOL})")
+    del sp, grads, want
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (iv) the full model in bf16
+    L = cfg.num_layers
+    sp = _stage_params(cfg, params, S)
+    tokens = _pipeline_tokens(cfg, 1)
+
+    def step():
+        loss, grads = _pipeline_step(torch, cfg, sp, tokens)
+        norm = torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(g, dtype=torch.float32)
+             for gs in grads for g in _leaves(gs)]))
+        return loss.item(), norm.item()
+
+    before = tasks.get_value()
+    ops.reset_launch_counts()  # ← phase 9's main path starts here
+    first = step()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    second = step()
+    step_s = time.perf_counter() - t0
+    path_launches = ops.launch_counts()  # ← and ends here
+    peak = torch.cuda.max_memory_allocated()
+    ran = tasks.get_value() - before
+    check(ran == 2 * (2 * S * M + M), f"pipeline: {ran} tasks in two steps")
+    _check_launches("pipeline", path_launches, {"flash_attention": 2 * L * M})
+    check(all(math.isfinite(v) for v in first + second),
+          f"pipeline: loss or grad norm not finite: {first}, {second}")
+    gc.collect()
+    prof = _device_profile(torch, step, 1)
+
+    def mono():
+        loss, grads = _monolithic(torch, cfg, sp, tokens)
+        return loss.item()
+
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mono_loss = mono()
+    torch.cuda.synchronize()
+    mono_s = time.perf_counter() - t0
+    mono_peak = torch.cuda.max_memory_allocated()
+    mono_prof = _device_profile(torch, mono, 1)
+    check(abs(mono_loss - second[0]) <= TRAIN_BF16_LOSS_TOL,
+          f"pipeline: bf16 loss {second[0]} vs monolithic {mono_loss}")
+    del sp
+    return {"check": {"layers": PIPE_CHECK_LAYERS, "dtype": "float32", "tasks": check_tasks,
+                      "loss_rel_err": loss_err, "worst_grad_err": worst, "tol": PIPE_TOL,
+                      "launches": launches},
+            "layers": L, "stages": S, "microbatches": M, "seq": PIPE_SEQ,
+            "stage_layers": [len(p["layers"]) for p in _stage_params(cfg, params, S)],
+            "losses": [first[0], second[0]], "grad_norms": [first[1], second[1]],
+            "tasks_two_steps": ran, "step_s": step_s, "tokens_per_s": M * PIPE_SEQ / step_s,
+            "peak_bytes": peak, "launches": path_launches, "profile_one_step": prof,
+            "monolithic": {"loss": mono_loss, "step_s": mono_s, "peak_bytes": mono_peak,
+                           "profile": mono_prof}}
+
+
+def phase_runtime(torch, np, card):
+    """Phase 9, the HPX local runtime on the card: (a) the parallel
+    algorithms (``_runtime_algorithms``), (b) parcels, migration and
+    checkpoints by GID over full starcoder2_3b (``_runtime_parcels``,
+    ``_runtime_gid_checkpoint``), (c) the dataflow 1F1B pipeline over full
+    starcoder2_3b (``_runtime_pipeline``).  Returns the pipeline's
+    launches."""
+    import repro_torch.core as core
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    rt = core.init(pools={"default": 4, "io": 1})
+    try:
+        t0 = time.perf_counter()
+        algos = _runtime_algorithms(torch, np, rt)
+        algos["seconds"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        params = Model(get_config("starcoder2_3b")).init_compute(SEED)
+        parcels = _runtime_parcels(torch, params)
+        gid_ckpt = _runtime_gid_checkpoint(torch)
+        parcels["seconds"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        pipe = _runtime_pipeline(torch, np, card, params)
+        pipe["seconds"] = time.perf_counter() - t0
+        del params
+    finally:
+        core.finalize()
+        gc.collect()
+        torch.cuda.empty_cache()
+    secs = time.perf_counter() - t_phase
+    REPORT["runtime"] = {"card": card, "seconds": secs, "algorithms": algos,
+                         "parcels": parcels, "gid_checkpoint": gid_ckpt, "pipeline": pipe}
+    rates = {k: round(v["GB_per_s"], 1) for k, v in algos["card"].items()}
+    walls = {k: round(v["wall_ms"], 3) for k, v in algos["card"].items()}
+    log(f"[runtime] {card}: vec algorithms at N = 2^27 on the card, device GB/s (in + out): "
+        f"{rates}; wall ms a call: {walls}; CPU reference "
+        f"{algos['cpu_reference_s']:.1f} s; triad {algos['triad_GB_per_s']}, torch.add "
+        f"{algos['torch_add_GB_per_s']}; worst fp32 sum error "
+        f"{max(algos['worst_sum_err'].values()):.3g} of the magnitudes added; "
+        f"{algos['seconds']:.1f} s")
+    log(f"[runtime] parcel: global norm {parcels['norm']:.6g} at the object; migration of "
+        f"{parcels['bytes'] / 1e9:.2f} GB: to the host {parcels['to_host_GB_per_s']:.2f} GB/s, "
+        f"back {parcels['to_card_GB_per_s']:.2f} GB/s, generations "
+        f"{parcels['generations']}; GID checkpoint {gid_ckpt['bytes'] / 1e9:.2f} GB: save "
+        f"{gid_ckpt['save_s']:.1f} s, restore {gid_ckpt['restore_s']:.1f} s, GID "
+        f"{gid_ckpt['old_gid']} → {gid_ckpt['new_gid']}")
+    busy = ("device time not measured (the profiler saw none)"
+            if pipe["profile_one_step"]["device_ms"] is None else
+            f"device busy {100 * pipe['profile_one_step']['busy_share']:.1f}%, "
+            f"{pipe['profile_one_step']['kernels_per_call']:.0f} kernels a step")
+    mb = pipe["monolithic"]["profile"]
+    mbusy = ("not measured" if mb["device_ms"] is None else
+             f"busy {100 * mb['busy_share']:.1f}%, {mb['kernels_per_call']:.0f} kernels")
+    log(f"[runtime] pipeline fp32 {PIPE_CHECK_LAYERS} layers: loss off by "
+        f"{pipe['check']['loss_rel_err']:.3g}, worst grad {pipe['check']['worst_grad_err']:.3g}"
+        f" of its largest; {pipe['check']['tasks']} tasks")
+    log(f"[runtime] pipeline {pipe['layers']} layers in {pipe['stage_layers']}, "
+        f"{pipe['microbatches']} × {pipe['seq']} tokens, bf16: losses "
+        f"{[round(v, 4) for v in pipe['losses']]}; step {pipe['step_s'] * 1e3:.1f} ms "
+        f"({pipe['tokens_per_s']:.0f} tokens/s), {busy}, peak "
+        f"{pipe['peak_bytes'] / 2**30:.2f} GiB; launches {pipe['launches']}; monolithic "
+        f"{pipe['monolithic']['step_s'] * 1e3:.1f} ms, {mbusy}, peak "
+        f"{pipe['monolithic']['peak_bytes'] / 2**30:.2f} GiB; phase {secs:.1f} s")
+    return pipe["launches"]
+
+
 # --------------------------------------------------------------------- main
 # the timing row the kernels line reports: flash at S=512 (starcoder2_3b's
 # prefill), the SSD and the RG-LRU as the models call them (fp32 dt and
@@ -2651,6 +3218,7 @@ def main() -> int:
     phase_train_checkpoint(torch, np)
     paths.append(phase_train_families(torch, np, card))
     paths.append(phase_train_families(torch, np, card, TRAIN_ENCDEC_VLM, "train_encdec_vlm"))
+    paths.append(phase_runtime(torch, np, card))
     launches = {k: sum(p.get(k, 0) for p in paths) for k in paths[0]}
 
     kernels = []

@@ -15,8 +15,10 @@ bits, with ``"bfloat16"`` as its dtype in the manifest, and restored as
 bf16 (a reference-written bf16 leaf, two raw bytes, reads the same way).
 ``restore`` returns CPU tensors; the caller places them.
 
-Checkpoints by GID (``save_gid``/``restore_gid``) wait for the port of
-``core.parcel``; partitioned checkpoints for the port of ``container``.
+Checkpoints by GID (``save_gid``/``restore_gid``) cover objects that live
+in this process; their remote branches (an object owned by another
+locality) raise until the port has a multi-locality runtime, and so wait
+partitioned checkpoints for the port of ``container``.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import agas as _agas
 from repro_torch.core import counters as _counters
 from repro_torch.core import executor as _executor
 from repro_torch.core.future import Future
@@ -140,3 +143,50 @@ def restore(ckpt_dir: Path, step: Optional[int] = None) -> Tuple[int, Dict[str, 
                         for path, meta in manifest["leaves"].items()})
     _counters.counter("/checkpoint{store#0}/restores/cumulative").increment()
     return manifest["step"], state
+
+
+def _no_net(what: str) -> RuntimeError:
+    return RuntimeError(
+        f"{what} needs a multi-locality runtime, which the port does not have "
+        f"yet: only objects registered in this process can be checkpointed "
+        f"by GID")
+
+
+def save_gid(ckpt_dir: Path, step: int, target: Any) -> Path:
+    """Save an AGAS-registered object's state by GID or symbolic name.
+
+    The target is snapshotted in-process; the checkpoint directory gains an
+    ``agas.json`` recording the GID and name so ``restore_gid`` can
+    re-install the object under its old identity.  A target that does not
+    resolve here would live at another locality: that raises."""
+    a = _agas.default()
+    if not a.contains(target):
+        raise _no_net(f"save_gid({target!r}) of an object not registered here")
+    rec = a.record(target)
+    out = save(ckpt_dir, step, rec.obj)
+    (out / "agas.json").write_text(json.dumps(
+        {"gid": [rec.gid.locality, rec.gid.seq], "name": rec.name}))
+    return out
+
+
+def restore_gid(ckpt_dir: Path, step: Optional[int] = None,
+                locality: Optional[int] = None) -> Tuple[int, Any]:
+    """Restore a ``save_gid`` checkpoint here (as CPU tensors, as
+    ``restore`` gives them) → (step, GID).
+
+    The state is registered under the checkpoint's symbolic name, or
+    rebound where that name is taken, and the *new* GID is returned: the
+    object was re-homed, so it carries the identity of the locality that
+    now owns it.  Restoring onto another ``locality`` raises."""
+    if locality is not None:
+        raise _no_net(f"restore_gid(locality={locality})")
+    step, state = restore(ckpt_dir, step)
+    meta_path = Path(ckpt_dir) / f"step_{step:08d}" / "agas.json"
+    name = json.loads(meta_path.read_text()).get("name") if meta_path.exists() else None
+    a = _agas.default()
+    if name is not None and a.contains(name):
+        gid = a.gid_of(name)
+        a.rebind(gid, state)
+    else:
+        gid = a.register(state, name=name)
+    return step, gid

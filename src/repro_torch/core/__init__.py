@@ -1,18 +1,23 @@
-"""repro_torch.core — the HPX-style AMT runtime, as far as the serving
-path needs it.
+"""repro_torch.core — the HPX-style AMT runtime, ported from
+``repro.core``.
 
     init / finalize / Runtime            hpx::init / hpx::finalize
     spawn / async_                       hpx::async            -> Future
+    dataflow / futurize / TaskGraph      hpx::dataflow         (futurization)
     Future / Promise / Channel / when_all / when_any / make_ready_future
     agas                                 Active Global Address Space
+    parcel                               active messages (send work to data)
     counters                             APEX-style performance counters
-    executor                             executors + execution policies
+    algorithms / executor                C++17 parallel algorithms + policies
+    migration                            object migration
 
-``dataflow``, ``algorithms``, ``parcel`` and ``migration`` follow in later
-slices of the port.
+The device-mesh parts of the reference (``MeshExecutor``,
+``parcel.shard_parcel``, ``migration.migrate_to_mesh``) wait for the port's
+mesh.
 """
 
-from repro_torch.core import agas, counters, executor
+from repro_torch.core import agas, algorithms, counters, executor, migration, parcel
+from repro_torch.core.dataflow import TaskGraph, dataflow, futurize
 from repro_torch.core.executor import (
     ExecutionPolicy,
     Executor,
@@ -49,7 +54,8 @@ from repro_torch.core.scheduler import (
 )
 
 __all__ = [
-    "agas", "counters", "executor",
+    "agas", "algorithms", "counters", "executor", "migration", "parcel",
+    "TaskGraph", "dataflow", "futurize",
     "ExecutionPolicy", "Executor", "PriorityExecutor",
     "SequencedExecutor", "ThreadPoolExecutor", "get_executor",
     "Channel", "ChannelClosed",

@@ -9,8 +9,8 @@ therefore binds::
 
     GID → (symbolic name, dict of tensors, placement metadata, generation)
 
-Migration (a later slice of the port) moves the tensors to a new placement
-and bumps the record's generation — the GID is stable across
+Migration (:mod:`repro_torch.core.migration`) moves the tensors to a new
+placement and bumps the record's generation — the GID is stable across
 migrations, exactly the paper's "independence of whether an object is located
 remotely or local".  Model/optimizer state, KV caches and performance
 counters are all registered here; the checkpoint layer saves/restores *by

@@ -2,7 +2,8 @@
 
 HPX's central abstraction is the *future*: a proxy for a value that will be
 computed asynchronously, enabling wait-free composition via ``.then()``,
-``when_all`` / ``when_any`` and ``dataflow`` (a later slice of the port).
+``when_all`` / ``when_any`` and ``dataflow`` (see
+:mod:`repro_torch.core.dataflow`).
 
 PyTorch note: a CUDA tensor produced by enqueued kernels is *already* a
 future — launches are asynchronous and the host only blocks when the value

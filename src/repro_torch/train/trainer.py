@@ -15,9 +15,10 @@ The train state is AGAS-registered under ``/train/state/<name>``;
 ``resume`` restores the latest checkpoint.  Straggler detection: a logged
 step slower than ``straggler_factor``× the step-time EMA is counted
 (``/train{loop#0}/stragglers/detected``).  The reference's
-``elastic_restart`` (a reshard onto another mesh) waits for
-``core.migration`` and the mesh; its ``retry_stragglers`` and pluggable
-``prefetcher`` wait for the sharded feeder that would use them.
+``elastic_restart`` (a reshard onto another mesh through
+``migration.migrate_to_mesh``) waits for the port's mesh; its
+``retry_stragglers`` and pluggable ``prefetcher`` wait for the sharded
+feeder that would use them.
 
 The trainer runs on ``cuda`` unless given ``device="cpu"``; without CUDA
 it raises, and the model must live on the trainer's device.

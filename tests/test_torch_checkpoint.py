@@ -1,7 +1,10 @@
 """The port's local checkpoints: the reference's local cases (roundtrip,
 latest step, async write, torn write, missing raises, resume then step),
 a checkpoint written by either package restored equal by the other (the
-on-disk layout is shared), and a bf16 leaf."""
+on-disk layout is shared), a bf16 leaf, and checkpoints by GID
+(``save_gid``/``restore_gid``): the local round trip, the remote branches
+raising, and a GID checkpoint written by either package restored by the
+other."""
 import json
 from pathlib import Path
 
@@ -145,3 +148,66 @@ def test_resume_then_step_trains(port_rt, tmp_path):
     assert int(tr2.opt_state["step"]) == 4
     hist = tr2.fit(2)
     assert [h["step"] for h in hist] == [5, 6]
+
+
+# ------------------------------------------------------ checkpoints by GID
+def test_save_gid_restore_gid_reinstalls_under_the_name(port_rt, tmp_path):
+    """Local branch: the AGAS record is snapshotted and ``agas.json`` names
+    it; restoring after the object is gone registers the state under its
+    old name with a new GID."""
+    from repro_torch.core import agas
+
+    a = agas.default()
+    s = _state(4)
+    gid = a.register_name("/ckpt/gid/state", s, replace=True)
+    out = ckpt.save_gid(tmp_path, 3, "/ckpt/gid/state")
+    meta = json.loads((out / "agas.json").read_text())
+    assert meta == {"gid": [gid.locality, gid.seq], "name": "/ckpt/gid/state"}
+    a.unregister(gid)
+    step, new = ckpt.restore_gid(tmp_path)
+    assert step == 3 and new != gid and a.gid_of("/ckpt/gid/state") == new
+    _assert_same(a.resolve(new), s)
+    # by GID as well as by name; a taken name is rebound, its GID kept
+    ckpt.save_gid(tmp_path, 4, new)
+    gen = a.record(new).generation
+    step, again = ckpt.restore_gid(tmp_path, 4)
+    assert step == 4 and again == new and a.record(new).generation == gen + 1
+    a.unregister(new)
+
+
+def test_gid_checkpoint_remote_branches_raise(port_rt, tmp_path):
+    with pytest.raises(RuntimeError, match="needs a multi-locality runtime"):
+        ckpt.save_gid(tmp_path, 1, "/ckpt/gid/nowhere")
+    ckpt.save(tmp_path, 1, _state())
+    with pytest.raises(RuntimeError, match="needs a multi-locality runtime"):
+        ckpt.restore_gid(tmp_path, 1, locality=1)
+
+
+def test_reference_save_gid_restores_in_the_port(rt, port_rt, tmp_path):
+    """A checkpoint written by the reference's ``save_gid`` restores through
+    the port's ``restore_gid``: the same state, under the same name."""
+    from repro.core import agas as ragas
+    from repro_torch.core import agas
+
+    s = _state(5)
+    rgid = ragas.default().register_name("/ckpt/gid/ref", _numpy(s), replace=True)
+    rckpt.save_gid(tmp_path, 9, "/ckpt/gid/ref")
+    ragas.default().unregister(rgid)
+    step, gid = ckpt.restore_gid(tmp_path)
+    assert step == 9 and agas.default().gid_of("/ckpt/gid/ref") == gid
+    _assert_same(agas.default().resolve(gid), s)
+    agas.default().unregister(gid)
+
+
+def test_port_save_gid_restores_in_the_reference(rt, port_rt, tmp_path):
+    from repro.core import agas as ragas
+    from repro_torch.core import agas
+
+    s = _state(6)
+    gid = agas.default().register_name("/ckpt/gid/port", s, replace=True)
+    ckpt.save_gid(tmp_path, 2, gid)
+    agas.default().unregister(gid)
+    step, rgid = rckpt.restore_gid(tmp_path)
+    assert step == 2 and ragas.default().gid_of("/ckpt/gid/port") == rgid
+    _assert_same(ragas.default().resolve(rgid), s)
+    ragas.default().unregister(rgid)
