@@ -18,8 +18,10 @@ and 1000 (B=1, H=24, KV=2, Dh=128, causal), paged
 decode at B=8 with lengths 16-576 and pages of 16, dense decode at
 starcoder2_3b's cache with ``STARCODER_LENS``; and each one's host time
 per call (the median over 5 batches of 200 calls enqueued back to back).
-With ``--serve`` it also runs phase 5 (the 18-request serving run) and
-phase 6 (the decode-step profile).  With ``--sweep``, each turn whose
+With ``--serve`` it also runs phase 5 (the 18-request serving run:
+tokens/s, TTFT, prefill and decode-step p50, and the SLOW shares where
+the checkout's phase 5 computes them) and phase 6 (the decode-step
+profile).  With ``--sweep``, each turn whose
 checkout chooses its decode split count in
 ``decode_attention.split_plan`` also times the paged kernel with that
 count forced to 1, 4, 8, 16, 32 and 64 (each made whole: no split left
@@ -93,8 +95,15 @@ if SERVE:
     serve, step = c.REPORT["serve"], c.REPORT["profile"]["decode_step_b8"]
     out.update(tokens_per_s=serve["tokens_per_s"],
                decode_step_p50_ms=serve["decode_step_p50_s"] * 1e3,
+               ttft_p50_ms=serve["ttft_p50_s"] * 1e3,
+               prefill_p50_ms=serve["prefill_p50_s"] * 1e3,
                step_wall_ms=step["wall_ms"], step_device_ms=step["device_ms"],
                step_kernels=step.get("kernels_per_call"))
+    slow = c.REPORT.get("serve_slow")  # checkouts whose phase 5 reads SLOW
+    if slow:
+        out.update(slow_share_p50=slow["share_p50"],
+                   slow_ttft_window_share_p50=slow["ttft_window_share_p50"],
+                   slow_events=slow["events"], slow_wall_s=slow["wall_s"])
 if SWEEP and hasattr(da, "split_plan"):
     plan = da.split_plan
     for name, lens, maxp in (("serving", serving, 64), ("long", [c.LONG_CONTEXT] * 8,

@@ -96,7 +96,18 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    sampled ones (T=0.8, top-k 40), 64 new tokens each.  Checks lengths,
    token ids and that the kernels launched exactly 30 × prefills and
    30 × decode steps (and the other four kernels never); reports
-   tokens/s, TTFT p50, decode-step p50 and peak device memory.
+   tokens/s, TTFT p50, decode-step p50 and peak device memory.  The
+   greedy requests go in with ``slo="interactive"`` and the sampled ones
+   with ``slo="batch"`` (one untiered engine takes both).  From the run's
+   trace (``obs.export.merged_trace``): each request's critical path
+   (``obs.critical_path``), which must tile the request with no gap and
+   clamp under 1 % of its wall time, and the SLOW report
+   (``obs.attribution``), which must hold both tiers; the p50 over
+   requests of each class's share of the request and of its TTFT window
+   is printed.  While the engine lives, one ``/metrics`` scrape through
+   ``obs.metrics.MetricsExporter``, parsed strictly, must read the
+   engine's completed requests (19, the warm-up's included), generated
+   tokens and first-token p99.
 5c. Serve the MoE family — full deepseek_moe_16b (28 layers, 16.4 B
    params, made one tensor at a time in bf16) on phase 5's engine and
    traffic: exactly 28 flash launches a prefill and 28 paged decodes a
@@ -1527,11 +1538,12 @@ def phase_parity_encdec_vlm(torch, np):
 
 
 # ------------------------------------------------------------------ phase 5
-def _drive(torch, router, eng, reqs, max_new, card, vocab):
-    """Run ``reqs`` [(prompt, sampling)] through the router, each streamed,
-    with the launch counts set to 0 just before and read just after; check
-    each request's length, vocab range and stream; report tokens/s, TTFT
-    p50, decode-step p50 and peak device memory."""
+def _drive(torch, router, eng, reqs, max_new, card, vocab, slos=None):
+    """Run ``reqs`` [(prompt, sampling)] through the router, each streamed
+    (with its SLO tier from ``slos`` when given), with the launch counts
+    set to 0 just before and read just after; check each request's length,
+    vocab range and stream; report tokens/s, TTFT p50, decode-step p50 and
+    peak device memory.  The run's trace stays in the rings."""
     from repro_torch.kernels import ops
     from repro_torch.obs import trace
 
@@ -1542,7 +1554,9 @@ def _drive(torch, router, eng, reqs, max_new, card, vocab):
     base_prefills, base_steps = eng.prefill_count, eng.step_count
     ops.reset_launch_counts()  # ← the path's run starts here
     t_run = time.perf_counter()
-    streams = [router.submit_stream(p, sampling=sp) for p, sp in reqs]
+    slos = slos or [None] * len(reqs)
+    streams = [router.submit_stream(p, sampling=sp, slo=s)
+               for (p, sp), s in zip(reqs, slos)]
     outs = [None] * len(reqs)
 
     def drain(i, ch):
@@ -1578,6 +1592,8 @@ def _drive(torch, router, eng, reqs, max_new, card, vocab):
     step_s = [e[4] for e in evs if e[0] == "X" and e[1] == "decode_step"]
     prefill_s = [e[4] for e in evs if e[0] == "X" and e[1] == "prefill"]
     check(len(ttft) == len(reqs), f"serve: {len(ttft)} TTFTs for {len(reqs)} requests")
+    check(eng.decode_compile_count() == 1,
+          f"serve: {eng.decode_compile_count()} decode-step signatures, not 1")
     total = sum(len(r) for r in results)
     return {
         "card": card, "requests": len(reqs), "generated_tokens": total,
@@ -1590,8 +1606,6 @@ def _drive(torch, router, eng, reqs, max_new, card, vocab):
         "prompt_lengths": [len(p) for p, _ in reqs],
         "decode_signatures": eng.decode_compile_count(),
     }
-    check(eng.decode_compile_count() == 1,
-          f"serve: {eng.decode_compile_count()} decode-step signatures, not 1")
 
 
 def _log_serve(tag, serve):
@@ -1611,7 +1625,107 @@ def _check_launches(tag, launches, want):
     check(launches == full, f"{tag}: launches {launches} != {full}")
 
 
-def _serve_paged(torch, np, card, arch, tag, extra=None):
+def _slow_shares(intervals, t_end):
+    """Each SLOW class's share of the intervals' time up to ``t_end``."""
+    from repro_torch.obs.critical_path import CLASS_NAMES
+
+    by = dict.fromkeys(CLASS_NAMES.values(), 0.0)
+    for iv in intervals:
+        if iv.t0 < t_end:
+            by[CLASS_NAMES[iv.cls]] += min(iv.t1, t_end) - iv.t0
+    total = sum(by.values())
+    return {k: v / total for k, v in by.items()}
+
+
+def _serve_slow(eng, n_reqs):
+    """The SLOW breakdown of phase 5's traced run and one ``/metrics``
+    scrape, with the engine still alive.  Each of the ``n_reqs`` measured
+    requests must have a critical path that tiles it with no gap and
+    clamps under 1 % of its wall time; the SLOW report must hold both
+    tiers; the scrape, parsed strictly, must read the engine's own
+    counters.  Reports the p50 over requests of each class's share of the
+    request's wall time and of its TTFT window (its intervals cut at its
+    first ``token`` instant)."""
+    from repro_torch.net.httpd import http_get
+    from repro_torch.obs import attribution, export
+    from repro_torch.obs import critical_path as cpm
+    from repro_torch.obs.metrics import MetricsExporter, parse_prometheus_text
+
+    t0 = time.perf_counter()
+    tr = export.merged_trace()
+    check(not tr.get("lossy"), f"serve slow: the trace's rings wrapped: {tr.get('ring_drops')}")
+    idx = cpm.TraceIndex(tr)
+    tags = cpm.request_ids(idx)
+    check(len(tags) == n_reqs, f"serve slow: {len(tags)} requests in the trace, not {n_reqs}")
+    aid = {}  # request tag → its async id, shared by its token instants
+    first = {}  # async id → first token's timestamp (events sorted by ts)
+    for e in tr["traceEvents"]:
+        if e["ph"] == "b" and e["name"] == "request":
+            aid[e["args"]["req"]] = e["id"]
+        elif e["ph"] == "n" and e["name"] == "token":
+            first.setdefault(e["id"], e["ts"])
+    cps, whole, ttft = {}, [], []
+    for tag in tags:
+        cp = cpm.critical_path(idx, tag)
+        check(cp is not None, f"serve slow: no critical path for {tag}")
+        ivs = cp.intervals
+        check(bool(ivs) and ivs[0].t0 == cp.t0 and ivs[-1].t1 == cp.t1
+              and all(b.t0 == a.t1 for a, b in zip(ivs, ivs[1:])),
+              f"serve slow: {tag}'s path leaves a gap in [{cp.t0}, {cp.t1}]")
+        check(cp.clamped_us < 0.01 * cp.total_us,
+              f"serve slow: {tag} clamps {cp.clamped_us:.1f} of {cp.total_us:.1f} µs")
+        check(aid.get(tag) in first, f"serve slow: {tag} has no token instant")
+        cps[tag] = cp
+        whole.append(_slow_shares(ivs, cp.t1))
+        ttft.append(_slow_shares(ivs, first[aid[tag]]))
+    report = attribution.slow_report(idx, cps)
+    check({"interactive", "batch"} <= set(report["tiers"]),
+          f"serve slow: tiers {sorted(report['tiers'])}")
+    analysis_s = time.perf_counter() - t0
+
+    eng_label = eng.scfg.name.split("#")[1]
+    with MetricsExporter(port=0) as ex:
+        status, body = http_get(ex.url)
+    check(status == 200, f"serve metrics: /metrics answered {status}")
+    fams = parse_prometheus_text(body, strict=True)
+
+    def read(family):
+        hits = [v for _n, labels, v in fams.get(family, {}).get("samples", [])
+                if labels.get("engine") == eng_label]
+        check(len(hits) == 1, f"serve metrics: {len(hits)} samples of {family}")
+        return hits[0]
+
+    scraped = {"requests_completed": read("repro_serve_requests_completed_total"),
+               "tokens_generated": read("repro_serve_tokens_generated_total"),
+               "first_token_p99_s": read("repro_serve_request_first_token_p99")}
+    own = {"requests_completed": eng.c_done.get_value(),
+           "tokens_generated": eng.c_tok.get_value(),
+           "first_token_p99_s": eng.t_first.quantile(0.99)}
+    check(scraped == own, f"serve metrics: scraped {scraped} != the engine's {own}")
+    check(own["requests_completed"] == n_reqs + 1,
+          f"serve metrics: {own['requests_completed']} requests completed, not {n_reqs + 1}")
+
+    def p50(rows):
+        return {k: statistics.median(r[k] for r in rows) for k in rows[0]}
+
+    out = {"events": len(tr["traceEvents"]), "requests": len(tags),
+           "share_p50": p50(whole), "ttft_window_share_p50": p50(ttft),
+           "max_clamped_fraction": max(cp.clamped_us / cp.total_us for cp in cps.values()),
+           "report": report, "scrape": scraped, "metric_families": len(fams),
+           "analysis_s": analysis_s, "wall_s": time.perf_counter() - t0}
+    REPORT["serve_slow"] = out
+
+    def fmt(d):
+        return " ".join(f"{k}={v:.4f}" for k, v in d.items())
+
+    log(f"[serve slow] {out['events']} events, {len(tags)} paths, tiers "
+        f"{sorted(report['tiers'])}; p50 share of a request: {fmt(out['share_p50'])}; "
+        f"of its TTFT window: {fmt(out['ttft_window_share_p50'])}")
+    log(f"[serve slow] /metrics: {len(fams)} families; {scraped} equal to the "
+        f"engine's; analysis {analysis_s:.2f} s, with the scrape {out['wall_s']:.2f} s")
+
+
+def _serve_paged(torch, np, card, arch, tag, extra=None, observe=False):
     """Phases 5, 5c and 5d's VLM: ``arch`` at full width and depth through
     ``Router.replicate`` with one paged engine and pipelined admission
     (random init from SEED, made one tensor at a time in bf16; max_batch
@@ -1620,7 +1734,10 @@ def _serve_paged(torch, np, card, arch, tag, extra=None):
     exactly one flash launch per layer a prefill and one paged decode per
     layer a step; then phase 6's profile of the engine's model.  The vlm
     family's prompts are ``n_patches`` tokens longer (its image
-    positions), its patches ``extra``.  Returns the path's launches."""
+    positions), its patches ``extra``.  With ``observe`` the greedy
+    requests are ``interactive`` and the sampled ``batch``, and the run's
+    trace and counters go through ``_serve_slow``.  Returns the path's
+    launches."""
     import repro_torch.core as core
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
@@ -1657,8 +1774,12 @@ def _serve_paged(torch, np, card, arch, tag, extra=None):
                    for n in rng.integers(16, 513, size=2)]
         hot = SamplingParams(temperature=0.8, top_k=40)
         reqs = [(p, None) for p in greedy] + [(p, hot) for p in sampled]
-        serve = _drive(torch, router, eng, reqs, max_new, card, cfg.vocab_size)
+        slos = (["interactive"] * len(greedy) + ["batch"] * len(sampled)
+                if observe else None)
+        serve = _drive(torch, router, eng, reqs, max_new, card, cfg.vocab_size, slos)
         serve.update(setup_s=setup_s, setup_peak_bytes=setup_peak, arch=arch)
+        if observe:
+            _serve_slow(eng, len(reqs))
         launches, prefills, steps = serve["launches"], serve["prefills"], serve["decode_steps"]
         L = cfg.num_layers
         _check_launches(tag, launches, {"flash_attention": L * prefills,
@@ -1677,7 +1798,7 @@ def _serve_paged(torch, np, card, arch, tag, extra=None):
 
 
 def phase_serve(torch, np, card):
-    return _serve_paged(torch, np, card, "starcoder2_3b", "serve")
+    return _serve_paged(torch, np, card, "starcoder2_3b", "serve", observe=True)
 
 
 def phase_serve_moe(torch, np, card):

@@ -157,10 +157,44 @@ def _tensor(data: Any) -> torch.Tensor:
     return torch.as_tensor(data, device=resolve_device())
 
 
-def _on(init: Any, total: torch.Tensor) -> torch.Tensor:
-    """``init`` as a tensor beside ``total`` (torch ops take no Python
-    numbers where jnp's do)."""
-    return torch.as_tensor(init, device=total.device)
+# The reference's jnp runs without x64, so its default integer is int32:
+# jnp.sum widens bool and the narrow integers to int32 (torch.sum: int64)
+# and jnp.cumsum widens bool to int32 (torch.cumsum: every integer to
+# int64).  Here an int64 result stands for the reference's int32 only
+# where an input was int64.
+_NARROW_INTS = (torch.bool, torch.int8, torch.int16, torch.int32)
+
+
+def _sum_dtype(dt: torch.dtype) -> Optional[torch.dtype]:
+    """The dtype ``jnp.sum`` gives an input of ``dt`` (None: keep ``dt``)."""
+    return torch.int32 if dt in _NARROW_INTS else None
+
+
+def _cumsum_dtype(dt: torch.dtype) -> torch.dtype:
+    """The dtype ``jnp.cumsum`` gives an input of ``dt``."""
+    return torch.int32 if dt == torch.bool else dt
+
+
+def _strong(dt: torch.dtype) -> torch.dtype:
+    """``jnp.asarray(init).dtype`` for an init torch types as ``dt``: jnp
+    without x64 makes 64-bit inits 32-bit."""
+    return {torch.int64: torch.int32, torch.float64: torch.float32,
+            torch.complex128: torch.complex64}.get(dt, dt)
+
+
+def _with_init(op: Callable, init: Any, total: torch.Tensor) -> Any:
+    """The reference's ``op(init, total)``.  A Python number is weak in jnp
+    (the total's dtype wins within its kind), as it is beside a 0-dim
+    tensor in torch; torch ops take no Python numbers where jnp's do, so
+    both sides go in at that dtype.  Any other init promotes strongly, as
+    torch promotes two tensors."""
+    if isinstance(init, (bool, int, float, complex)):
+        dt = torch.result_type(total, init)
+        if dt == torch.int64 and total.dtype != torch.int64:
+            dt = torch.int32
+        return op(torch.as_tensor(init, dtype=dt, device=total.device),
+                  total.to(dt))
+    return op(torch.as_tensor(init, device=total.device), total)
 
 
 def _sync(t: torch.Tensor) -> None:
@@ -278,9 +312,10 @@ def reduce(
             arr = _tensor(data)
             if arr.shape[0] == 0:
                 return init
-            total = (torch.sum(arr, dim=0) if op is operator.add  # elements may be batched
+            total = (torch.sum(arr, dim=0, dtype=_sum_dtype(arr.dtype))  # elements may be batched
+                     if op is operator.add
                      else _vec_tree_reduce("reduce", op, arr))
-            return op(_on(init, total), total)
+            return _with_init(op, init, total)
 
         return _offload(policy, thunk)
 
@@ -315,9 +350,13 @@ def transform_reduce(
             if arr.shape[0] == 0:
                 return init
             mapped = _vmap("transform_reduce", "body", fn, arr)
-            total = (torch.sum(mapped, dim=0) if op is operator.add
+            if mapped.dtype == torch.int64 and arr.dtype in _NARROW_INTS:
+                # torch's default integer where the body's jnp gives int32
+                mapped = mapped.to(torch.int32)
+            total = (torch.sum(mapped, dim=0, dtype=_sum_dtype(mapped.dtype))
+                     if op is operator.add
                      else _vec_tree_reduce("transform_reduce", op, mapped))
-            return op(_on(init, total), total)
+            return _with_init(op, init, total)
 
         return _offload(policy, thunk)
 
@@ -414,7 +453,8 @@ def inclusive_scan(policy: ExecutionPolicy, data: Any,
             arr = _tensor(data)
             if arr.shape[0] == 0:
                 return arr
-            return (torch.cumsum(arr, dim=0) if op is operator.add
+            return (torch.cumsum(arr, dim=0, dtype=_cumsum_dtype(arr.dtype))
+                    if op is operator.add
                     else _assoc_scan("inclusive_scan", op, arr))
 
         return _offload(policy, thunk)
@@ -448,13 +488,15 @@ def exclusive_scan(policy: ExecutionPolicy, data: Any, init: Any = 0,
                 return arr
             # promote like the seq oracle would (a float init over int data
             # yields floats — never silently truncate init to the data
-            # dtype), and broadcast init to the element shape
+            # dtype), strongly as the reference's jnp.result_type does, and
+            # broadcast init to the element shape
             init_t = torch.as_tensor(init, device=arr.device)
-            dt = torch.result_type(arr, init_t)
+            dt = torch.promote_types(arr.dtype, _strong(init_t.dtype))
             arr2 = arr.to(dt)
             init_el = init_t.to(dt).broadcast_to(arr2.shape[1:])[None]
             if op is operator.add:
-                return torch.cat([init_el, init_el + torch.cumsum(arr2, dim=0)[:-1]])
+                scan = torch.cumsum(arr2, dim=0, dtype=_cumsum_dtype(dt))
+                return torch.cat([init_el, init_el + scan[:-1]])
             # scan [init, x0, ..., x_{n-2}]: prefix folds seeded with init
             ext = torch.cat([init_el, arr2[:-1]])
             return _assoc_scan("exclusive_scan", op, ext)

@@ -26,6 +26,17 @@ Examples:
       --smoke --device cpu --no-paged --no-pipeline
   PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2_3b \\
       --requests 16 --max-new 64 --max-batch 8 --cache-len 1024
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2_3b \\
+      --smoke --device cpu --trace /tmp/t.json --slow-report \\
+      --metrics-port 0 --timeline /tmp/tl.jsonl
+
+The observability flags are the reference's that work at one locality:
+``--trace`` writes the merged Chrome trace, ``--slow-report`` prints its
+per-tier SLOW blame, ``--print-counters`` the end-of-run counter report,
+``--metrics-port`` serves ``/metrics`` while the run lasts, and
+``--timeline`` persists a JSONL counter timeline.  ``--fleet``, ``--slo``
+and ``--flight-recorder`` need more than one locality, as in the
+reference, and are refused with its messages.
 """
 
 from __future__ import annotations
@@ -62,7 +73,42 @@ def main() -> None:
     ap.add_argument("--top-p", type=float, default=1.0)
     ap.add_argument("--stream", action="store_true",
                     help="consume tokens via per-request channels")
+    # fleet control plane (needs more than one locality)
+    ap.add_argument("--fleet", action="store_true",
+                    help="the adaptive control plane (needs --localities > 1)")
+    ap.add_argument("--slo", action="store_true",
+                    help="SLO tiers with occupancy-gated batch admission "
+                         "(needs --localities > 1)")
+    ap.add_argument("--flight-recorder", metavar="PREFIX", default=None,
+                    help="the anomaly flight recorder (needs --fleet)")
+    # observability
+    ap.add_argument("--trace", metavar="PATH", default=None,
+                    help="record a task trace and write one merged Chrome "
+                         "trace JSON (Perfetto-loadable)")
+    ap.add_argument("--print-counters", metavar="PATTERN", default=None,
+                    help="end-of-run counter report (HPX --hpx:print-counter "
+                         "parity), e.g. '/serve*'")
+    ap.add_argument("--slow-report", action="store_true",
+                    help="after --trace export, run the critical-path "
+                         "analyzer and print the per-tier SLOW blame report "
+                         "(python -m repro_torch.obs.analyze parity)")
+    ap.add_argument("--metrics-port", type=int, default=None, metavar="PORT",
+                    help="serve an OpenMetrics /metrics endpoint (0 = "
+                         "ephemeral port); every scrape reads the counters live")
+    ap.add_argument("--timeline", metavar="PATH", default=None,
+                    help="persist a JSONL counter timeline (bounded by "
+                         "stride-doubling downsample); summarize later with "
+                         "python -m repro_torch.obs.analyze --timeline")
     args = ap.parse_args()
+    if args.slow_report and not args.trace:
+        ap.error("--slow-report needs --trace PATH (it analyzes the "
+                 "exported merged trace)")
+    if args.flight_recorder and not args.fleet:
+        ap.error("--flight-recorder needs --fleet (the controller's tick "
+                 "evaluates the trigger rules)")
+    if args.fleet or args.slo:
+        ap.error("--fleet/--slo need --localities > 1 (the control plane "
+                 "manages remote engines)")
 
     import repro_torch.core as core
     from repro_torch.configs import get_config
@@ -75,7 +121,12 @@ def main() -> None:
     # Resource partition: decode continuations on "default", prefill on its
     # own pool, host I/O on "io".
     core.init(pools={"default": args.workers, "prefill": 2, "io": 1})
+    exporter = timeline = tl_sampler = None
     try:
+        if args.trace:
+            from repro_torch.obs import trace as obs_trace
+
+            obs_trace.enable()
         scfg = ServeConfig(max_batch=args.max_batch, cache_len=args.cache_len,
                            max_new_tokens=args.max_new, page_size=args.page_size,
                            paged=not args.no_paged,
@@ -85,6 +136,20 @@ def main() -> None:
                                   extra_inputs=default_extra_inputs(cfg, model.device),
                                   device=model.device)
         del params  # the engines hold their compute-dtype copy
+        if args.metrics_port is not None:
+            from repro_torch.obs.metrics import MetricsExporter
+
+            exporter = MetricsExporter(port=args.metrics_port).start()
+            print(f"metrics: {exporter.url}", flush=True)
+        if args.timeline:
+            from repro_torch.obs.sampler import FleetSampler
+            from repro_torch.obs.timeseries import TimelineWriter
+
+            timeline = TimelineWriter(args.timeline, pattern="*", interval=0.25,
+                                      meta={"launcher": "serve", "arch": args.arch})
+            tl_sampler = FleetSampler(pattern="*", interval=0.25, timeline=timeline)
+            tl_sampler.sample_once()  # t=0 baseline record
+            tl_sampler.start()
         sampling = SamplingParams(temperature=args.temperature,
                                   top_k=args.top_k, top_p=args.top_p)
         rng = np.random.default_rng(0)
@@ -116,8 +181,40 @@ def main() -> None:
             "tokens_per_s": round(total_tokens / dt, 2),
             "counters": dict(core.counters.query("/serve*")),
         }
+        if args.trace:
+            from repro_torch.obs import export as obs_export
+
+            tr = obs_export.export_chrome_trace(args.trace)
+            report["trace"] = {"path": args.trace,
+                               "events": len(tr["traceEvents"])}
+            if args.slow_report:
+                from repro_torch.obs import attribution as obs_attr
+
+                rep = obs_attr.slow_report(tr)
+                print(obs_attr.format_report(rep))
+                report["slow_report"] = {"requests": rep["requests"],
+                                         "tiers": sorted(rep["tiers"])}
+        if args.print_counters:
+            from repro_torch.obs import sampler as obs_sampler
+
+            obs_sampler.print_counter_report(args.print_counters)
+        if timeline is not None:
+            tl_sampler.stop()
+            tl_sampler.sample_once()  # end-of-run record (≥2 guaranteed)
+            timeline.close()
+            report["timeline"] = {"path": args.timeline,
+                                  "records": timeline.records_written,
+                                  "stride": timeline.stride}
+        if exporter is not None:
+            report["metrics_url"] = exporter.url
         print(json.dumps(report, indent=1))
     finally:
+        if tl_sampler is not None:
+            tl_sampler.stop()
+        if timeline is not None:
+            timeline.close()
+        if exporter is not None:
+            exporter.close()
         core.finalize()
 
 

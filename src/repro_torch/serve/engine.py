@@ -334,6 +334,15 @@ class Engine:
                                    percentiles=True)
         self.t_first = reg.timer(f"/serve{{{n}}}/request/first_token",
                                  percentiles=True)
+        # live tail-latency gauges: what the flight-recorder trigger polls
+        # through the sampler (seconds, from the timer histograms).  They
+        # hold the timers, not the engine, so the registry never keeps an
+        # engine's cache alive
+        t_latency, t_first = self.t_latency, self.t_first
+        reg.register_callable(f"/serve{{{n}}}/request/latency/p99",
+                              lambda: t_latency.quantile(0.99))
+        reg.register_callable(f"/serve{{{n}}}/request/first_token/p99",
+                              lambda: t_first.quantile(0.99))
 
     @property
     def kv(self) -> PagedKVCache:
@@ -388,7 +397,8 @@ class Engine:
         self.c_sub.increment()
         if _trace._enabled:  # request lifetime as one async span
             _trace.async_begin("request", rid, "serve",
-                               prompt_len=len(req.prompt), req=tag)
+                               prompt_len=len(req.prompt), req=tag,
+                               slo=(meta or {}).get("slo"))
         self._ensure_running()
         return req.promise.future()
 
@@ -402,6 +412,14 @@ class Engine:
         """In-flight requests (queued + prefilling + decoding) — the
         router's least-loaded dispatch metric."""
         return self.c_sub.get_value() - self.c_done.get_value()
+
+    def occupancy(self) -> float:
+        """Fraction of KV capacity in use (paged: block-pool pages; dense:
+        occupied slots) — the admission-control signal."""
+        if self.paged:
+            kv = self.backend.kv
+            return kv.pages_in_use() / max(kv.num_pages - 1, 1)
+        return sum(s is not None for s in self.slots) / self.scfg.max_batch
 
     def _ensure_running(self) -> None:
         with self._lock:

@@ -526,3 +526,35 @@ def test_generic_op_matches_reference(rt, port_rt, algo, oname):
         np.testing.assert_allclose(got, want, rtol=1e-6)
     else:
         np.testing.assert_array_equal(got, want)
+
+
+NARROW = {"bfloat16": torch.bfloat16, "float16": torch.float16,
+          "int32": torch.int32, "bool": torch.bool}
+DTYPE_ALGOS = {
+    "reduce": lambda a, p, d, i: a.reduce(p, d, init=i),
+    "transform_reduce": lambda a, p, d, i: a.transform_reduce(p, d, lambda x: x * 2, init=i),
+    "inclusive_scan": lambda a, p, d, i: a.inclusive_scan(p, d),
+    "exclusive_scan": lambda a, p, d, i: a.exclusive_scan(p, d, init=i),
+}
+
+
+@pytest.mark.parametrize("init", [3, 0.5], ids=["int_init", "float_init"])
+@pytest.mark.parametrize("dname", list(NARROW))
+@pytest.mark.parametrize("algo", list(DTYPE_ALGOS))
+def test_vec_sum_dtype_matches_reference(rt, port_rt, algo, dname, init):
+    """Under ``vec`` the sums and scans give the reference's dtype for
+    bf16, fp16, int32 and bool inputs, with an integer and a float init
+    (a Python number stays weak beside the total, as in jnp; the
+    exclusive scan's init promotes strongly, as ``jnp.result_type`` does;
+    bool and int32 sum to int32, not torch's int64), then the same values:
+    small integers, exact in every one of these dtypes."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(5)
+    arr = rng.integers(0, 2 if dname == "bool" else 4, size=16)
+    call = DTYPE_ALGOS[algo]
+    want = jnp.asarray(call(ralg, rexec.vec, jnp.asarray(arr).astype(dname), init))
+    got = torch.as_tensor(call(alg, vec, torch.from_numpy(arr).to(NARROW[dname]), init))
+    assert str(got.dtype).removeprefix("torch.") == str(want.dtype), (algo, dname, init)
+    np.testing.assert_array_equal(got.to(torch.float64).numpy(),
+                                  np.asarray(want, np.float64))
