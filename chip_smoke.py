@@ -196,9 +196,39 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    exactly 120 flash launches each, finite loss and grads, the step's wall
    time, peak memory and a profiled step, beside the monolithic pass.
 
+10. Serve across localities — full starcoder2_3b in bf16 (seed 0,
+   max_batch 8, cache_len 1024, pages of 16) on every locality, each its
+   own process and CUDA context on the one card (``repro_torch.net``; the
+   workers are spawned, so this script's top level only defines).  (a)
+   ``Router.over_localities`` puts engine#0 at the root and engine#1 at
+   locality 1; 12 streamed greedy requests (prompts of 16–512 tokens, 64
+   new each): every stream equals its future, both localities generate,
+   and at every locality flash launched exactly 30 × its prefills and
+   paged decode 30 × its decode steps (each locality's own
+   ``ops.launch_counts()``, read through ``run_on``).  (b) ``grow_engine``
+   spawns locality 2 (engine#2, tier ``batch``); twelve requests go
+   straight to engine#1 twice without migration, then a third time with
+   ``migrate_engine`` moving engine#1 to locality 2 once every active
+   stream holds 8 tokens: every stream equals its future (65 tokens), the
+   relay's duplicate counter does not move, the requests moved equal
+   locality 2's ``migrated_in`` and include the 8 active ones, and
+   engine#1 serves at its new home; the cutover's time and the KV bytes
+   moved are reported.  (c) During the first unmigrated run one active
+   slot's KV goes from locality 1 to locality 2 through ``run_on``, is
+   restored into engine#2's pool, snapshotted again and shipped back:
+   bit-equal as bf16 bits.  (d) If the two unmigrated runs agree bit for
+   bit, the migrated tokens must equal them (else the count that agrees is
+   reported).  (e) A traced run (``enable_fleet``, clock-corrected
+   ``merged_trace``) of 9 requests over the three engines: every critical
+   path tiles its request with no gap and clamps under 1 %, every remote
+   request's path holds a latency segment, and one ``/metrics`` sweep
+   reads every locality's engine counters equal to ``query_counters``.
+   Reports tokens/s per engine, decode-step p50 and peak memory per
+   locality, the SLOW shares by locality and the phase's seconds.
+
 The second-to-last line of standard output is the ``kernels`` JSON, each
 kernel's launches summed over the paths of phases 5, 5c, 5b, 5d, 7, 8b, 8c,
-8d and 9; the last
+8d, 9 and 10 (phase 10's summed over its localities); the last
 is ``{"ok": true, "device": {...}}``.  A fuller report is written to
 ``chiprun_out/chip_smoke.json``.
 """
@@ -3299,6 +3329,494 @@ def phase_runtime(torch, np, card):
     return pipe["launches"]
 
 
+# ----------------------------------------------------------------- phase 10
+LOC_POOLS = {"default": 4, "prefill": 2, "io": 1}
+LOC_REQS = 12                 # requests of each run: 8 fill the slots, 4 queue
+LOC_MAX_NEW = 64
+LOC_MIGRATE_AFTER = 8         # tokens every active stream holds before the cutover
+LOC_TRACED_REQS = 9           # the traced run of (e), three to an engine
+ENGINE_PREFIX = "/engines/"
+# A locality's engines kept reachable after they leave AGAS (a migration's
+# husk), so that the launch counts of the process can still be accounted.
+_HELD = {}
+
+
+def _loc_engines():
+    """This locality's engines: those named ``/engines/<name>`` in AGAS, and
+    the held ones."""
+    from repro_torch.core import agas
+
+    found = {}
+    for rec in list(agas.default()):
+        if rec.name and rec.name.startswith(ENGINE_PREFIX):
+            found[id(rec.obj)] = (rec.name[len(ENGINE_PREFIX):], rec.obj)
+    for name, eng in _HELD.items():
+        found.setdefault(id(eng), (name, eng))
+    return list(found.values())
+
+
+def _loc_hold(rt, name):
+    """At a locality: keep its engine ``name`` reachable once it leaves AGAS."""
+    from repro_torch.core import agas
+
+    _HELD[name] = agas.resolve(ENGINE_PREFIX + name)
+    return True
+
+
+def _loc_reset(rt):
+    """At a locality: launch counts and the peak-memory mark to 0."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    return True
+
+
+def _loc_stats(rt):
+    """At a locality: its kernel launches since ``_loc_reset``, its peak
+    device memory, and each engine's prefills, decode steps and tokens."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    torch.cuda.synchronize()
+    return {"launches": ops.launch_counts(),
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "engines": {name: {"prefills": eng.prefill_count, "steps": eng.step_count,
+                               "tokens": eng.c_tok.get_value(),
+                               "step_s": eng.t_step.total}
+                        for name, eng in _loc_engines()}}
+
+
+def _kv_take(rt, name):
+    """At the locality of engine ``name``: pause it at a step boundary,
+    snapshot its first active slot (its live pages, to the host), resume."""
+    from repro_torch.core import agas
+
+    eng = agas.resolve(ENGINE_PREFIX + name)
+    eng.pause()
+    try:
+        slot = next(i for i, r in enumerate(eng.slots) if r is not None)
+        return eng.backend.snapshot_slot(slot)
+    finally:
+        eng.resume()
+
+
+def _kv_roundtrip(rt, name, snap):
+    """At another locality: restore ``snap`` into a free slot of engine
+    ``name``'s page pool (an idle engine), snapshot that slot again, and
+    free it."""
+    from repro_torch.core import agas
+
+    kv = agas.resolve(ENGINE_PREFIX + name).kv
+    slot = next(i for i in range(kv.max_batch) if not kv._owned[i])
+    check(kv.restore_slot(slot, snap), "localities (c): the pool cannot hold the slot")
+    try:
+        return kv.snapshot_slot(slot)
+    finally:
+        kv.release(slot)
+
+
+def _loc_window(net, L, tag, body):
+    """Run ``body()`` with every locality's launch counts set to 0 just
+    before and read just after; each locality must have launched exactly
+    L flash kernels a prefill and L paged decodes a decode step of its
+    engines, and nothing else.  Returns (body's result, launches summed
+    over the localities, {locality: stats after}, {locality: {engine:
+    deltas}})."""
+    from repro_torch import net as tnet
+
+    def sweep(fn):
+        futs = {lid: tnet.run_on(lid, fn) for lid in net.live_ids()}
+        return {lid: f.get(timeout=300) for lid, f in futs.items()}
+
+    sweep(_loc_reset)
+    before = sweep(_loc_stats)
+    result = body()
+    after = sweep(_loc_stats)
+    deltas, total = {}, {}
+    for lid, st in after.items():
+        was = before.get(lid, {"engines": {}})["engines"]
+        d = {name: {k: v - was.get(name, {}).get(k, 0) for k, v in e.items()}
+             for name, e in st["engines"].items()}
+        deltas[lid] = d
+        _check_launches(f"localities {tag} locality#{lid}", st["launches"],
+                        {"flash_attention": L * sum(e["prefills"] for e in d.values()),
+                         "paged_decode_attention": L * sum(e["steps"] for e in d.values())})
+        for k, v in st["launches"].items():
+            total[k] = total.get(k, 0) + v
+    return result, total, after, deltas
+
+
+def _stream_all(submit_stream, prompts):
+    """Submit each prompt streamed; a thread drains each stream, stamping
+    each token's arrival.  Returns (futures, tokens, stamps, threads)."""
+    streams = [submit_stream(p) for p in prompts]
+    toks = [[] for _ in prompts]
+    stamps = [[] for _ in prompts]
+
+    def drain(i, ch):
+        for t in ch:
+            toks[i].append(t)
+            stamps[i].append(time.perf_counter())
+
+    threads = [threading.Thread(target=drain, args=(i, ch), daemon=True)
+               for i, (ch, _) in enumerate(streams)]
+    for th in threads:
+        th.start()
+    return [f for _, f in streams], toks, stamps, threads
+
+
+def _finish_streams(tag, futs, toks, threads, max_new, vocab):
+    """Wait for every request; each must return max_new + 1 tokens in the
+    vocab, streamed exactly as returned."""
+    results = [f.get(timeout=900) for f in futs]
+    for th in threads:
+        th.join(timeout=60)
+    for i, (res, streamed) in enumerate(zip(results, toks)):
+        check(len(res) == max_new + 1, f"localities {tag}: request {i} has {len(res)} tokens")
+        check(all(0 <= t < vocab for t in res),
+              f"localities {tag}: request {i} has a token outside the vocab")
+        check(streamed == res, f"localities {tag}: request {i} streamed {len(streamed)} "
+              f"tokens unlike its result")
+    return results
+
+
+def _relay_total(name):
+    from repro_torch.core import counters
+
+    return sum(v for _, v in counters.query(f"/serve{{relay}}/tokens/{name}"))
+
+
+def _loc_traced(net, router, prompts, cfg, L):
+    """(e): a traced run over every engine of the fleet, its merged trace
+    (clock-corrected), each request's critical path, the SLOW shares by the
+    locality that served the request, decode-step p50 by locality, and one
+    ``/metrics`` sweep held against ``query_counters``."""
+    from repro_torch import net as tnet
+    from repro_torch.net.httpd import http_get
+    from repro_torch.obs import critical_path as cpm
+    from repro_torch.obs import export
+    from repro_torch.obs.metrics import MetricsExporter, parse_prometheus_text
+
+    export.enable_fleet(net)
+    export.clear_fleet(net)
+
+    def run():
+        t0 = time.perf_counter()
+        futs, toks, _st, threads = _stream_all(router.submit_stream, prompts)
+        res = _finish_streams("(e)", futs, toks, threads, LOC_MAX_NEW, cfg.vocab_size)
+        return res, time.perf_counter() - t0
+
+    try:
+        (results, wall), launches, _after, deltas = _loc_window(net, L, "(e)", run)
+        t0 = time.perf_counter()
+        tr = export.merged_trace(net)
+    finally:
+        export.disable_fleet(net)
+    check(not tr.get("lossy"), f"localities (e): rings wrapped: {tr.get('ring_drops')}")
+    idx = cpm.TraceIndex(tr)
+    tags = cpm.request_ids(idx)
+    check(len(tags) == len(prompts), f"localities (e): {len(tags)} requests traced")
+    home = {e["args"]["req"]: e["pid"] for e in tr["traceEvents"]
+            if e["ph"] == "b" and e["name"] == "request"}
+    by_loc, remote_latency, clamped = {}, [], []
+    for tag in tags:
+        cp = cpm.critical_path(idx, tag)
+        check(cp is not None, f"localities (e): no critical path for {tag}")
+        ivs = cp.intervals
+        check(bool(ivs) and ivs[0].t0 == cp.t0 and ivs[-1].t1 == cp.t1
+              and all(b.t0 == a.t1 for a, b in zip(ivs, ivs[1:])),
+              f"localities (e): {tag}'s path leaves a gap in [{cp.t0}, {cp.t1}]")
+        check(cp.clamped_us < 0.01 * cp.total_us,
+              f"localities (e): {tag} clamps {cp.clamped_us:.1f} of {cp.total_us:.1f} µs")
+        clamped.append(cp.clamped_us / cp.total_us)
+        loc = home[tag]
+        by_loc.setdefault(loc, []).append(_slow_shares(ivs, cp.t1))
+        if loc != net.locality:
+            check(len(cp.localities()) >= 2 and cp.by_class["L"] > 0,
+                  f"localities (e): remote request {tag} has no latency segment")
+            remote_latency.append(cp.by_class["L"] / cp.total_us)
+    check(bool(remote_latency), "localities (e): no request was served remotely")
+    steps = {}
+    for e in tr["traceEvents"]:
+        if e["ph"] == "X" and e["name"] == "decode_step":
+            steps.setdefault(e["pid"], []).append(e["dur"] / 1e6)
+    analysis_s = time.perf_counter() - t0
+
+    with MetricsExporter(net=net, port=0) as ex:
+        status, body = http_get(ex.url, timeout=120.0)
+    check(status == 200, f"localities (e): /metrics answered {status}")
+    fams = parse_prometheus_text(body, strict=True)
+    scraped = {}
+    for fam, what in (("repro_serve_tokens_generated_total", "tokens/generated"),
+                      ("repro_serve_requests_completed_total", "requests/completed")):
+        for _n, labels, v in fams.get(fam, {}).get("samples", []):
+            scraped[(int(labels["locality"]), labels["engine"], what)] = v
+    queried = {}
+    for lid in net.live_ids():
+        for name, v in tnet.query_counters(lid, "/serve{engine#*}/*"):
+            eng, what = name[len("/serve{engine#"):].split("}/", 1)
+            if what in ("tokens/generated", "requests/completed"):
+                queried[(lid, eng, what)] = v
+    check(scraped == queried and len(queried) >= 2 * len(net.live_ids()),
+          f"localities (e): /metrics {scraped} != query_counters {queried}")
+    ups = {labels["locality"]: v for _n, labels, v in fams["repro_up"]["samples"]}
+    check(all(ups.get(str(lid)) == 1.0 for lid in net.live_ids()),
+          f"localities (e): repro_up {ups}")
+
+    def p50(rows):
+        return {k: statistics.median(r[k] for r in rows) for k in rows[0]}
+
+    return {"requests": len(tags), "wall_s": wall, "events": len(tr["traceEvents"]),
+            "launches": launches, "engine_deltas": deltas,
+            "slow_share_p50_by_locality": {loc: p50(rows) for loc, rows in sorted(by_loc.items())},
+            "requests_by_locality": {loc: len(rows) for loc, rows in sorted(by_loc.items())},
+            "latency_share_of_remote_requests": remote_latency,
+            "max_clamped_fraction": max(clamped),
+            "decode_step_p50_s_by_locality": {loc: statistics.median(v)
+                                              for loc, v in sorted(steps.items())},
+            "metrics": {"series": len(queried), "families": len(fams)},
+            "analysis_s": analysis_s}
+
+
+def phase_serve_localities(torch, np, card):
+    """Phase 10, serving across localities: full starcoder2_3b in bf16 on
+    every locality (seed 0, max_batch 8, cache_len 1024, pages of 16), each
+    locality its own process with its own CUDA context on the one card.
+    (a) ``Router.over_localities`` over two localities, 12 streamed greedy
+    requests; (b) ``grow_engine`` adds locality 2, two unmigrated runs of
+    12 requests straight to engine#1 give the reference tokens, then the
+    same 12 again with ``migrate_engine`` moving engine#1 to locality 2
+    mid-generation; (c) during the first of those runs one active slot's
+    KV goes from locality 1 to locality 2 and back, bit-equal; (d) the
+    migrated greedy tokens against the unmigrated ones; (e) a traced run
+    over the three engines, its merged trace, critical paths and one
+    ``/metrics`` sweep.  Every window checks exact launches at every
+    locality.  Returns the phase's launches, summed over the localities."""
+    import repro_torch.core as core
+    from repro_torch import net as tnet
+    from repro_torch.configs import get_config
+    from repro_torch.core import agas, counters
+    from repro_torch.fleet import grow_engine, migrate_engine
+    from repro_torch.serve.engine import ServeConfig
+    from repro_torch.serve.router import Router
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("starcoder2_3b")
+    L, V = cfg.num_layers, cfg.vocab_size
+    rng = np.random.default_rng(SEED + 10)
+
+    def prompts(n):
+        return [rng.integers(1, V, size=k).tolist() for k in rng.integers(16, 513, size=n)]
+
+    out = {"card": card}
+    paths = []
+    core.init(pools=LOC_POOLS)
+    try:
+        with tnet.running(2, pools=LOC_POOLS, worker_pools=LOC_POOLS) as net:
+            t0 = time.perf_counter()
+            scfg = ServeConfig(max_batch=8, cache_len=1024, page_size=16,
+                               max_new_tokens=LOC_MAX_NEW, seed=SEED)
+            router = Router.over_localities(net, "starcoder2_3b", scfg, smoke=False)
+            eng0 = router.engines[0]
+            gid0 = agas.default().register(eng0, name=ENGINE_PREFIX + "engine#0")
+            try:
+                for e in router.engines:  # cuBLAS handles, allocator: outside the runs
+                    check(len(e.submit([1] * 16, max_new=2).get(timeout=600)) == 3,
+                          f"localities: warm-up of {e.name if hasattr(e, 'name') else 'engine#0'}")
+                out["setup_s"] = time.perf_counter() - t0
+
+                # (a) two localities serve through the router
+                pa = prompts(LOC_REQS)
+                tok0 = counters.get_value("/serve{engine#0}/tokens/generated")
+                tok1 = dict(tnet.query_counters(1, "/serve{engine#1}/tokens/generated"))
+
+                def run_a():
+                    t = time.perf_counter()
+                    futs, toks, _s, threads = _stream_all(router.submit_stream, pa)
+                    _finish_streams("(a)", futs, toks, threads, LOC_MAX_NEW, V)
+                    return time.perf_counter() - t
+
+                wall, la, after, da = _loc_window(net, L, "(a)", run_a)
+                paths.append(la)
+                gen0 = counters.get_value("/serve{engine#0}/tokens/generated") - tok0
+                gen1 = (dict(tnet.query_counters(1, "/serve{engine#1}/tokens/generated"))
+                        ["/serve{engine#1}/tokens/generated"]
+                        - tok1["/serve{engine#1}/tokens/generated"])
+                check(gen0 > 0 and gen1 > 0,
+                      f"localities (a): tokens by locality {gen0}, {gen1}: both must serve")
+                out["a"] = {
+                    "requests": len(pa), "wall_s": wall, "launches": la,
+                    "tokens_per_s": (gen0 + gen1) / wall,
+                    "tokens_per_s_by_engine": {"engine#0": gen0 / wall, "engine#1": gen1 / wall},
+                    "engine_deltas": da,
+                    "decode_step_mean_s": {lid: {n: e["step_s"] / e["steps"]
+                                                 for n, e in d.items() if e["steps"]}
+                                           for lid, d in da.items()},
+                    "peak_bytes_by_locality": {lid: s["peak_bytes"] for lid, s in after.items()},
+                    "prompt_lengths": [len(p) for p in pa]}
+
+                # (b) 1: a third locality joins under tier batch
+                t0 = time.perf_counter()
+                e2 = grow_engine(net, router, tier="batch")
+                check(e2.locality == 2 and router.tier_of(e2.name) == "batch",
+                      f"localities (b): grew {e2.name} at locality#{e2.locality}")
+                check(len(e2.submit([1] * 16, max_new=2).get(timeout=600)) == 3,
+                      "localities: warm-up of engine#2")
+                out["grow_s"] = time.perf_counter() - t0
+                e1 = router.engine("engine#1")
+                pb = prompts(LOC_REQS)
+
+                # (d) 1: the same requests twice without migration; (c) during the first
+                kv = {}
+
+                def run_base(first):
+                    def run():
+                        futs, toks, _s, threads = _stream_all(e1.submit_stream, pb)
+                        if first:
+                            deadline = time.monotonic() + 300
+                            while sum(len(t) > 0 for t in toks) < scfg.max_batch:
+                                check(time.monotonic() < deadline,
+                                      "localities (c): the slots never filled")
+                                time.sleep(0.001)
+                            t = time.perf_counter()
+                            snap = tnet.run_on(1, _kv_take, "engine#1").get(timeout=300)
+                            back = tnet.run_on(2, _kv_roundtrip, "engine#2",
+                                               snap).get(timeout=300)
+                            kv["seconds"] = time.perf_counter() - t
+                            kv["snap"], kv["back"] = snap, back
+                        return _finish_streams("(d)", futs, toks, threads, LOC_MAX_NEW, V)
+                    return run
+
+                base1, lb1, _a, _d = _loc_window(net, L, "(d) 1", run_base(True))
+                base2, lb2, _a, _d = _loc_window(net, L, "(d) 2", run_base(False))
+                paths += [lb1, lb2]
+                snap, back = kv.pop("snap"), kv.pop("back")
+                check(snap["n_pages"] > 0 and snap["n_pages"] == back["n_pages"]
+                      and snap["pos"] == back["pos"] and set(snap["pages"]) == set(back["pages"]),
+                      "localities (c): the round trip changed the slot's shape")
+                for k, a in snap["pages"].items():
+                    b = back["pages"][k]
+                    check(a.dtype == b.dtype == torch.bfloat16 and a.shape == b.shape
+                          and torch.equal(a.view(torch.int16), b.view(torch.int16)),
+                          f"localities (c): pool {k} is not bit-equal after the round trip")
+                kv.update(pages=snap["n_pages"], pos=snap["pos"],
+                          bytes=sum(a.numel() * a.element_size() for a in snap["pages"].values()))
+                out["c"] = kv
+                deterministic = base1 == base2
+
+                # (b) 2–3: the same requests, engine#1 moved to locality 2 mid-generation
+                dups0 = _relay_total("duplicates")
+                tnet.run_on(1, _loc_hold, "engine#1").get(timeout=60)
+                mig = {}
+
+                def run_b():
+                    futs, toks, stamps, threads = _stream_all(e1.submit_stream, pb)
+                    deadline = time.monotonic() + 300
+                    while sum(len(t) >= LOC_MIGRATE_AFTER for t in toks) < scfg.max_batch:
+                        check(time.monotonic() < deadline,
+                              "localities (b): the active streams never reached "
+                              f"{LOC_MIGRATE_AFTER} tokens")
+                        time.sleep(0.001)
+                    t = time.perf_counter()
+                    mig["moved"] = migrate_engine(net, router, "engine#1", 2)
+                    mig["migrate_s"] = time.perf_counter() - t
+                    res = _finish_streams("(b)", futs, toks, threads, LOC_MAX_NEW, V)
+                    gaps = [max(b - a for a, b in zip(s, s[1:])) for s in stamps if len(s) > 1]
+                    mig["max_token_gap_s"] = max(gaps)
+                    return res
+
+                migrated, lm, after_b, dm = _loc_window(net, L, "(b)", run_b)
+                paths.append(lm)
+                moved = mig["moved"]
+                check(e1.locality == 2, f"localities (b): engine#1 at locality#{e1.locality}")
+                check(_relay_total("duplicates") == dups0,
+                      "localities (b): the relay saw duplicate tokens across the cutover")
+                mig_in = dict(tnet.query_counters(2, "/serve{engine#1}/requests/migrated_in"))
+                mig_out = dict(tnet.query_counters(1, "/serve{engine#1}/requests/migrated_out"))
+                check(mig_in["/serve{engine#1}/requests/migrated_in"] == moved
+                      == mig_out["/serve{engine#1}/requests/migrated_out"],
+                      f"localities (b): moved {moved}, in {mig_in}, out {mig_out}")
+                active = moved - dm[2]["engine#1"]["prefills"]
+                check(active == scfg.max_batch,
+                      f"localities (b): {active} active requests moved, not {scfg.max_batch}")
+                fm = counters.default().snapshot_stats("/fleet{migrate}/*")
+
+                # (d) 2–3: greedy tokens across the cutover
+                agree = sum(a == b for a, b in zip(migrated, base1))
+                if deterministic:
+                    check(migrated == base1, f"localities (d): {agree} of {len(pb)} migrated "
+                          f"requests give the unmigrated tokens")
+
+                # the engine serves at its new home
+                def run_after():
+                    return e1.submit(pb[0]).get(timeout=600)
+
+                again, lafter, _a, dafter = _loc_window(net, L, "(b) after", run_after)
+                paths.append(lafter)
+                check(dafter[2]["engine#1"]["prefills"] == 1 and len(again) == LOC_MAX_NEW + 1,
+                      "localities (b): engine#1 did not serve at locality#2")
+                if deterministic:
+                    check(again == base1[0], "localities (b): engine#1's tokens changed "
+                          "at its new home")
+                out["b"] = {"requests": len(pb), "moved": moved, "active_moved": active,
+                            "migrate_s": mig["migrate_s"],
+                            "cutover_s": fm["/fleet{migrate}/cutover"]["mean"],
+                            "kv_bytes": fm["/fleet{migrate}/kv_bytes"]["value"],
+                            "max_token_gap_s": mig["max_token_gap_s"], "launches": lm,
+                            "engine_deltas": dm,
+                            "peak_bytes_by_locality": {lid: s["peak_bytes"]
+                                                       for lid, s in after_b.items()},
+                            "prompt_lengths": [len(p) for p in pb]}
+                out["d"] = {"rerun_bit_equal": deterministic, "agree": agree,
+                            "requests": len(pb), "gate": deterministic}
+
+                # (e) a traced run over the three engines
+                out["e"] = _loc_traced(net, router, prompts(LOC_TRACED_REQS), cfg, L)
+                paths.append(out["e"]["launches"])
+            finally:
+                agas.default().unregister(gid0)
+                eng0.close()
+    finally:
+        core.finalize()
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches = {k: sum(p.get(k, 0) for p in paths) for k in paths[0]}
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    REPORT["localities"] = out
+    a, b, c, d, e = out["a"], out["b"], out["c"], out["d"], out["e"]
+    gib = 2 ** 30
+    log(f"[localities] {card}: setup {out['setup_s']:.1f} s; (a) 2 localities, {a['requests']} "
+        f"requests in {a['wall_s']:.2f} s = {a['tokens_per_s']:.1f} tokens/s "
+        f"({ {k: round(v, 1) for k, v in a['tokens_per_s_by_engine'].items()} }); decode step "
+        f"mean ms { {lid: {n: round(v * 1e3, 2) for n, v in m.items()} for lid, m in a['decode_step_mean_s'].items()} }; "
+        f"peak GiB { {lid: round(v / gib, 2) for lid, v in a['peak_bytes_by_locality'].items()} }")
+    log(f"[localities] (b) grow {out['grow_s']:.1f} s; migrated {b['moved']} requests "
+        f"({b['active_moved']} active) mid-generation: migrate_engine {b['migrate_s']:.2f} s, "
+        f"cutover {b['cutover_s'] * 1e3:.1f} ms, {b['kv_bytes'] / 1e6:.2f} MB of KV, longest "
+        f"token gap {b['max_token_gap_s'] * 1e3:.1f} ms; peak GiB "
+        f"{ {lid: round(v / gib, 2) for lid, v in b['peak_bytes_by_locality'].items()} }")
+    log(f"[localities] (c) one slot's KV ({c['pages']} pages, {c['bytes'] / 1e6:.2f} MB, pos "
+        f"{c['pos']}) 1 → 2 → back bit-equal in {c['seconds'] * 1e3:.1f} ms; (d) rerun "
+        f"bit-equal: {d['rerun_bit_equal']}, migrated requests agreeing with the unmigrated "
+        f"run: {d['agree']} of {d['requests']}")
+    shares = {loc: " ".join(f"{k}={v:.4f}" for k, v in s.items())
+              for loc, s in e["slow_share_p50_by_locality"].items()}
+    log(f"[localities] (e) {e['requests']} traced requests {e['requests_by_locality']} by "
+        f"locality, {e['events']} events; p50 SLOW share by locality {shares}; decode step "
+        f"p50 ms { {k: round(v * 1e3, 2) for k, v in e['decode_step_p50_s_by_locality'].items()} }; "
+        f"max clamped {e['max_clamped_fraction']:.2e}; /metrics {e['metrics']['series']} "
+        f"series equal to query_counters; phase {out['seconds']:.1f} s; launches {launches}")
+    return launches
+
+
 # --------------------------------------------------------------------- main
 # the timing row the kernels line reports: flash at S=512 (starcoder2_3b's
 # prefill), the SSD and the RG-LRU as the models call them (fp32 dt and
@@ -3340,6 +3858,7 @@ def main() -> int:
     paths.append(phase_train_families(torch, np, card))
     paths.append(phase_train_families(torch, np, card, TRAIN_ENCDEC_VLM, "train_encdec_vlm"))
     paths.append(phase_runtime(torch, np, card))
+    paths.append(phase_serve_localities(torch, np, card))
     launches = {k: sum(p.get(k, 0) for p in paths) for k in paths[0]}
 
     kernels = []

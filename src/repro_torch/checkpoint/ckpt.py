@@ -17,8 +17,8 @@ bf16 (a reference-written bf16 leaf, two raw bytes, reads the same way).
 
 Checkpoints by GID (``save_gid``/``restore_gid``) cover objects that live
 in this process; their remote branches (an object owned by another
-locality) raise until the port has a multi-locality runtime, and so wait
-partitioned checkpoints for the port of ``container``.
+locality, reached through :mod:`repro_torch.net`) raise until the slice
+that ports partitioned checkpoints and ``container``.
 """
 
 from __future__ import annotations
@@ -147,9 +147,9 @@ def restore(ckpt_dir: Path, step: Optional[int] = None) -> Tuple[int, Dict[str, 
 
 def _no_net(what: str) -> RuntimeError:
     return RuntimeError(
-        f"{what} needs a multi-locality runtime, which the port does not have "
-        f"yet: only objects registered in this process can be checkpointed "
-        f"by GID")
+        f"{what} needs a multi-locality runtime's remote checkpoint branch, "
+        f"which the port has not ported yet: only objects registered in "
+        f"this process can be checkpointed by GID")
 
 
 def save_gid(ckpt_dir: Path, step: int, target: Any) -> Path:

@@ -156,7 +156,7 @@ class ParcelPort:
     def send(self, parcel: Parcel) -> Future[Any]:
         """Deliver a parcel: resolve target, run action where the data is.
 
-        With a multi-locality runtime up (the port's ``net``, to come), a
+        With a multi-locality runtime up (:mod:`repro_torch.net`), a
         parcel whose target does not resolve locally is handed to the
         installed remote route — the transport resolves the owning locality through the
         distributed AGAS tier and ships the invocation over the parcelport.

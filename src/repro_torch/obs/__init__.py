@@ -14,8 +14,9 @@ SLOW classes), :mod:`attribution` (per-tier reports, folded into
 histogram counters), :mod:`recorder` (the anomaly flight recorder),
 :mod:`analyze` (the ``python -m repro_torch.obs.analyze`` CLI).
 
-Each module runs its local branch; the reference's remote branches
-(``net`` given) raise until the port has a multi-locality runtime.  Only
+Given a ``net`` (:mod:`repro_torch.net`), each module reaches every
+locality over the parcelport, as the reference's does; without one it runs
+on this process alone.  The reference's ``top`` dashboard waits.  Only
 :mod:`trace` is imported eagerly: the core runtime instruments it, so
 this package loads everything else on first attribute access.
 """

@@ -1,12 +1,6 @@
 """Fleet-wide trace collection + Chrome trace-event export, ported from the
 reference's ``obs/export.py``.
 
-The port has one locality so far: every function here takes ``net`` as
-the reference's does, runs its local branch for ``net=None``, and raises
-``NotImplementedError`` for any other ``net`` until the port has a
-multi-locality runtime.  The ``_obs_*`` actions are registered (through
-:mod:`repro_torch.core.parcel`) for the peers that will call them.
-
 The flight-recorder read-out: locality 0 pulls every locality's per-thread
 ring buffers over the parcelport (plain actions — the trace rides the same
 wire it instruments), corrects worker clocks onto the root's
@@ -67,45 +61,78 @@ def _obs_collect(rt) -> List[Dict[str, Any]]:
     return _trace.export_buffers()
 
 
+# Fault-injection hook for clock-correction tests: a skew added to the
+# clock *as reported to probes* emulates the correction error left by
+# asymmetric link latency (the Cristian midpoint assumes symmetry).
+_probe_skew = 0.0
+
+
+def set_probe_skew(delta: float) -> None:
+    global _probe_skew
+    _probe_skew = float(delta)
+
+
+@_parcel.action
+def _obs_set_probe_skew(rt, delta: float) -> bool:
+    set_probe_skew(delta)
+    return True
+
+
 @_parcel.action
 def _obs_clock(rt) -> float:
     """Read this locality's monotonic clock (the handshake probe)."""
-    return time.perf_counter()
-
-
-def needs_net(what: str) -> NotImplementedError:
-    """The error every remote branch of the port's ``obs`` tier raises."""
-    return NotImplementedError(
-        f"{what} needs a multi-locality runtime, which the port does not "
-        f"have yet")
+    return time.perf_counter() + _probe_skew
 
 
 def clock_offset(net, locality: int, probes: int = 5) -> float:
     """``remote_perf_counter - local_perf_counter`` for ``locality``,
-    estimated in the reference from the minimum-RTT probe of ``probes``
-    round trips; a probe needs a peer, so the port raises."""
-    raise needs_net("clock_offset")
+    estimated from the minimum-RTT probe of ``probes`` round trips."""
+    from repro_torch.net import remote as _remote
+
+    if locality == net.locality:
+        return 0.0
+    best_rtt, best_off = float("inf"), 0.0
+    for _ in range(probes):
+        t0 = time.perf_counter()
+        w = _remote.run_on(locality, _obs_clock).get(timeout=30)
+        t1 = time.perf_counter()
+        rtt = t1 - t0
+        if rtt < best_rtt:
+            best_rtt, best_off = rtt, w - (t0 + t1) / 2.0
+    return best_off
 
 
 def enable_fleet(net=None, capacity: int = _trace.DEFAULT_CAPACITY) -> None:
     """Turn tracing on at every locality (local-only when ``net`` is None)."""
-    if net is not None:
-        raise needs_net("enable_fleet")
     _trace.enable(capacity=capacity)
+    if net is not None:
+        from repro_torch.net import remote as _remote
+
+        for loc in range(net.n_localities):
+            if loc != net.locality:
+                _remote.run_on(loc, _obs_enable, capacity).get(timeout=30)
 
 
 def disable_fleet(net=None) -> None:
-    if net is not None:
-        raise needs_net("disable_fleet")
     _trace.disable()
+    if net is not None:
+        from repro_torch.net import remote as _remote
+
+        for loc in range(net.n_localities):
+            if loc != net.locality:
+                _remote.run_on(loc, _obs_disable).get(timeout=30)
 
 
 def clear_fleet(net=None) -> None:
     """Drop every locality's ring buffers — the flight recorder arms from
     an empty window so a dump's evidence has a well-defined start."""
-    if net is not None:
-        raise needs_net("clear_fleet")
     _trace.clear()
+    if net is not None:
+        from repro_torch.net import remote as _remote
+
+        for loc in range(net.n_localities):
+            if loc != net.locality:
+                _remote.run_on(loc, _obs_clear).get(timeout=30)
 
 
 # ------------------------------------------------------------- conversion
@@ -172,21 +199,24 @@ def _metadata(buffers: List[Dict[str, Any]], pid: int) -> List[Dict[str, Any]]:
 def merged_trace(net=None, probes: int = 5) -> Dict[str, Any]:
     """One merged Chrome trace across the fleet (or just this process).
 
-    In the reference, ``net`` (a bootstrapped runtime, normally the root)
-    pulls every other locality's buffers over the parcelport, clock
-    corrected; the port raises for any ``net`` until it has one.
+    With ``net`` (a bootstrapped :class:`repro_torch.net.NetRuntime`, normally
+    the root), every other locality's buffers are pulled over the
+    parcelport and clock-corrected; flow events recorded on both ends of
+    each parcel stitch the localities together.
     """
-    if net is not None:
-        raise needs_net("merged_trace")
     events: List[Dict[str, Any]] = []
     ring_drops: Dict[str, int] = {}
-    try:
-        from repro_torch.core import agas as _agas
+    local_pid = 0
+    if net is not None:
+        local_pid = net.locality
+    else:
+        try:
+            from repro_torch.core import agas as _agas
 
-        a = _agas.peek()
-        local_pid = a.locality if a is not None else _agas._default_locality
-    except Exception:
-        local_pid = 0
+            a = _agas.peek()
+            local_pid = a.locality if a is not None else _agas._default_locality
+        except Exception:
+            local_pid = 0
 
     def _account_drops(bufs: List[Dict[str, Any]], pid: int) -> None:
         for buf in bufs:
@@ -194,6 +224,21 @@ def merged_trace(net=None, probes: int = 5) -> Dict[str, Any]:
                 key = f"{pid}/{buf.get('thread_name', buf.get('tid'))}"
                 ring_drops[key] = ring_drops.get(key, 0) + int(buf["dropped"])
 
+    if net is not None:
+        from repro_torch.net import remote as _remote
+
+        for loc in range(net.n_localities):
+            if loc == net.locality:
+                continue
+            off = clock_offset(net, loc, probes=probes)
+            bufs = _remote.run_on(loc, _obs_collect).get(timeout=60)
+            _account_drops(bufs, loc)
+            events.extend(_metadata(bufs, loc))
+            events.extend(_chrome_events(bufs, loc, offset=off))
+
+    # snapshot the collector's own buffers LAST: the collection round
+    # trips above record send spans here whose execute spans are already
+    # in the remote snapshots — collecting locally first would orphan them
     local = _trace.export_buffers()
     _account_drops(local, local_pid)
     events.extend(_metadata(local, local_pid))

@@ -1,6 +1,5 @@
 """OpenMetrics exposition — the counter tree as a Prometheus scrape, ported
-from the reference's ``obs/metrics.py``.  The port sweeps its own locality
-(``net=None``); a fleet sweep raises until it has a multi-locality runtime.
+from the reference's ``obs/metrics.py``.
 
 HPX publishes ``/threads{locality#0/total}/idle-rate`` and expects an
 operator (or Grafana) to be watching; our equivalent is this module.  A
@@ -247,9 +246,9 @@ class MetricsExporter:
     def sweep(self) -> Dict[int, Any]:
         if self.net is None:
             return {0: self.registry.snapshot_export(self.pattern)}
-        from repro_torch.obs.export import needs_net
+        from repro_torch.net import remote as _remote
 
-        raise needs_net("a fleet-wide metrics sweep")
+        return _remote.query_counter_export(None, self.pattern)
 
     def scrape(self) -> str:
         with self._lock:

@@ -1,6 +1,5 @@
 """Fleet counter sampler — scalar counters become time series, ported from
-the reference's ``obs/sampler.py``.  The port samples its own locality
-(``net=None``); a fleet sweep raises until it has a multi-locality runtime.
+the reference's ``obs/sampler.py``.
 
 The paper's §2.4 adaptivity story needs *history*: a cumulative counter
 read once says "1.2M tasks executed", read on a cadence it says "tasks/s,
@@ -62,9 +61,7 @@ class FleetSampler:
     def _localities(self) -> List[int]:
         if self.net is None:
             return [0]
-        from repro_torch.obs.export import needs_net
-
-        raise needs_net("a fleet sampler")
+        return self.net.live_ids()
 
     def sample_once(self) -> int:
         """One parallel sweep over every *live* locality; returns points
@@ -78,9 +75,10 @@ class FleetSampler:
         if self.net is None:
             sweep: Dict[int, Any] = {0: self.registry.query(self.pattern)}
         else:
-            from repro_torch.obs.export import needs_net
+            from repro_torch.net import remote as _remote
 
-            raise needs_net("a fleet sampler")
+            sweep = _remote.query_counters(
+                None, self.pattern, timeout=max(30.0, self.interval * 4))
         for loc, pairs in sweep.items():
             if isinstance(pairs, dict):  # {"error": ...} — peer went away
                 self.sample_errors += 1
@@ -180,9 +178,13 @@ def print_counter_report(pattern: str = "*", net=None,
         sweep = {0: _counters.default().snapshot_stats(pattern)}
         blame = {0: _counters.default().snapshot_stats(blame_pat)}
     else:
-        from repro_torch.obs.export import needs_net
+        from repro_torch.net import remote as _remote
 
-        raise needs_net("a fleet counter report")
+        # fault-tolerant sweep form: a dead peer contributes an
+        # {"error": ...} marker, not an exception — the report says so
+        # explicitly instead of silently shrinking the fleet
+        sweep = _remote.query_counter_stats(None, pattern)
+        blame = _remote.query_counter_stats(None, blame_pat)
 
     def _unreachable(result) -> bool:
         # counter names always start with "/" so the shapes can't collide

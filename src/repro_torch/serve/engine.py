@@ -40,13 +40,19 @@ PyTorch runs eagerly and compiles nothing, so the counterpart of the
 reference's decode compile count is :meth:`Engine.decode_compile_count`:
 the distinct (shape, dtype) signatures the decode step has been called
 with — what a jit would have compiled once each, and what a CUDA graph of
-the step would capture once each.  Live migration waits for the
-multi-locality slice.
+the step would capture once each.
+
+Live migration (the paged backend only, as in the reference): ``pause``
+quiesces at a step boundary, ``take_requests`` drains every request into a
+picklable snapshot (active slots with their live KV pages, queued ones as
+prompts), and ``restore_requests`` rebuilds them slot for slot in another
+engine, which continues mid-generation (:mod:`repro_torch.fleet.migrate`).
 
 Performance counters: ``/serve{<name>}/requests/{submitted,completed}``,
 ``/serve{<name>}/tokens/generated``, ``/serve{<name>}/step/duration``,
-``/serve{<name>}/request/{latency,first_token}``, plus the page-pool
-gauges from :mod:`repro_torch.serve.kv_cache`.
+``/serve{<name>}/request/{latency,first_token}``,
+``/serve{<name>}/requests/migrated_{in,out}``, plus the page-pool gauges
+from :mod:`repro_torch.serve.kv_cache`.
 """
 
 from __future__ import annotations
@@ -269,6 +275,12 @@ class _PagedSlots:
     def step_bookkeeping(self, active: List[int]) -> None:
         self.kv.pos[active] += 1
 
+    def snapshot_slot(self, slot: int) -> Dict[str, Any]:
+        return self.kv.snapshot_slot(slot)
+
+    def restore_slot(self, slot: int, snap: Dict[str, Any]) -> bool:
+        return self.kv.restore_slot(slot, snap)
+
 
 # ----------------------------------------------------------------- engine
 class Engine:
@@ -307,6 +319,8 @@ class Engine:
         self._work_event = threading.Event()  # prefill completion wakeup
         self._lock = threading.Lock()
         self._running = False
+        self._paused = False
+        self._migrate_key: Optional[Tuple[int, int]] = None
         self._rid = 0
         self.step_count = 0
         self.prefill_count = 0
@@ -334,6 +348,10 @@ class Engine:
                                    percentiles=True)
         self.t_first = reg.timer(f"/serve{{{n}}}/request/first_token",
                                  percentiles=True)
+        # live-migration accounting: migrated-out counts toward completed so
+        # load() stays "requests this engine still has to do"
+        self.c_mig_out = reg.counter(f"/serve{{{n}}}/requests/migrated_out")
+        self.c_mig_in = reg.counter(f"/serve{{{n}}}/requests/migrated_in")
         # live tail-latency gauges: what the flight-recorder trigger polls
         # through the sampler (seconds, from the timer histograms).  They
         # hold the timers, not the engine, so the registry never keeps an
@@ -379,7 +397,17 @@ class Engine:
 
         ``stream``: optional Channel — every generated token is ``set()``
         the step it is sampled and the channel closes when the request
-        finishes."""
+        finishes.  ``meta``: picklable routing info carried through live
+        migration (the fleet relay's client locality and stream id)."""
+        if self._migrate_key is not None:
+            # engine migrated away: answer with the stale-resolution signal
+            # so the caller's apply_remote retry re-resolves to the new home
+            from repro_torch.net.locality import UnknownGid
+            from repro_torch.net.locality import current as _net_current
+
+            net = _net_current()
+            raise UnknownGid(self._migrate_key,
+                             net.locality if net is not None else -1)
         # the KV families' caches hold cache_len positions; the recurrent
         # families' states do not grow with the prompt
         if not prompt or (self.model.supports_paged and len(prompt) > self.scfg.cache_len):
@@ -423,9 +451,151 @@ class Engine:
 
     def _ensure_running(self) -> None:
         with self._lock:
-            if not self._running:
+            if not self._running and not self._paused:
                 self._running = True
                 self._loop_exec.post(self._step)
+
+    # ---------------------------------------------------------- migration
+    def pause(self, timeout: float = 30.0) -> None:
+        """Quiesce at a step boundary: stop the decode continuation chain
+        and wait for in-flight prefills to land.  Queued / ready / active
+        requests stay put; ``resume`` restarts the chain.  Once this
+        returns, the last step's tokens are in the host mirrors."""
+        self._paused = True
+        deadline = time.perf_counter() + timeout
+        while True:
+            with self._lock:
+                if not self._running and self._inflight_prefills == 0:
+                    return
+            if time.perf_counter() > deadline:
+                raise TimeoutError(f"engine {self.scfg.name}: pause timed out")
+            time.sleep(0.002)
+
+    def resume(self) -> None:
+        self._paused = False
+        self._ensure_running()
+
+    def close_for_migration(self, key: Tuple[int, int]) -> None:
+        """Point of no return for live migration: every subsequent
+        ``submit`` raises ``UnknownGid`` for ``key`` (this engine's GID),
+        so remote callers' retry loop re-resolves through the AGAS root —
+        which, once the destination adopts, names the new home."""
+        self._migrate_key = tuple(key)
+
+    def take_requests(self) -> Dict[str, Any]:
+        """Drain every in-flight request into a picklable snapshot (the
+        ship half of live migration; the engine must be paused).
+
+        Active slots travel with their paged KV (``snapshot_slot``) and the
+        host mirrors of their last token and sampling controls, and resume
+        mid-generation at the destination; queued / prefill-ready requests
+        travel as prompts (their prefill work is discarded — nothing was
+        emitted for them yet, the destination prefills again).  Requests
+        must carry relay ``meta``: promises and channels are
+        process-local, so only fleet-submitted traffic (whose relay
+        re-attaches from meta) can be re-homed — anything else fails
+        loudly rather than hang."""
+        if not self._paused or self._running:
+            raise RuntimeError("take_requests requires a paused engine")
+
+        def _entry(req: _Request, kv=None, last_tok=None) -> Dict[str, Any]:
+            # "client" marks relay meta specifically: router-tagged local
+            # submits carry meta={"req","slo"} but no re-homeable sink
+            if not req.meta or "client" not in req.meta:
+                raise RuntimeError(
+                    f"request {req.rid} has no relay meta; only "
+                    f"fleet-submitted requests survive migration")
+            e: Dict[str, Any] = {
+                "prompt": req.prompt, "generated": req.generated,
+                "max_new": req.max_new,
+                "sampling": (req.sampling.temperature, req.sampling.top_k,
+                             req.sampling.top_p),
+                "meta": req.meta,
+            }
+            if kv is not None:
+                e["kv"] = kv
+                e["last_tok"] = last_tok
+            return e
+
+        snap: Dict[str, Any] = {"active": [], "queued": []}
+        for i, req in enumerate(self.slots):
+            if req is None:
+                continue
+            snap["active"].append(_entry(req, self.backend.snapshot_slot(i),
+                                         int(self._tokens[i, 0])))
+            self.slots[i] = None
+            self.backend.release(i)
+            self._temp[i], self._topk[i], self._topp[i] = 0.0, 0, 1.0
+            self.c_done.increment()
+            self.c_mig_out.increment()
+        with self._lock:
+            ready, self._ready = self._ready, []
+        queued = [r for r, _c, _l, _t in ready]
+        while True:
+            try:
+                queued.append(self._queue.get_nowait())
+            except queue.Empty:
+                break
+        for req in queued:
+            snap["queued"].append(_entry(req))
+            self.c_done.increment()
+            self.c_mig_out.increment()
+        return snap
+
+    def _restored_request(self, e: Dict[str, Any]) -> _Request:
+        with self._lock:
+            self._rid += 1
+            rid = self._rid
+        t, k, p = e["sampling"]
+        meta = dict(e["meta"])
+        req = _Request(rid, list(e["prompt"]), int(e["max_new"]), Promise(),
+                       SamplingParams(t, k, p), None,
+                       generated=list(e["generated"]),
+                       submit_t=time.perf_counter(), meta=meta,
+                       tag=meta.get("req") or f"{self.scfg.name}/{rid}")
+        if req.generated:  # first token happened at the source
+            req.first_token_t = req.submit_t
+        return req
+
+    def restore_requests(self, snap: Dict[str, Any],
+                         reattach: Optional[Any] = None) -> int:
+        """Install a :meth:`take_requests` snapshot into this (paused)
+        engine.  ``reattach(req)`` runs for every rebuilt request so the
+        caller can wire a stream / completion hook from ``req.meta``
+        before any token flows.  A sampled request continues on this
+        engine's generator.  Returns the number of requests adopted."""
+        if not self._paused or self._running:
+            raise RuntimeError("restore_requests requires a paused engine")
+        n = 0
+        for e in snap["active"]:
+            free = next((i for i, s in enumerate(self.slots) if s is None),
+                        None)
+            if free is None:
+                raise RuntimeError("destination engine has no free slot for "
+                                   "a migrated request")
+            if not self.backend.restore_slot(free, e["kv"]):
+                raise RuntimeError("destination page pool cannot hold a "
+                                   "migrated request's KV")
+            req = self._restored_request(e)
+            if reattach is not None:
+                reattach(req)
+            self.slots[free] = req
+            self._tokens[free, 0] = int(e["last_tok"])
+            self._temp[free] = req.sampling.temperature
+            self._topk[free] = req.sampling.top_k
+            self._topp[free] = req.sampling.top_p
+            self.c_sub.increment()
+            self.c_mig_in.increment()
+            n += 1
+        for e in snap["queued"]:
+            req = self._restored_request(e)
+            if reattach is not None:
+                reattach(req)
+            self._queue.put(req)
+            self.c_sub.increment()
+            self.c_mig_in.increment()
+            n += 1
+        return n
 
     # ------------------------------------------------------------ admission
     def _bucket_for(self, n: int) -> int:
@@ -640,7 +810,12 @@ class Engine:
     def _step(self) -> None:
         """One link of the decode continuation chain.  A failing step fails
         every request it holds and ends the chain, instead of leaving their
-        futures to time out."""
+        futures to time out.  A paused engine ends the chain at this step
+        boundary; ``resume`` restarts it."""
+        if self._paused:
+            with self._lock:
+                self._running = False
+            return
         try:
             self._step_body()
         except BaseException as e:  # noqa: BLE001 — fail the batch, loudly

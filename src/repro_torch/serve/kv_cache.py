@@ -30,7 +30,7 @@ Performance counters::
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -167,6 +167,54 @@ class PagedKVCache:
             self.g_in_use.set(float(self.pages_in_use()))
         self.page_table[slot, :] = 0
         self.pos[slot] = 0
+
+    # ------------------------------------------------------- migration i/o
+    def snapshot_slot(self, slot: int) -> Dict[str, Any]:
+        """Host copy of one slot's live KV state: the pages it owns (in
+        page-table order) gathered out of every pool, plus its position.
+        This is the unit live engine migration ships — pages for *live
+        tokens only*, never the whole pool.  The copy to the host is
+        blocking: the snapshot is whole when this returns."""
+        pages = self._owned[slot]
+        out: Dict[str, Any] = {"pos": int(self.pos[slot]), "pages": {},
+                               "n_pages": len(pages)}
+        if pages:
+            ids = torch.as_tensor(pages, dtype=torch.long, device=self.device)
+            out["pages"] = {k: pool[:, ids].cpu() for k, pool in self.pools.items()}
+        return out
+
+    def restore_slot(self, slot: int, snap: Dict[str, Any]) -> bool:
+        """Re-home a snapshotted slot into *this* pool: take fresh pages
+        from the free list (page ids are locality-local — only the contents
+        travel) and write the shipped KV into them in place.  Returns False
+        when this pool cannot hold the slot (the caller must not have
+        dropped the source yet).
+
+        The writes are enqueued on this thread's current stream; the
+        stream is synchronized before returning, so the first decode step
+        after the engine resumes — on another thread, maybe another
+        stream — reads the restored pages."""
+        if self._owned[slot]:
+            raise RuntimeError(f"slot {slot} still owns pages")
+        npg = int(snap["n_pages"])
+        if npg == 0:
+            self.pos[slot] = snap["pos"]
+            return True
+        if npg > self.max_pages_per_req:
+            return False
+        pages = self._take(npg)
+        if pages is None:
+            return False
+        ids = torch.as_tensor(pages, dtype=torch.long, device=self.device)
+        for key, pool in self.pools.items():
+            _scatter_pages(pool, torch.as_tensor(snap["pages"][key]).to(self.device), ids)
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        self._owned[slot] = pages
+        self.page_table[slot, :] = 0
+        self.page_table[slot, :npg] = pages
+        self.pos[slot] = snap["pos"]
+        return True
 
     # ------------------------------------------------------------- step i/o
     def device_cache(self) -> Dict[str, torch.Tensor]:

@@ -1,6 +1,9 @@
-"""Guards of the port: it never imports JAX or the reference package, and
-without CUDA its entry points refuse to run unless asked for the CPU."""
+"""Guards of the port: it never imports JAX or the reference package; only
+``repro_torch/net`` opens sockets or starts processes (the reference's
+``tests/test_api_guard.py`` rule); and without CUDA its entry points refuse
+to run unless asked for the CPU."""
 import ast
+import re
 import os
 import shutil
 import subprocess
@@ -42,6 +45,52 @@ def test_port_imports_neither_jax_nor_reference():
                   and _bad_import(str(node.args[0].value))):
                 bad.append((f, node.args[0].value))
     assert not bad, bad
+
+
+# transport primitives: sockets and process creation (test_api_guard.py)
+_NET_BANNED = re.compile(
+    r"(\bimport\s+socket\b|\bfrom\s+socket\s+import"
+    r"|\bimport\s+socketserver\b|\bfrom\s+socketserver\s+import"
+    r"|\bimport\s+http\.server\b|\bfrom\s+http\.server\s+import"
+    r"|\bimport\s+multiprocessing\b|\bfrom\s+multiprocessing\s+import"
+    r"|\bos\.fork\b|\bpty\.fork\b"
+    r"|\bimport\s+subprocess\b|\bfrom\s+subprocess\s+import)"
+)
+# The one exception: the kernel build runs nvcc, one compiler process per
+# CUDA source, which is a build step and carries no parcel — as the
+# reference's dry-run compiler driver runs its compile cells.
+_NET_ALLOWED_FILES = {PORT / "kernels" / "_build.py"}
+
+
+def test_no_sockets_or_process_creation_outside_net():
+    """Only repro_torch/net talks to the OS about wires and processes:
+    everything that crosses a process boundary is a parcel on the
+    parcelport — one wire format, one set of counters, one shutdown path."""
+    offenders = []
+    for path in sorted(PORT.rglob("*.py")):
+        if PORT / "net" in path.parents or path in _NET_ALLOWED_FILES:
+            continue
+        for lineno, line in enumerate(path.read_text().splitlines(), 1):
+            if _NET_BANNED.search(line):
+                offenders.append(f"{path.relative_to(PORT)}:{lineno}: {line.strip()}")
+    assert not offenders, "\n".join(offenders)
+    assert any(_NET_BANNED.search(line)
+               for line in (PORT / "kernels" / "_build.py").read_text().splitlines())
+    net_files = [p.name for p in sorted((PORT / "net").glob("*.py"))
+                 if any(_NET_BANNED.search(line) for line in p.read_text().splitlines())]
+    assert net_files == ["httpd.py", "locality.py", "parcelport.py"]
+
+
+def test_net_guard_matches_known_spellings():
+    for bad in ("import socket", "from socket import socketpair",
+                "import multiprocessing as mp", "os.fork()",
+                "import subprocess", "from subprocess import run",
+                "from http.server import ThreadingHTTPServer",
+                "import socketserver"):
+        assert _NET_BANNED.search(bad), bad
+    for ok in ("websocket_url = 1", "# talks over a socket", "forked = True",
+               "import socketserver_shim"):
+        assert not _NET_BANNED.search(ok), ok
 
 
 def test_guard_catches_reference_imports():

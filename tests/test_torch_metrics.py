@@ -7,8 +7,9 @@ Each case gives both packages the same counters (made the same way in a
 registry of each) or the same sweep, and compares the rendered text, the
 parsed families, the series and the rates exactly (tolerance 0, except
 where ``tests/test_obs_counters.py`` states one).  A scrape of the
-exporter goes over real HTTP on ``127.0.0.1:0``.  A fleet-wide sweep needs
-a multi-locality runtime and raises ``NotImplementedError`` in the port."""
+exporter goes over real HTTP on ``127.0.0.1:0``.  A fleet-wide sweep goes
+over the port's multi-locality runtime (``tests/test_torch_obs_net.py``
+scrapes two real localities)."""
 import io
 import math
 import os
@@ -314,22 +315,42 @@ def test_print_counter_report_matches_reference():
 
 
 def test_fleet_sweeps_raise():
+    """A fleet sweep goes over the multi-locality runtime, never quietly
+    over this process alone: given a ``net`` but no runtime up, each
+    raises; over a runtime (here a single locality) each sweeps it."""
+    import repro_torch.core as tcore
+    from repro_torch import net as tnet
+
     net = object()
-    with pytest.raises(NotImplementedError, match="multi-locality"):
-        TM.MetricsExporter(net=net).sweep()
-    with pytest.raises(NotImplementedError, match="multi-locality"):
-        TM.MetricsExporter(net=net).scrape()
-    with pytest.raises(NotImplementedError, match="multi-locality"):
-        t_sampler.FleetSampler(net=net).sample_once()
-    with pytest.raises(NotImplementedError, match="multi-locality"):
+    for call in (lambda: TM.MetricsExporter(net=net).sweep(),
+                 lambda: TM.MetricsExporter(net=net).scrape(),
+                 lambda: t_sampler.FleetSampler(net=net).sample_once(),
+                 lambda: t_sampler.print_counter_report("*", net=net, file=io.StringIO())):
+        with pytest.raises(RuntimeError, match="no multi-locality runtime"):
+            call()
+    with pytest.raises(AttributeError):
         t_sampler.FleetSampler(net=net)._localities()
-    with pytest.raises(NotImplementedError, match="multi-locality"):
-        t_sampler.print_counter_report("*", net=net)
+    tcore.init(num_workers=2)
+    try:
+        with tnet.running(1) as one:
+            TC.default().counter("/obsnet{one}/count").increment(3)
+            assert TM.MetricsExporter(net=one).sweep()[0]["/obsnet{one}/count"]["value"] == 3.0
+            fams = TM.parse_prometheus_text(TM.MetricsExporter(net=one).scrape(), strict=True)
+            assert fams["repro_up"]["samples"][0][2] == 1.0
+            s = t_sampler.FleetSampler(pattern="/obsnet*", net=one)
+            assert s._localities() == [0]
+            s.sample_once()
+            assert s.keys() == [(0, "/obsnet{one}/count")]
+            lines = t_sampler.print_counter_report("/obsnet*", net=one, file=io.StringIO())
+            assert any("/obsnet{one}/count" in ln for ln in lines)
+    finally:
+        tcore.finalize()
 
 
 def test_export_tier_imports_without_jax_or_reference():
-    """``repro_torch.net`` and the stdlib-only ``obs`` modules import in a
-    process where neither ``jax`` nor ``repro`` can be imported."""
+    """``repro_torch.net`` (the listener and the multi-locality runtime), the
+    relay, the fleet and the ``obs`` modules import in a process where
+    neither ``jax`` nor ``repro`` can be imported."""
     code = (
         "import sys\n"
         "class Block:\n"
@@ -343,7 +364,8 @@ def test_export_tier_imports_without_jax_or_reference():
         "import repro_torch.obs.timeseries, repro_torch.obs.analyze\n"
         "import repro_torch.obs.sampler, repro_torch.obs.export\n"
         "import repro_torch.obs.recorder, repro_torch.fleet\n"
-        "assert repro_torch.net.__all__ == ['httpd']\n"
+        "import repro_torch.serve.relay, repro_torch.fleet.migrate\n"
+        "assert {'httpd', 'bootstrap', 'running', 'run_on'} <= set(repro_torch.net.__all__)\n"
         "assert not any(m.split('.')[0] in ('jax', 'repro') for m in sys.modules)\n"
         "print('ok')\n")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}

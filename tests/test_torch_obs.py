@@ -10,10 +10,12 @@ hand-built merged traces of ``tests/test_obs_analyzer.py`` (known gaps,
 known classes, an injected negative edge) and a trace drawn from a seeded
 numpy generator (many requests sharing decode steps, gate parks, pool
 stalls).  A branch the reference takes only with a multi-locality runtime
-(``net`` given) raises ``NotImplementedError`` in the port."""
+(``net`` given) goes over that runtime in the port too
+(``tests/test_torch_obs_net.py`` drives it across real localities)."""
 import copy
 import io
 import json
+import os
 from contextlib import redirect_stdout
 
 import numpy as np
@@ -508,19 +510,40 @@ def test_fleet_controls_run_locally():
 
 
 def test_remote_branches_raise():
-    """Each branch the reference takes with a ``net`` needs a second
-    locality: the port says so instead of running locally."""
-    net = object()
-    calls = [lambda: t_export.merged_trace(net=net),
-             lambda: t_export.export_chrome_trace("unused.json", net=net),
-             lambda: t_export.enable_fleet(net),
-             lambda: t_export.disable_fleet(net),
-             lambda: t_export.clear_fleet(net),
-             lambda: t_export.clock_offset(net, 1),
-             lambda: t_recorder.FlightRecorder(net=net).start()]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="multi-locality"):
+    """Each branch the reference takes with a ``net`` goes over that net,
+    never quietly over this process alone: handed an object that is not a
+    runtime, each raises; over a runtime (here a single locality, no peers)
+    each runs, and the merged trace holds that locality alone."""
+    import repro_torch.core as tcore
+    from repro_torch import net as tnet
+
+    def calls(net):
+        return [lambda: t_export.merged_trace(net=net),
+                lambda: t_export.export_chrome_trace(os.devnull, net=net),
+                lambda: t_export.enable_fleet(net),
+                lambda: t_export.disable_fleet(net),
+                lambda: t_export.clear_fleet(net),
+                lambda: t_export.clock_offset(net, 1),
+                lambda: t_recorder.FlightRecorder(net=net).start()]
+
+    for call in calls(object()):
+        with pytest.raises(AttributeError):
             call()
+    tcore.init(num_workers=2)
+    try:
+        with tnet.running(1) as one:
+            t_export.enable_fleet(one, capacity=128)
+            t_trace.instant("x", "t")
+            tr = t_export.merged_trace(net=one)
+            assert {e["pid"] for e in tr["traceEvents"]} == {0}
+            assert [e["name"] for e in tr["traceEvents"] if e["ph"] != "M"] == ["x"]
+            assert t_export.clock_offset(one, 0) == 0.0
+            for call in calls(one)[:5]:
+                call()
+            t_recorder.FlightRecorder(net=one).start().stop()
+            assert not t_trace.enabled()
+    finally:
+        tcore.finalize()
 
 
 # --------------------------------------------------------- flight recorder
