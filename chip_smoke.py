@@ -153,7 +153,7 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    remat (``REMAT_RTOL``; 4 flash launches each), and the AdamW update on
    the card's grads against the CPU's, within ``TRAIN_*`` limits.  (b) The full
    30-layer starcoder2_3b (3.18 B params, fp32 masters, bf16 compute)
-   trained by ``Trainer.fit`` under the futurized plan, B=2, S=512, 6
+   trained by ``Trainer.fit`` under the futurized plan, B=2, S=512, 3
    steps, log_every 1: finite loss and grad norm, exactly 30 flash
    launches a step; step-time p50, tokens/s, peak memory and one step
    under torch.profiler; then one bsp step (full remat) on the same
@@ -201,7 +201,7 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    own process and CUDA context on the one card (``repro_torch.net``; the
    workers are spawned, so this script's top level only defines).  (a)
    ``Router.over_localities`` puts engine#0 at the root and engine#1 at
-   locality 1; 12 streamed greedy requests (prompts of 16–512 tokens, 64
+   locality 1; 12 streamed greedy requests (prompts of 16–512 tokens, 32
    new each): every stream equals its future, both localities generate,
    and at every locality flash launched exactly 30 × its prefills and
    paged decode 30 × its decode steps (each locality's own
@@ -209,7 +209,7 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    spawns locality 2 (engine#2, tier ``batch``); twelve requests go
    straight to engine#1 twice without migration, then a third time with
    ``migrate_engine`` moving engine#1 to locality 2 once every active
-   stream holds 8 tokens: every stream equals its future (65 tokens), the
+   stream holds 8 tokens: every stream equals its future (33 tokens), the
    relay's duplicate counter does not move, the requests moved equal
    locality 2's ``migrated_in`` and include the 8 active ones, and
    engine#1 serves at its new home; the cutover's time and the KV bytes
@@ -226,9 +226,41 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    Reports tokens/s per engine, decode-step p50 and peak memory per
    locality, the SLOW shares by locality and the phase's seconds.
 
+11. The data half of the multi-locality runtime — two localities (the
+   root and a spawned worker, each its own CUDA context on the card).  (a)
+   A block ``PartitionedVector`` of 2²⁷ fp32 elements (512 MB) filled in
+   place by a seeded ``fill_with`` generator; ``reduce``,
+   ``transform_reduce``, ``count_if``, ``min_element``, ``max_element``,
+   ``transform``, both scans (two-pass) and ``fill`` on it, each held
+   against the port's ``vec`` on one CUDA tensor of the same elements
+   (exact, or sums and scans within ``RUNTIME_SUM_RTOL`` of the magnitudes
+   added); cyclic and explicit layouts (one empty and one single-element
+   segment) and ``sort`` at 2¹⁶ elements; the wire bytes
+   (``/net{*}/bytes/sent`` over both localities) of the segmented reduce,
+   under 1 % of the element bytes, against ``to_array`` + a local sum;
+   ``move_segment`` to locality 1 and back (the GID kept, bit-equal, still
+   on ``cuda``); the reduce body's device GB/s at each owner beside phase
+   7's triad.  (b) ``launch.train.main`` in process: full starcoder2_3b
+   (30 layers), ``--localities 2 --sharded-rows 16384 --batch 2 --seq 512
+   --steps 3 --log-every 1`` with ``--trace``, ``--print-counters
+   '/train*'``, ``--metrics-port`` and ``--timeline`` into
+   ``chiprun_out/``: 8192 local rows; each step's batch equal to
+   ``synth_token_rows`` of the rows the feeder picked; finite losses and
+   grad norms; exactly 30 flash launches a step; the dataset's creation
+   under 1 % of its 33.6 MB on the wire; the merged trace holding both
+   localities; ``obs.top --once --metrics`` rendering a frame while the
+   exporter lives; step p50, tokens/s and peak beside phase 8b's.  (c) The
+   sharded dataset saved by ``save_partitioned`` after a ``move_segment``
+   (each shard written by its owner, locality 1), freed, restored at those
+   owners bit-equal; phase 8's 2-layer training state with its bf16
+   compute params made at locality 1, saved by GID, unregistered, restored
+   by ``restore_gid`` onto a grown locality 2 and fetched back: every
+   leaf's dtype, shape and sum of bit patterns (bf16 as its bits) equal to
+   the state made at locality 1; the seconds of each step.
+
 The second-to-last line of standard output is the ``kernels`` JSON, each
 kernel's launches summed over the paths of phases 5, 5c, 5b, 5d, 7, 8b, 8c,
-8d, 9 and 10 (phase 10's summed over its localities); the last
+8d, 9, 10 and 11 (phase 10's summed over its localities); the last
 is ``{"ok": true, "device": {...}}``.  A fuller report is written to
 ``chiprun_out/chip_smoke.json``.
 """
@@ -2217,7 +2249,7 @@ def phase_ops(torch, np, card, timings):
 # microbatches of a step of 16,384 tokens, one starcoder2_3b context's
 # worth (arXiv:2402.19173), over which those fixed costs spread
 TRAIN_PARITY = (2, 1, 256)
-TRAIN_RUN = (2, 512, 6)
+TRAIN_RUN = (2, 512, 3)      # 3 steps, not 6: the whole script's time limit
 TRAIN_WIDE = (8, 2048, 8)
 TRAIN_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=100)
 # parity limits, fp32 with TF32 off: the loss (a mean of ~10.8-nat NLLs,
@@ -3332,7 +3364,7 @@ def phase_runtime(torch, np, card):
 # ----------------------------------------------------------------- phase 10
 LOC_POOLS = {"default": 4, "prefill": 2, "io": 1}
 LOC_REQS = 12                 # requests of each run: 8 fill the slots, 4 queue
-LOC_MAX_NEW = 64
+LOC_MAX_NEW = 32              # halved from 64: the whole script's time limit
 LOC_MIGRATE_AFTER = 8         # tokens every active stream holds before the cutover
 LOC_TRACED_REQS = 9           # the traced run of (e), three to an engine
 ENGINE_PREFIX = "/engines/"
@@ -3817,6 +3849,529 @@ def phase_serve_localities(torch, np, card):
     return launches
 
 
+# ----------------------------------------------------------------- phase 11
+# The data half of the multi-locality runtime on the card.  (a)
+# Partitioned vectors over 2 localities (the root and one spawned worker,
+# each its own CUDA context): a block vector of DATA_N fp32 elements
+# filled in place by ``_pv_values`` (a multiplicative hash of the global
+# index and the seed, so every owner makes its own elements and the root
+# its one-tensor copy), each segmented algorithm held against ``vec`` on
+# that one CUDA tensor (sums and scans within RUNTIME_SUM_RTOL of the
+# magnitudes added, the rest exact); cyclic and explicit layouts (one
+# empty and one single-element segment) and ``sort`` at DATA_SMALL_N; the
+# wire bytes of the segmented reduce against ``to_array`` + a local sum;
+# ``move_segment`` there and back; the reduce body's device GB/s at each
+# owner.  (b) ``launch.train.main`` in process: full starcoder2_3b fed
+# from locality 0's segments of a DATA_ROWS-row sharded dataset, with the
+# four observability flags.  (c) A partitioned checkpoint after a
+# ``move_segment``, and a checkpoint by GID of a state at locality 1
+# restored onto a grown locality 2.
+DATA_N = 2 ** 27
+DATA_SMALL_N = 2 ** 16
+DATA_POOLS = {"default": 4, "io": 1}
+DATA_ROWS, DATA_BATCH, DATA_SEQ, DATA_STEPS = 16384, 2, 512, 3
+DATA_NAME = "/chip_smoke/data"
+DATA_REPS = 5                      # timed calls of the segmented reduce
+
+
+def _pv_values(idx, seed):
+    """``fill_with`` generator: a float32 in [-1, 1) for each global index,
+    a multiplicative hash of (index, seed)."""
+    import numpy as np
+
+    h = (idx.astype(np.uint64) + np.uint64(seed)) * np.uint64(2654435761) % np.uint64(2 ** 32)
+    return (h.astype(np.float64) / 2 ** 31 - 1.0).astype(np.float32)
+
+
+def _pv_values_on_card(torch, n, seed):
+    """``_pv_values`` of the global indices 0..n-1 as one CUDA tensor, made
+    on the card (the hash fits int64 for n ≤ 2³²; the same IEEE steps, so
+    the same elements)."""
+    idx = torch.arange(n, dtype=torch.int64, device="cuda")
+    h = (idx + seed) * 2654435761 % 2 ** 32
+    return (h.double() / 2 ** 31 - 1.0).float()
+
+
+def _pv_aff(x):
+    return 3 * x + 1
+
+
+def _pv_sq(x):
+    return x * x
+
+
+def _pv_positive(x):
+    return x > 0
+
+
+def _pv_kind(rt, key):
+    """At a segment's owner: what the segment is there (its module and
+    device)."""
+    from repro_torch.core import agas
+
+    obj = agas.default().resolve(agas.GID(*key))
+    return type(obj).__module__.split(".")[0], getattr(obj, "device", None) and obj.device.type
+
+
+def _pv_time_reduce(rt, key, reps):
+    """At a segment's owner: the device time of the segmented reduce's
+    work on that segment — the body's one ``torch.sum``, timed as phase 9
+    times ``vec`` (``_time_ms``: L2 flushed, a spin kernel covering the
+    host's enqueue) — and the wall time of the whole body
+    (``segmented._seg_reduce``: the hop to the compute pool, the sum, the
+    partial's copy home), median of ``reps``; and the segment's bytes."""
+    import operator
+
+    import torch
+
+    from repro_torch.container import segmented
+    from repro_torch.core import agas
+
+    seg = agas.default().resolve(agas.GID(*key))
+    flush = torch.empty(16 * 1024 * 1024, dtype=torch.float32, device="cuda")
+    ms = _time_ms(torch, lambda: torch.sum(seg, dim=0, dtype=seg.dtype), flush, reps=reps)
+    wall = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        segmented._seg_reduce(seg, operator.add)
+        wall.append(time.perf_counter() - t0)
+    return {"ms": ms, "wall_ms": statistics.median(wall) * 1e3,
+            "bytes": seg.numel() * seg.element_size()}
+
+
+def _pv_gid_state(rt, name):
+    """At locality 1: phase 8's 2-layer training state (fp32 masters and
+    AdamW moments) with its bf16 compute params, made on this locality's
+    card and registered under ``name``; returns its GID key and, per leaf,
+    the sum of its bit patterns."""
+    import torch
+
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.core import agas
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+
+    model = Model(replace(get_config("starcoder2_3b"), num_layers=2))
+    params = model.init(SEED)
+    state = {"params": params, "opt": adamw.init(params),
+             "compute": model.compute_params(params)}
+    gid = agas.default().register(state, name=name)
+    return [gid.locality, gid.seq], _bit_sums(torch, ckpt._flatten(state))
+
+
+def _pv_gid_drop(rt, name):
+    """At locality 1: unregister the state, and give its memory back."""
+    import torch
+
+    from repro_torch.core import agas
+
+    a = agas.default()
+    a.unregister(a.gid_of(name))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return True
+
+
+def _bit_sums(torch, flat):
+    """{leaf: (dtype, shape, the int64 sum of its bit patterns)}: taken where
+    a state is made and where it arrives, equal if every leaf came through
+    bit for bit (bf16 as its 16-bit patterns)."""
+    view = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return {k: (str(t.dtype), tuple(t.shape),
+                int(t.contiguous().view(view[t.element_size()]).sum(dtype=torch.int64)))
+            for k, t in flat.items()}
+
+
+def _pv_wire():
+    """Bytes every locality has sent over the parcelport so far."""
+    from repro_torch import net as tnet
+
+    sweep = tnet.query_counters(None, "/net{*}/bytes/sent")
+    return float(sum(v for pairs in sweep.values() for _k, v in pairs))
+
+
+def _pv_held(torch, what, got, want, scale=None, dtype=None):
+    """A segmented result against ``vec``'s on one tensor, both on the
+    card: exact, or within RUNTIME_SUM_RTOL of ``scale`` (the magnitudes
+    a sum or scan adds).  The dtypes agree, unless ``dtype`` names the
+    segmented result's own.  Returns the error."""
+    got = torch.as_tensor(got).to("cuda")
+    want = torch.as_tensor(want).to("cuda")
+    check(got.shape == want.shape and got.dtype == (dtype or want.dtype),
+          f"data: {what}: {got.dtype} {tuple(got.shape)} vs {want.dtype} {tuple(want.shape)}")
+    if scale is None:
+        check(torch.equal(got, want), f"data: {what} differs from vec")
+        return 0.0
+    err = ((got.double() - want.double()).abs() / scale).max().item()
+    check(err <= RUNTIME_SUM_RTOL, f"data: {what} off by {err:.3g} of the magnitudes it "
+                                   f"adds (limit {RUNTIME_SUM_RTOL})")
+    return err
+
+
+def _data_algorithms(torch, np, pv, x, tag):
+    """Every segmented algorithm on ``pv`` against ``vec`` on ``x`` (the
+    same elements in one CUDA tensor).  Returns the worst sum error."""
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core.executor import par, vec
+
+    mag = x.abs().double()
+    errs = {}
+    errs["reduce"] = _pv_held(torch, f"{tag} reduce", alg.reduce(par, pv),
+                              alg.reduce(vec, x), mag.sum())
+    errs["transform_reduce"] = _pv_held(torch, f"{tag} transform_reduce",
+                                        alg.transform_reduce(par, pv, _pv_sq),
+                                        alg.transform_reduce(vec, x, _pv_sq), (mag * mag).sum())
+    check(alg.count_if(par, pv, _pv_positive) == alg.count_if(vec, x, _pv_positive),
+          f"data: {tag} count_if differs from vec")
+    for name in ("min_element", "max_element"):
+        _pv_held(torch, f"{tag} {name}", getattr(alg, name)(par, pv), getattr(alg, name)(vec, x))
+    t = alg.transform(par, pv, _pv_aff)
+    _pv_held(torch, f"{tag} transform", t.to_array(), alg.transform(vec, x, _pv_aff))
+    t.free()
+    scan = torch.cumsum(mag, 0)
+    s = alg.inclusive_scan(par, pv)
+    errs["inclusive_scan"] = _pv_held(torch, f"{tag} inclusive_scan", s.to_array(),
+                                      alg.inclusive_scan(vec, x), scan)
+    s.free()
+    # numpy promotes the int init beside fp32 segments as the reference's
+    # numpy segments do (float64 on numpy 2), vec as jnp does (float32)
+    s = alg.exclusive_scan(par, pv, init=7)
+    errs["exclusive_scan"] = _pv_held(torch, f"{tag} exclusive_scan", s.to_array(),
+                                      alg.exclusive_scan(vec, x, init=7),
+                                      7 + torch.cat([scan.new_zeros(1), scan[:-1]]),
+                                      dtype=s.dtype)
+    s.free()
+    return errs
+
+
+def _data_vectors(torch, np, net):
+    """Phase 11(a): see the block comment above."""
+    from repro_torch import net as tnet
+    from repro_torch.container import PartitionedVector, distribution
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core.executor import par, vec
+
+    out = {"N": DATA_N, "small_N": DATA_SMALL_N}
+    t0 = time.perf_counter()
+    pv = PartitionedVector.create(f"{DATA_NAME}/block", DATA_N, dtype=np.float32)
+    pv.fill_with(_pv_values, SEED)
+    out["create_fill_s"] = time.perf_counter() - t0
+    kinds = [tnet.run_on(o, _pv_kind, list(k)).get(timeout=60)
+             for o, k in zip(pv.owners(), pv.segment_keys)]
+    check(pv.owners() == [0, 1] and kinds == [("torch", "cuda")] * 2,
+          f"data (a): owners {pv.owners()}, segments {kinds}")
+    x = _pv_values_on_card(torch, DATA_N, SEED)
+    t0 = time.perf_counter()
+    out["sum_err"] = _data_algorithms(torch, np, pv, x, "block")
+    out["algorithms_s"] = time.perf_counter() - t0
+
+    # the claim: work went to the data
+    nbytes = DATA_N * 4
+    b0 = _pv_wire()
+    total = alg.reduce(par, pv)
+    b1 = _pv_wire()
+    fetched = pv.to_array()
+    local_sum = fetched.sum()
+    b2 = _pv_wire()
+    del fetched
+    out["wire"] = {"element_bytes": nbytes, "segmented_reduce": b1 - b0,
+                   "fetch_all_and_sum": b2 - b1, "ratio": (b2 - b1) / (b1 - b0)}
+    check(b1 - b0 < 0.01 * nbytes and b2 - b1 > 0.9 * nbytes / 2,
+          f"data (a): the segmented reduce moved {b1 - b0:.0f} bytes, fetch-all "
+          f"{b2 - b1:.0f}, of {nbytes} element bytes")
+    check(abs(float(total) - local_sum.item()) <= RUNTIME_SUM_RTOL * x.abs().double().sum().item(),
+          f"data (a): segmented sum {total} vs fetched sum {local_sum.item()}")
+
+    # device GB/s of the reduce body at each owner, the whole call's wall
+    out["reduce_body"] = {o: tnet.run_on(o, _pv_time_reduce, list(k), DATA_REPS).get(timeout=300)
+                          for o, k in zip(pv.owners(), pv.segment_keys)}
+    for r in out["reduce_body"].values():
+        r["GB_per_s"] = r["bytes"] / r["ms"] / 1e6
+    wall = []
+    for _ in range(DATA_REPS):
+        t0 = time.perf_counter()
+        alg.reduce(par, pv)
+        wall.append(time.perf_counter() - t0)
+    out["reduce_wall_ms"] = statistics.median(wall) * 1e3
+    out["reduce_wall_GB_per_s"] = nbytes / statistics.median(wall) / 1e9
+    stream = REPORT.get("stream", {})
+    out["triad_GB_per_s"] = stream.get("float32", {}).get("GB_per_s")
+
+    # a segment there and back: the GID, the bytes and the card kept
+    seg0 = dict(pv.local_segments())[0].clone()
+    gid = pv.segment_gid(0)
+    t0 = time.perf_counter()
+    pv.move_segment(0, 1)
+    out["move_there_s"] = time.perf_counter() - t0
+    there = tnet.run_on(1, _pv_kind, list(pv.segment_keys[0])).get(timeout=60)
+    t0 = time.perf_counter()
+    pv.move_segment(0, 0)
+    out["move_back_s"] = time.perf_counter() - t0
+    back = dict(pv.local_segments()).get(0)
+    check(pv.owner_of(0) == 0 and pv.segment_gid(0) == gid and there == ("torch", "cuda")
+          and back is not None and back.device.type == "cuda" and torch.equal(back, seg0),
+          f"data (a): move_segment there and back: at 1 {there}, GID {pv.segment_gid(0)} "
+          f"(was {gid}), back on {None if back is None else back.device}")
+    out["move_bytes"] = seg0.numel() * seg0.element_size()
+    del seg0, back
+    check(alg.fill(par, pv, 3.0) is pv and alg.min_element(par, pv) == 3.0
+          and alg.max_element(par, pv) == 3.0, "data (a): fill")
+    pv.free()
+    del x
+
+    # cyclic and explicit layouts (an empty and a single-element segment), sort
+    n = DATA_SMALL_N
+    xs = _pv_values_on_card(torch, n, SEED + 1)
+    out["small"] = {}
+    for tag, layout in (("cyclic", "cyclic"),
+                        ("explicit", distribution.explicit([0, 1, n - 1], [1, 0, 1]))):
+        small = PartitionedVector.create(f"{DATA_NAME}/{tag}", n, dtype=np.float32,
+                                         distribution=layout)
+        small.fill_with(_pv_values, SEED + 1)
+        out["small"][tag] = _data_algorithms(torch, np, small, xs, tag)
+        check(alg.sort(par, small) is small, f"data: {tag} sort")
+        _pv_held(torch, f"{tag} sort", small.to_array(), alg.sort(vec, xs))
+        small.free()
+    return out
+
+
+def _data_train(torch, np, card):
+    """Phase 11(b): full starcoder2_3b trained by ``launch.train.main`` from
+    locality 0's segments of a sharded dataset, with ``--trace``,
+    ``--print-counters``, ``--metrics-port`` and ``--timeline``; a thread
+    runs ``obs.top --once`` against the exporter while the run lasts."""
+    import socket
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import counters
+    from repro_torch.data.pipeline import synth_token_rows
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch_train
+    from repro_torch.net.httpd import http_get
+    from repro_torch.obs import top, trace
+
+    cfg = get_config("starcoder2_3b")
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    trace_path, tl_path = out_dir / "phase11_trace.json", out_dir / "phase11_timeline.jsonl"
+    with socket.socket() as s:  # a free port, so the URL is known before the run
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    url = f"http://127.0.0.1:{port}/metrics"
+    seen = {}
+    stop = threading.Event()
+
+    def watch():
+        while not stop.is_set():
+            try:
+                status, _body = http_get(url, timeout=5)
+            except OSError:  # not up yet
+                status = None
+            if status == 200:
+                seen["rc"] = top.main(["--once", "--metrics", url])
+                return
+            time.sleep(0.2)
+
+    watcher = threading.Thread(target=watch, name="phase11-top", daemon=True)
+    watcher.start()
+    timer = counters.default().timer("/train{loop#0}/step/duration", percentiles=True)
+    timer.reset()  # this run's steps only
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    L, B, S, steps = cfg.num_layers, DATA_BATCH, DATA_SEQ, DATA_STEPS
+    ops.reset_launch_counts()  # ← the sharded training path starts here
+    t0 = time.perf_counter()
+    try:
+        rep = launch_train.main([
+            "--arch", "starcoder2_3b", "--localities", "2",
+            "--sharded-rows", str(DATA_ROWS), "--batch", str(B), "--seq", str(S),
+            "--steps", str(steps), "--log-every", "1", "--trace", str(trace_path),
+            "--print-counters", "/train*", "--metrics-port", str(port),
+            "--timeline", str(tl_path)])
+    finally:
+        stop.set()
+        watcher.join(timeout=60)
+        trace.disable()
+        trace.clear()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()  # ← and ends here
+    peak = torch.cuda.max_memory_allocated()
+    _check_launches("data (b)", launches, {"flash_attention": L * steps})
+    sharded, hist = rep["sharded"], rep["history"]
+    rows_bytes = DATA_ROWS * (S + 1) * 4
+    check(sharded["local_rows"] == DATA_ROWS // 2 and sharded["segments"] == 2,
+          f"data (b): {sharded}")
+    check(sharded["wire_bytes"] < 0.01 * rows_bytes,
+          f"data (b): the dataset's creation moved {sharded['wire_bytes']:.0f} bytes of "
+          f"{rows_bytes}")
+    check(len(hist) == steps and all(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"])
+                                     for h in hist), f"data (b): {hist}")
+    feeder = rep["feeder"]
+    for step in range(steps):  # the feeder's batch of each step, rebuilt
+        got = feeder._build(step)["tokens"]
+        rng = np.random.default_rng(feeder.dcfg.seed * 9_176_081 + step)
+        pick = rng.integers(0, DATA_ROWS // 2, size=B)
+        want = synth_token_rows(feeder.global_rows[pick], cfg, feeder.dcfg)
+        check(got.device.type == "cuda" and got.dtype == torch.int32
+              and torch.equal(got.cpu(), torch.from_numpy(want)),
+              f"data (b): step {step}'s batch is not the rows the feeder picked")
+    del rep, feeder
+    pids = {e.get("pid") for e in json.loads(trace_path.read_text())["traceEvents"]}
+    check({0, 1} <= pids, f"data (b): the merged trace holds localities {pids}")
+    records = len(tl_path.read_text().splitlines())
+    check(records >= 2, f"data (b): timeline of {records} records")
+    check(seen.get("rc") == 0, f"data (b): obs.top --once against {url}: {seen}")
+    st = timer.stats()
+    p50 = timer.quantile(0.5)
+    train8 = REPORT.get("train", {})
+    return launches, {
+        "card": card, "rows": DATA_ROWS, "local_rows": sharded["local_rows"],
+        "dataset_wire_bytes": sharded["wire_bytes"], "dataset_bytes": rows_bytes,
+        "batch": B, "seq": S, "steps": steps, "history": hist, "wall_s": wall,
+        "step_stats": st, "step_p50_s": p50, "tokens_per_s": B * S / p50,
+        "peak_bytes": peak, "launches": launches, "trace_pids": sorted(pids),
+        "timeline_records": records, "top_rc": seen.get("rc"),
+        "phase8b_step_p50_s": train8.get("step_p50_s"),
+        "phase8b_tokens_per_s": train8.get("tokens_per_s")}
+
+
+def _data_checkpoints(torch, np, net):
+    """Phase 11(c): a partitioned checkpoint after a ``move_segment``, and a
+    checkpoint by GID of a state at locality 1 restored onto a grown
+    locality 2 (files under ``TMPDIR``)."""
+    import tempfile
+
+    from repro_torch import net as tnet
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.container.partitioned_vector import host_tensor
+    from repro_torch.core import agas
+    from repro_torch.data.pipeline import DataConfig, ShardedTokenDataset
+
+    out = {}
+    cfg = get_config("starcoder2_3b")
+    ds = ShardedTokenDataset.create(f"{DATA_NAME}/rows", cfg,
+                                    DataConfig(batch_size=DATA_BATCH, seq_len=DATA_SEQ),
+                                    rows=DATA_ROWS)
+    rows = ds.pv.to_array()
+    ds.pv.move_segment(0, 1)  # owners [1, 1]: not those of its creation
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        saved = ckpt.save_partitioned(d, 1, ds.pv)
+        out["pvec_save_s"] = time.perf_counter() - t0
+        writers = [s["locality"] for s in json.loads(
+            (saved / "partitioned.json").read_text())["shards"]]
+        ds.pv.free()
+        t0 = time.perf_counter()
+        step, back = ckpt.restore_partitioned(d)
+        out["pvec_restore_s"] = time.perf_counter() - t0
+        kinds = [tnet.run_on(o, _pv_kind, list(k)).get(timeout=60)
+                 for o, k in zip(back.owners(), back.segment_keys)]
+        check(step == 1 and writers == [1, 1] and back.owners() == [1, 1]
+              and kinds == [("torch", "cuda")] * 2 and torch.equal(back.to_array(), rows),
+              f"data (c): writers {writers}, restored at {back.owners()} as {kinds}")
+        back.free()
+    out["pvec_bytes"] = rows.numel() * rows.element_size()
+
+    name = f"{DATA_NAME}/gid-state"
+    t0 = time.perf_counter()
+    key, sums = tnet.run_on(1, _pv_gid_state, name).get(timeout=600)
+    out["gid_build_s"] = time.perf_counter() - t0
+    out["gid_bytes"] = sum(int(np.prod(shape)) * {"torch.bfloat16": 2, "torch.int32": 4}
+                           .get(dt, 4) for dt, shape, _ in sums.values())
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        ckpt.save_gid(d, 8, agas.GID(*key))
+        out["gid_save_s"] = time.perf_counter() - t0
+        tnet.run_on(1, _pv_gid_drop, name).get(timeout=300)
+        t0 = time.perf_counter()
+        lid = net.spawn_locality(pools=DATA_POOLS, timeout=120)
+        out["grow_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        step, gid = ckpt.restore_gid(d, locality=lid)
+        out["gid_restore_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fetched = ckpt._flatten(tnet.fetch(gid, timeout=600))
+        out["gid_fetch_s"] = time.perf_counter() - t0
+    fetched = {k: host_tensor(v) for k, v in fetched.items()}  # numpy off the wire
+    check(lid == 2 and step == 8 and gid.locality == 2 and tnet.owner_of(name) == 2,
+          f"data (c): restore_gid gave step {step}, GID {gid} at locality {lid}")
+    check(_bit_sums(torch, fetched) == sums,
+          "data (c): the state fetched from locality 2 is not the one made at locality 1 "
+          "(a leaf's dtype, shape or sum of bit patterns differs)")
+    out["gid_leaves"] = len(sums)
+    out["gid_bf16_leaves"] = sum(dt == "torch.bfloat16" for dt, _s, _b in sums.values())
+    del fetched
+    return out
+
+
+def phase_data(torch, np, card):
+    """Phase 11, the data half of the multi-locality runtime on the card:
+    (b) full starcoder2_3b trained from locality 0's shards by the
+    launcher (which brings up its own two localities), then over two
+    localities of the phase's own (a) partitioned vectors and segmented
+    algorithms and (c) partitioned and by-GID checkpoints.  Returns the
+    launches of (b), the phase's one kernel path."""
+    import repro_torch.core as core
+    from repro_torch import net as tnet
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"card": card}
+    t0 = time.perf_counter()
+    launches, out["b"] = _data_train(torch, np, card)  # brings up its own localities
+    out["b"]["seconds"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    core.init(pools=DATA_POOLS)
+    try:
+        with tnet.running(2, pools=DATA_POOLS, worker_pools=DATA_POOLS) as net:
+            t0 = time.perf_counter()
+            out["a"] = _data_vectors(torch, np, net)
+            out["a"]["seconds"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out["c"] = _data_checkpoints(torch, np, net)
+            out["c"]["seconds"] = time.perf_counter() - t0
+    finally:
+        core.finalize()
+    out["seconds"] = time.perf_counter() - t_phase
+    REPORT["data"] = out
+    a, b, c = out["a"], out["b"], out["c"]
+    w = a["wire"]
+    body = {o: f"{r['GB_per_s']:.1f} GB/s ({r['ms']:.4f} ms; body wall {r['wall_ms']:.3f} ms)"
+            for o, r in a["reduce_body"].items()}
+    log(f"[data] {card}: (a) {a['N']} fp32 elements over localities 0, 1, created and "
+        f"filled in place in {a['create_fill_s']:.2f} s; every algorithm against vec, worst "
+        f"sum error {max(a['sum_err'].values()):.3g} of the magnitudes added; segmented "
+        f"reduce moved {w['segmented_reduce']:.0f} wire bytes, to_array + sum "
+        f"{w['fetch_all_and_sum']:.0f} ({w['ratio']:.0f}x); reduce body's device time by "
+        f"owner {body}, the whole call {a['reduce_wall_ms']:.2f} ms wall "
+        f"({a['reduce_wall_GB_per_s']:.1f} GB/s), triad {a['triad_GB_per_s']}; a "
+        f"{a['move_bytes'] / 1e6:.1f} MB segment 0 → 1 in {a['move_there_s']:.2f} s, back "
+        f"in {a['move_back_s']:.2f} s, bit-equal on cuda; cyclic and explicit at "
+        f"{a['small_N']} and sort exact; {a['seconds']:.1f} s")
+    log(f"[data] (b) starcoder2_3b {b['steps']} steps of B={b['batch']}, S={b['seq']} from "
+        f"{b['local_rows']} local rows of {b['rows']} (creation moved "
+        f"{b['dataset_wire_bytes']:.0f} of {b['dataset_bytes']} bytes): losses "
+        f"{[round(h['loss'], 4) for h in b['history']]}; step p50 "
+        f"{b['step_p50_s'] * 1e3:.1f} ms, {b['tokens_per_s']:.0f} tokens/s (phase 8b: "
+        f"{(b['phase8b_step_p50_s'] or 0) * 1e3:.1f} ms, {b['phase8b_tokens_per_s'] or 0:.0f}); "
+        f"peak {b['peak_bytes'] / 2**30:.2f} GiB; launches {b['launches']} "
+        f"({b['launches']['flash_attention'] // b['steps']} flash a step); trace localities "
+        f"{b['trace_pids']}; timeline {b['timeline_records']} records; top --once rc "
+        f"{b['top_rc']}; {b['seconds']:.1f} s")
+    log(f"[data] (c) partitioned {c['pvec_bytes'] / 1e6:.1f} MB: save {c['pvec_save_s']:.2f} s "
+        f"by owners [1, 1], restore {c['pvec_restore_s']:.2f} s at [1, 1], bit-equal; by GID "
+        f"{c['gid_bytes'] / 1e9:.2f} GB ({c['gid_leaves']} leaves, {c['gid_bf16_leaves']} "
+        f"bf16): built at 1 in {c['gid_build_s']:.1f} s, save {c['gid_save_s']:.1f} s, grow "
+        f"{c['grow_s']:.1f} s, restore at 2 {c['gid_restore_s']:.1f} s, fetch "
+        f"{c['gid_fetch_s']:.1f} s, bit-equal; {c['seconds']:.1f} s; phase {out['seconds']:.1f} s")
+    return launches
+
+
 # --------------------------------------------------------------------- main
 # the timing row the kernels line reports: flash at S=512 (starcoder2_3b's
 # prefill), the SSD and the RG-LRU as the models call them (fp32 dt and
@@ -3840,25 +4395,40 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
 
+    seconds = REPORT.setdefault("phase_seconds", {})
+
+    def timed(name, fn, *args):
+        """Run a phase; its wall seconds go into the report."""
+        t0 = time.perf_counter()
+        result = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        return result
+
     card = phase_device(torch)
-    phase_build()
-    timings = phase_kernels(torch, np)
-    phase_parity(torch, np)
-    phase_parity_families(torch, np)
-    phase_parity_moe(torch, np)
-    phase_parity_encdec_vlm(torch, np)
+    timed("2", phase_build)
+    timings = timed("3", phase_kernels, torch, np)
+    timed("4", phase_parity, torch, np)
+    timed("4b", phase_parity_families, torch, np)
+    timed("4c", phase_parity_moe, torch, np)
+    timed("4d", phase_parity_encdec_vlm, torch, np)
     # each path's launches (counts set to 0 just before it, read just
     # after), summed over the paths
-    paths = [phase_serve(torch, np, card), phase_serve_moe(torch, np, card),
-             phase_serve_families(torch, np, card), phase_serve_encdec_vlm(torch, np, card),
-             phase_ops(torch, np, card, timings)]
-    phase_train_parity(torch, np)
-    paths.append(phase_train(torch, np, card))
-    phase_train_checkpoint(torch, np)
-    paths.append(phase_train_families(torch, np, card))
-    paths.append(phase_train_families(torch, np, card, TRAIN_ENCDEC_VLM, "train_encdec_vlm"))
-    paths.append(phase_runtime(torch, np, card))
-    paths.append(phase_serve_localities(torch, np, card))
+    paths = [timed("5-6", phase_serve, torch, np, card),
+             timed("5c", phase_serve_moe, torch, np, card),
+             timed("5b", phase_serve_families, torch, np, card),
+             timed("5d", phase_serve_encdec_vlm, torch, np, card),
+             timed("7", phase_ops, torch, np, card, timings)]
+    timed("8a", phase_train_parity, torch, np)
+    paths.append(timed("8b", phase_train, torch, np, card))
+    timed("8 checkpoint", phase_train_checkpoint, torch, np)
+    paths.append(timed("8c", phase_train_families, torch, np, card))
+    paths.append(timed("8d", phase_train_families, torch, np, card, TRAIN_ENCDEC_VLM,
+                       "train_encdec_vlm"))
+    paths.append(timed("9", phase_runtime, torch, np, card))
+    paths.append(timed("10", phase_serve_localities, torch, np, card))
+    paths.append(timed("11", phase_data, torch, np, card))
+    log(f"[time] {card}: phase seconds "
+        f"{ {k: round(v, 1) for k, v in seconds.items()} }, {sum(seconds.values()):.1f} in all")
     launches = {k: sum(p.get(k, 0) for p in paths) for k in paths[0]}
 
     kernels = []

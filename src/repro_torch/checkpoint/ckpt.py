@@ -15,10 +15,13 @@ bits, with ``"bfloat16"`` as its dtype in the manifest, and restored as
 bf16 (a reference-written bf16 leaf, two raw bytes, reads the same way).
 ``restore`` returns CPU tensors; the caller places them.
 
-Checkpoints by GID (``save_gid``/``restore_gid``) cover objects that live
-in this process; their remote branches (an object owned by another
-locality, reached through :mod:`repro_torch.net`) raise until the slice
-that ports partitioned checkpoints and ``container``.
+Checkpoints by GID (``save_gid``/``restore_gid``) cover objects in this
+process and, through :mod:`repro_torch.net`, objects owned by another
+locality (fetched to the host by GID; restored onto a chosen locality).
+Partitioned vectors (``save_partitioned``/``restore_partitioned``) are
+written one shard per segment by the segment's owner, in
+``<dir>/pvec_XXXXXXXX/`` beside ``partitioned.json``, the reference's
+layout and shard encoding, so either package restores the other's.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import torch
 from repro_torch.core import agas as _agas
 from repro_torch.core import counters as _counters
 from repro_torch.core import executor as _executor
+from repro_torch.core import parcel as _parcel
 from repro_torch.core.future import Future
 
 _SEP = "\x1f"  # unit separator: cannot collide with "/" in param paths
@@ -145,48 +149,171 @@ def restore(ckpt_dir: Path, step: Optional[int] = None) -> Tuple[int, Dict[str, 
     return manifest["step"], state
 
 
-def _no_net(what: str) -> RuntimeError:
-    return RuntimeError(
-        f"{what} needs a multi-locality runtime's remote checkpoint branch, "
-        f"which the port has not ported yet: only objects registered in "
-        f"this process can be checkpointed by GID")
-
-
-def save_gid(ckpt_dir: Path, step: int, target: Any) -> Path:
+def save_gid(ckpt_dir: Path, step: int, target: Any,
+             timeout: float = 120.0) -> Path:
     """Save an AGAS-registered object's state by GID or symbolic name.
 
-    The target is snapshotted in-process; the checkpoint directory gains an
-    ``agas.json`` recording the GID and name so ``restore_gid`` can
-    re-install the object under its old identity.  A target that does not
-    resolve here would live at another locality: that raises."""
+    A locally-resolvable target is snapshotted in-process; otherwise the
+    multi-locality runtime (``repro_torch.net``) resolves the owner through
+    the root AGAS table and fetches a host copy over the parcelport (bf16
+    crosses as its bits).  The checkpoint directory gains an ``agas.json``
+    recording the GID and name so ``restore_gid`` can re-install the
+    object under its old identity."""
     a = _agas.default()
-    if not a.contains(target):
-        raise _no_net(f"save_gid({target!r}) of an object not registered here")
-    rec = a.record(target)
-    out = save(ckpt_dir, step, rec.obj)
+    name: Optional[str] = target if isinstance(target, str) else None
+    if a.contains(target):
+        rec = a.record(target)
+        state, gid, name = rec.obj, rec.gid, rec.name
+    else:
+        from repro_torch import net as _net
+
+        _net.require()
+        meta = _net.describe(target, timeout=timeout)
+        gid = _agas.GID(*meta["gid"])
+        name = name if name is not None else meta["name"]
+        # describe cached the resolution: the fetch goes straight to the owner
+        state = _net.fetch(gid, timeout=timeout)
+    out = save(ckpt_dir, step, state)
     (out / "agas.json").write_text(json.dumps(
-        {"gid": [rec.gid.locality, rec.gid.seq], "name": rec.name}))
+        {"gid": [gid.locality, gid.seq], "name": name}))
     return out
 
 
 def restore_gid(ckpt_dir: Path, step: Optional[int] = None,
-                locality: Optional[int] = None) -> Tuple[int, Any]:
-    """Restore a ``save_gid`` checkpoint here (as CPU tensors, as
-    ``restore`` gives them) → (step, GID).
+                locality: Optional[int] = None,
+                timeout: float = 120.0) -> Tuple[int, Any]:
+    """Restore a ``save_gid`` checkpoint onto ``locality`` (default: here),
+    as CPU tensors, as ``restore`` gives them → (step, GID).
 
-    The state is registered under the checkpoint's symbolic name, or
-    rebound where that name is taken, and the *new* GID is returned: the
-    object was re-homed, so it carries the identity of the locality that
-    now owns it.  Restoring onto another ``locality`` raises."""
-    if locality is not None:
-        raise _no_net(f"restore_gid(locality={locality})")
+    The state is registered (or rebound) under the checkpoint's symbolic
+    name at the target locality — publishing through the root AGAS table —
+    and the *new* GID is returned: the object was re-homed, so it carries
+    the identity of the locality that now owns it (elastic respawn, not
+    resurrection of a dead process's address space)."""
     step, state = restore(ckpt_dir, step)
     meta_path = Path(ckpt_dir) / f"step_{step:08d}" / "agas.json"
     name = json.loads(meta_path.read_text()).get("name") if meta_path.exists() else None
-    a = _agas.default()
-    if name is not None and a.contains(name):
-        gid = a.gid_of(name)
-        a.rebind(gid, state)
-    else:
-        gid = a.register(state, name=name)
-    return step, gid
+
+    from repro_torch import net as _net
+
+    net = _net.current()
+    if locality is not None and net is None:
+        raise RuntimeError(
+            f"restore_gid(locality={locality}) needs a multi-locality "
+            "runtime: call repro_torch.net.bootstrap(n) first")
+    if net is None or locality is None or locality == net.locality:
+        a = _agas.default()
+        if name is not None and a.contains(name):
+            gid = a.gid_of(name)
+            a.rebind(gid, state)
+        else:
+            gid = a.register(state, name=name)
+        return step, gid
+    from repro_torch.net import remote as _remote
+
+    key = _net.run_on(locality, _remote._install_state, name, state,
+                      "cpu").get(timeout=timeout)
+    return step, _agas.GID(*key)
+
+
+# --------------------------------------------------- partitioned containers
+@_parcel.action
+def _write_segment_shard(obj: Any, dirpath: str, fname: str) -> Dict[str, Any]:
+    """Object-targeted: runs at the segment's owner — each locality writes
+    its own shard (a CUDA segment takes one copy to its owner's host)."""
+    arr, dtype = _to_host(obj)
+    np.save(Path(dirpath) / fname, arr)
+    return {"file": fname, "shape": list(arr.shape), "dtype": dtype,
+            "locality": _agas.default().locality}
+
+
+@_parcel.action
+def _read_segment_shard(rt: Any, dirpath: str, fname: str, dtype: str,
+                        seg_name: str, device: str) -> list:
+    """Runs at the chosen restore owner: load the shard onto its
+    ``device``, register it."""
+    from repro_torch._device import resolve_device
+
+    seg = _load(Path(dirpath) / fname, dtype).to(resolve_device(device))
+    gid = _agas.default().register(seg, name=seg_name)
+    return [gid.locality, gid.seq]
+
+
+def save_partitioned(ckpt_dir: Path, step: int, pv: Any,
+                     timeout: float = 120.0) -> Path:
+    """Checkpoint a PartitionedVector segment-parallel: one parcel per
+    segment, the *owner* writes its shard (zero element bytes on the wire,
+    I/O overlapped across localities).  Torn writes are detected the same
+    way as :func:`save`: ``partitioned.json`` is written last."""
+    from repro_torch import net as _net
+
+    ckpt_dir = Path(ckpt_dir)
+    out = ckpt_dir / f"pvec_{step:08d}"
+    tmp = ckpt_dir / f".tmp_pvec_{step:08d}"
+    if tmp.exists():
+        shutil.rmtree(tmp)
+    tmp.mkdir(parents=True)
+    futs = [_net.apply_remote(_write_segment_shard, pv.segment_gid(j),
+                              str(tmp), f"shard_{j:05d}.npy")
+            for j in range(pv.nsegments)]
+    shards = [f.get(timeout=timeout) for f in futs]
+    manifest = {"step": step, "name": pv.name, "dtype": pv.dtype_str,
+                "element_shape": list(pv.element_shape),
+                "dist": pv.dist.to_meta(), "shards": shards}
+    (tmp / "partitioned.json").write_text(json.dumps(manifest))
+    if out.exists():
+        shutil.rmtree(out)
+    tmp.rename(out)
+    _counters.counter("/checkpoint{store#0}/saves/cumulative").increment()
+    return out
+
+
+def latest_partitioned_step(ckpt_dir: Path) -> Optional[int]:
+    ckpt_dir = Path(ckpt_dir)
+    if not ckpt_dir.exists():
+        return None
+    steps = [int(p.name.split("_")[1]) for p in ckpt_dir.glob("pvec_*")
+             if (p / "partitioned.json").exists()]
+    return max(steps) if steps else None
+
+
+def restore_partitioned(ckpt_dir: Path, step: Optional[int] = None,
+                        name: Optional[str] = None, device: Any = None,
+                        timeout: float = 120.0) -> Tuple[int, Any]:
+    """Rebuild a PartitionedVector from its shards on ``device`` (``cuda``
+    unless ``"cpu"``), each read by the locality that will own it (owner
+    ``o`` of the saving run maps to ``o % n_localities`` of this run —
+    elastic restore across different locality counts).  ``name``
+    overrides the saved symbolic name (e.g. to restore next to a
+    still-live original)."""
+    from repro_torch import net as _net
+    from repro_torch._device import resolve_device
+    from repro_torch.container.distribution import Distribution
+    from repro_torch.container.partitioned_vector import PartitionedVector
+
+    kind = resolve_device(device).type
+    net = _net.require()
+    ckpt_dir = Path(ckpt_dir)
+    if step is None:
+        step = latest_partitioned_step(ckpt_dir)
+        if step is None:
+            raise FileNotFoundError(f"no partitioned checkpoint under {ckpt_dir}")
+    d = ckpt_dir / f"pvec_{step:08d}"
+    manifest = json.loads((d / "partitioned.json").read_text())
+    name = name or manifest["name"]
+    meta = dict(manifest["dist"])
+    # restore where the data lived at SAVE time (each shard records the
+    # locality that wrote it — rebalances survive a save/restore cycle),
+    # not the creation-time owners the geometry happens to carry
+    meta["owners"] = [s["locality"] % net.n_localities
+                      for s in manifest["shards"]]
+    dist = Distribution.from_meta(meta)
+    futs = [_net.run_on(dist.owners[j], _read_segment_shard, str(d),
+                        shard["file"], shard["dtype"], f"{name}/seg{j}", kind)
+            for j, shard in enumerate(manifest["shards"])]
+    keys = [tuple(f.get(timeout=timeout)) for f in futs]
+    pv = PartitionedVector.from_parts(name, dist, manifest["dtype"],
+                                      tuple(manifest["element_shape"]), keys,
+                                      device=kind)
+    _counters.counter("/checkpoint{store#0}/restores/cumulative").increment()
+    return manifest["step"], pv

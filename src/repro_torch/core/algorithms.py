@@ -30,6 +30,14 @@ the bound executor's ``bulk_async_execute``:
 Host policies index ``data`` element by element, so they belong to host
 sequences; over a CUDA tensor they would copy one element at a time.
 
+A data argument that is a *partitioned vector* (``repro_torch.container``)
+takes none of these lowerings: the algorithm dispatches to the segmented
+layer (:mod:`repro_torch.container.segmented`), which ships the body to
+each segment's owning locality as parcels, runs it there as tensor code on
+the segment's own device, and combines partials on the caller through
+``dataflow`` — work goes to data; the policy's ``task`` flag still selects
+one-way vs two-way.
+
 Under vec, binary ``op`` arguments combine *batched slices elementwise*
 (``operator.add``, ``operator.mul``, ``torch.minimum``, ``torch.matmul`` of
 batched matrices, …) — the combinator contract of the reference's
@@ -60,6 +68,20 @@ _SEQ_EXEC = SequencedExecutor()
 
 
 # ------------------------------------------------------------------ dispatch
+def _is_segmented(data: Any) -> bool:
+    """Partitioned containers carry the ``is_segmented`` marker; their
+    algorithms lower to per-segment parcels (work-to-data) instead of the
+    local chunk/vmap lowerings below."""
+    return getattr(data, "is_segmented", False)
+
+
+def _seg_dispatch(name: str, policy: ExecutionPolicy, data: Any,
+                  *args: Any, **kwargs: Any) -> Any:
+    from repro_torch.container import segmented  # deferred: container is optional
+
+    return getattr(segmented, name)(policy, data, *args, **kwargs)
+
+
 def _as_policy(policy: Any) -> ExecutionPolicy:
     if isinstance(policy, ExecutionPolicy):
         return policy
@@ -222,6 +244,8 @@ def for_each(policy: ExecutionPolicy, data: Sequence[Any],
     (module contract: no silent sequential fallback).  Host side effects
     belong under ``seq``/``par``."""
     policy = _as_policy(policy)
+    if _is_segmented(data):
+        return _seg_dispatch("for_each", policy, data, fn)
     if _is_vec(policy):
         def body(x):
             fn(x)
@@ -249,6 +273,8 @@ def for_each(policy: ExecutionPolicy, data: Sequence[Any],
 # ---------------------------------------------------------------- transform
 def transform(policy: ExecutionPolicy, data: Any, fn: Callable[[Any], Any]) -> Any:
     policy = _as_policy(policy)
+    if _is_segmented(data):
+        return _seg_dispatch("transform", policy, data, fn)
     if _is_vec(policy):
         return _offload(policy, lambda: _vmap("transform", "body", fn, _tensor(data)))
 
@@ -307,6 +333,8 @@ def reduce(
     op: Callable[[Any, Any], Any] = operator.add,
 ) -> Any:
     policy = _as_policy(policy)
+    if _is_segmented(data):
+        return _seg_dispatch("reduce", policy, data, init, op)
     if _is_vec(policy):
         def thunk():
             arr = _tensor(data)
@@ -344,6 +372,8 @@ def transform_reduce(
     op: Callable[[Any, Any], Any] = operator.add,
 ) -> Any:
     policy = _as_policy(policy)
+    if _is_segmented(data):
+        return _seg_dispatch("transform_reduce", policy, data, fn, init, op)
     if _is_vec(policy):
         def thunk():
             arr = _tensor(data)
@@ -448,6 +478,8 @@ def _assoc_scan(name: str, op: Callable, arr: torch.Tensor) -> torch.Tensor:
 def inclusive_scan(policy: ExecutionPolicy, data: Any,
                    op: Callable = operator.add) -> Any:
     policy = _as_policy(policy)
+    if _is_segmented(data):
+        return _seg_dispatch("inclusive_scan", policy, data, op)
     if _is_vec(policy):
         def thunk():
             arr = _tensor(data)
@@ -481,6 +513,8 @@ def inclusive_scan(policy: ExecutionPolicy, data: Any,
 def exclusive_scan(policy: ExecutionPolicy, data: Any, init: Any = 0,
                    op: Callable = operator.add) -> Any:
     policy = _as_policy(policy)
+    if _is_segmented(data):
+        return _seg_dispatch("exclusive_scan", policy, data, init, op)
     if _is_vec(policy):
         def thunk():
             arr = _tensor(data)
@@ -527,6 +561,8 @@ def exclusive_scan(policy: ExecutionPolicy, data: Any, init: Any = 0,
 def sort(policy: ExecutionPolicy, data: Any) -> Any:
     """Parallel merge-ish sort: chunk-sort on pool tasks, k-way merge."""
     policy = _as_policy(policy)
+    if _is_segmented(data):
+        return _seg_dispatch("sort", policy, data)
     if _is_vec(policy):
         return _offload(policy, lambda: torch.sort(_tensor(data), dim=-1).values)
 
@@ -552,6 +588,8 @@ def _count_body(pred: Callable[[Any], Any]) -> Callable[[Any], Any]:
 def count_if(policy: ExecutionPolicy, data: Any,
              pred: Callable[[Any], Any]) -> Any:
     policy = _as_policy(policy)
+    if _is_segmented(data):
+        return _seg_dispatch("count_if", policy, data, pred)
     body = (  # one lowering: transform_reduce owns the vec dispatch
         _count_body(pred) if _is_vec(policy)
         else (lambda x: 1 if pred(x) else 0))
@@ -605,6 +643,8 @@ def fill(policy: ExecutionPolicy, data: Any, value: Any) -> Any:
     and return it; vec returns a new filled tensor of ``data``'s shape,
     dtype and device and leaves ``data`` as it was, as the reference does."""
     policy = _as_policy(policy)
+    if _is_segmented(data):
+        return _seg_dispatch("fill", policy, data, value)
     if _is_vec(policy):
         def thunk():
             arr = _tensor(data)
@@ -625,6 +665,8 @@ def fill(policy: ExecutionPolicy, data: Any, value: Any) -> Any:
 def _extremum(policy: ExecutionPolicy, data: Any, name: str,
               host_pick: Callable, vec_pick: Callable) -> Any:
     policy = _as_policy(policy)
+    if _is_segmented(data):
+        return _seg_dispatch(name, policy, data)
     if len(data) == 0:  # C++ returns last; we are value-returning, so raise
         raise ValueError(f"{name} of an empty range")
     if _is_vec(policy):

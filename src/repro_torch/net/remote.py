@@ -153,11 +153,15 @@ def _host_snapshot(obj: Any) -> Any:
 
 
 @_parcel.action
-def _install_state(rt: NetRuntime, name: Optional[str], state: Any):
+def _install_state(rt: NetRuntime, name: Optional[str], state: Any,
+                   device: Optional[str] = None):
     """Register (or rebind) ``state`` at this locality; returns the GID key.
 
     The restore half of by-GID checkpointing: a fresh locality adopts a
-    saved object's state under its old symbolic name."""
+    saved object's state under its old symbolic name — with a ``device``
+    tag, its array leaves as tensors on that device kind."""
+    if device is not None:
+        state = _place(state, device)
     a = _agas.default()
     if name is not None and a.contains(name):
         gid = a.gid_of(name)
@@ -166,16 +170,45 @@ def _install_state(rt: NetRuntime, name: Optional[str], state: Any):
     return list(_gid_key(a.register(state, name=name)))
 
 
+def _place(state: Any, device: str) -> Any:
+    """Every array leaf of an arrived state (the wire delivers host numpy,
+    bf16 as a CPU tensor) as a tensor on this process's ``device``."""
+    import numpy as np
+    import torch
+
+    from repro_torch._device import resolve_device
+
+    dev = resolve_device(device)
+
+    def walk(x: Any) -> Any:
+        if isinstance(x, np.ndarray):
+            return torch.from_numpy(x if x.flags.writeable else x.copy()).to(dev)
+        if isinstance(x, torch.Tensor):
+            return x.to(dev)
+        if isinstance(x, dict):
+            return {k: walk(v) for k, v in x.items()}
+        if isinstance(x, tuple) and hasattr(x, "_fields"):  # NamedTuple
+            return type(x)(*(walk(v) for v in x))
+        if isinstance(x, (list, tuple)):
+            return type(x)(walk(v) for v in x)
+        return x
+
+    return walk(state)
+
+
 @_parcel.action
 def _migrate_in(rt: NetRuntime, key, state: Any, name: Optional[str],
-                generation: int) -> int:
+                generation: int, device: Optional[str] = None) -> int:
+    if device is not None:
+        state = _place(state, device)
     rec = _agas.default().adopt(_agas.GID(*key), state, name=name,
                                 generation=generation)
     return rec.generation
 
 
 @_parcel.action
-def _migrate_out(rt: NetRuntime, key, dest: int) -> int:
+def _migrate_out(rt: NetRuntime, key, dest: int,
+                 device: Optional[str] = None) -> int:
     """Runs at the owner: push the object to ``dest``, then drop it here.
 
     Ordering is the correctness story: (1) dest holds the object under the
@@ -183,7 +216,9 @@ def _migrate_out(rt: NetRuntime, key, dest: int) -> int:
     to the root, (3) only then does the source unregister (its conditional
     unpublish is a no-op — the root already points at dest).  A resolve
     racing this lands either at the old owner while the object is still
-    there, or misses and re-resolves to dest; never in a gap."""
+    there, or misses and re-resolves to dest; never in a gap.  With a
+    ``device`` tag the state lands as tensors on that device kind at
+    ``dest`` (a partitioned vector's segment stays on its card)."""
     a = _agas.default()
     gid = _agas.GID(*key)
     if not a.contains(gid):
@@ -191,7 +226,7 @@ def _migrate_out(rt: NetRuntime, key, dest: int) -> int:
     rec = a.record(gid)
     state = _host_snapshot(rec.obj)
     gen = rt.send_parcel(dest, _MIGRATE_IN_NAME, None,
-                         (list(key), state, rec.name, rec.generation + 1)
+                         (list(key), state, rec.name, rec.generation + 1, device)
                          ).get(timeout=120)
     a.unregister(gid)
     rt.cache_invalidate(tuple(key))
@@ -434,9 +469,12 @@ def describe(target: _Target, timeout: float = 60.0) -> Dict[str, Any]:
 
 
 def migrate_remote(target: _Target, dest: Union[int, Locality],
-                   timeout: float = 120.0) -> int:
+                   timeout: float = 120.0, device: Optional[str] = None) -> int:
     """Move an AGAS object to another locality; its GID stays valid.
 
+    The state crosses as a host snapshot.  Without ``device`` it is
+    adopted as it arrives (host numpy); with ``device`` (``"cuda"`` or
+    ``"cpu"``) its array leaves become tensors on that device at ``dest``.
     Returns the new generation.  Concurrent resolvers never observe a gap:
     they either reach the old owner pre-unregister or retry through the
     root to the new one (see :func:`_migrate_out`)."""
@@ -451,8 +489,8 @@ def migrate_remote(target: _Target, dest: Union[int, Locality],
             return net.send_parcel(ROOT, _root_lookup._action_name, None,
                                    (list(key),)).get(timeout=60)[1]
         try:
-            gen = run_on(owner, _migrate_out, list(key),
-                         dest_id).get(timeout=timeout)
+            gen = run_on(owner, _migrate_out, list(key), dest_id,
+                         device).get(timeout=timeout)
         except UnknownGid as e:  # owner moved under us — re-resolve
             net.cache_invalidate(key)
             last = e

@@ -2,7 +2,9 @@
 reference's ``train/trainer.py``.
 
 - batches are built by scheduler tasks ``prefetch`` steps ahead
-  (``data.Prefetcher`` futures);
+  (``data.Prefetcher`` futures, or any ``get(step) -> Future[batch]``
+  source given as ``prefetcher=`` — notably ``data.LocalShardFeeder``,
+  which feeds from the segments of a sharded dataset this locality owns);
 - the step is enqueued on the device without waiting for it (PyTorch
   returns before the device finishes), so the host starts the next
   iteration at once;
@@ -14,11 +16,10 @@ reference's ``train/trainer.py``.
 The train state is AGAS-registered under ``/train/state/<name>``;
 ``resume`` restores the latest checkpoint.  Straggler detection: a logged
 step slower than ``straggler_factor``× the step-time EMA is counted
-(``/train{loop#0}/stragglers/detected``).  The reference's
-``elastic_restart`` (a reshard onto another mesh through
-``migration.migrate_to_mesh``) waits for the port's mesh; its
-``retry_stragglers`` and pluggable ``prefetcher`` wait for the sharded
-feeder that would use them.
+(``/train{loop#0}/stragglers/detected``), and with ``retry_stragglers``
+its batch is stepped again (host-level redundant dispatch).  The
+reference's ``elastic_restart`` (a reshard onto another mesh through
+``migration.migrate_to_mesh``) waits for the port's mesh.
 
 The trainer runs on ``cuda`` unless given ``device="cpu"``; without CUDA
 it raises, and the model must live on the trainer's device.
@@ -53,12 +54,14 @@ class TrainConfig:
     ckpt_every: int = 0  # 0 = disabled
     ckpt_dir: str = "checkpoints"
     straggler_factor: float = 3.0
+    retry_stragglers: bool = False
 
 
 class Trainer:
     def __init__(self, model: Model, opt_cfg: adamw.AdamWConfig,
                  data_cfg: DataConfig, tcfg: TrainConfig, rng_seed: int = 0,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 prefetcher: Any = None):
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, trainer asked "
@@ -75,7 +78,8 @@ class Trainer:
         self.opt_state = adamw.init(self.params)
         self.step_num = 0
         self._step_fn = step_mod.make_train_step(model, opt_cfg)
-        self.prefetcher = Prefetcher(model.cfg, data_cfg)
+        self.prefetcher = (prefetcher if prefetcher is not None
+                           else Prefetcher(model.cfg, data_cfg))
         self.gid = _agas.default().register_name(
             f"/train/state/{model.cfg.name}", self.state(), replace=True)
 
@@ -112,7 +116,7 @@ class Trainer:
                 loss = float(metrics["loss"])  # waits for the device (only here)
                 dt = time.perf_counter() - t0
                 self.t_step.add(dt)
-                self._check_straggler(dt)
+                self._check_straggler(dt, batch)
                 self.g_loss.set(loss)
                 history.append({"step": i + 1, "loss": loss,
                                 "grad_norm": float(metrics["grad_norm"])})
@@ -125,10 +129,15 @@ class Trainer:
         _agas.default().rebind(self.gid, self.state())
         return history
 
-    def _check_straggler(self, dt: float) -> None:
+    def _check_straggler(self, dt: float, batch) -> None:
         ema = self.t_step.ema
         if ema is not None and dt > self.tcfg.straggler_factor * max(ema, 1e-9):
             self.c_straggler.increment()
+            if self.tcfg.retry_stragglers:
+                # host-level redundant dispatch: re-run the same batch (the
+                # multi-controller analogue re-sends work to a healthy host)
+                self.params, self.opt_state, _ = self._step_fn(
+                    self.params, self.opt_state, batch)
 
     # ----------------------------------------------------------- checkpoint
     def checkpoint_async(self) -> Future:

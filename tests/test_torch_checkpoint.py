@@ -3,7 +3,7 @@ latest step, async write, torn write, missing raises, resume then step),
 a checkpoint written by either package restored equal by the other (the
 on-disk layout is shared), a bf16 leaf, and checkpoints by GID
 (``save_gid``/``restore_gid``): the local round trip, the remote branches
-raising, and a GID checkpoint written by either package restored by the
+raising as the reference's do without a multi-locality runtime, and a GID checkpoint written by either package restored by the
 other."""
 import json
 from pathlib import Path
@@ -175,12 +175,24 @@ def test_save_gid_restore_gid_reinstalls_under_the_name(port_rt, tmp_path):
     a.unregister(new)
 
 
-def test_gid_checkpoint_remote_branches_raise(port_rt, tmp_path):
-    with pytest.raises(RuntimeError, match="needs a multi-locality runtime"):
-        ckpt.save_gid(tmp_path, 1, "/ckpt/gid/nowhere")
-    ckpt.save(tmp_path, 1, _state())
-    with pytest.raises(RuntimeError, match="needs a multi-locality runtime"):
-        ckpt.restore_gid(tmp_path, 1, locality=1)
+def test_gid_checkpoint_remote_branches_raise(rt, port_rt, tmp_path):
+    """Without a multi-locality runtime the remote branches raise in both
+    packages, with the same messages: a target that does not resolve here,
+    and a restore onto another locality."""
+    msgs = {}
+    for name, mod in (("ref", rckpt), ("port", ckpt)):
+        got = []
+        with pytest.raises(RuntimeError) as e:
+            mod.save_gid(tmp_path / name, 1, "/ckpt/gid/nowhere")
+        got.append(str(e.value))
+        ckpt.save(tmp_path / name, 1, _state())
+        with pytest.raises(RuntimeError) as e:
+            mod.restore_gid(tmp_path / name, 1, locality=1)
+        got.append(str(e.value))
+        msgs[name] = [m.replace("repro_torch.", "repro.") for m in got]
+    assert msgs["port"] == msgs["ref"]
+    assert "multi-locality runtime" in msgs["port"][0]
+    assert "restore_gid(locality=1) needs a multi-locality runtime" in msgs["port"][1]
 
 
 def test_reference_save_gid_restores_in_the_port(rt, port_rt, tmp_path):
