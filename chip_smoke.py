@@ -258,15 +258,40 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    leaf's dtype, shape and sum of bit patterns (bf16 as its bits) equal to
    the state made at locality 1; the seconds of each step.
 
+12. The device plane — a one-rank NCCL process group made by
+   ``launch.mesh`` (NCCL puts no two ranks on one card; multi-rank meshes
+   are held on gloo by the CPU tests) after phase 11's localities are
+   gone, destroyed at the end.  (a) Phase 8a's fp32 2-layer state: one
+   futurized step's loss and every gradient on a ("data", "model") 1×1
+   mesh of DTensors (flash through ``local_map``) against the same step
+   without a mesh, within phase 8a's limits, 2 flash launches either way.
+   (b) Full starcoder2_3b (30 layers) under ``get_plan("futurized",
+   compress_pod_grads=True)``: ``Trainer(mesh=...)`` on the 1×1 mesh at
+   phase 8b's shape, 2 steps; ``elastic_restart`` onto a ("pod", "data",
+   "model") 1×1×1 mesh, 2 steps through the pod-manual branch (every
+   gradient a bf16 NCCL all-reduce over the pod group, counted): losses
+   within ``TRAIN_BF16_LOSS_TOL`` of phase 8b's at the same seed and
+   batches, the GID kept and its generation bumped once, the restart
+   counter at 1, exactly 30 flash launches a step; step p50, tokens/s,
+   kernels a step and device-busy share beside phase 8b's, the peak, the
+   restart's seconds.  (c) Phase 8's 2-layer checkpoint restored onto the
+   mesh by ``ckpt.restore(shardings=)``: every leaf bit-equal to a plain
+   restore and on its requested placements.  (d) ``MeshExecutor`` over
+   phase 9's 2²⁷ fp32 elements: transform, reduce, transform_reduce and
+   count_if under ``mesh_policy`` against ``vec`` (exact, sums within
+   ``RUNTIME_SUM_RTOL``), GB/s beside phase 7's triad.  The report lands
+   in ``REPORT["mesh"]``.
+
 The second-to-last line of standard output is the ``kernels`` JSON, each
 kernel's launches summed over the paths of phases 5, 5c, 5b, 5d, 7, 8b, 8c,
-8d, 9, 10 and 11 (phase 10's summed over its localities); the last
+8d, 9, 10, 11 and 12 (phase 10's summed over its localities); the last
 is ``{"ok": true, "device": {...}}``.  A fuller report is written to
 ``chiprun_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import gc
 import json
@@ -2763,6 +2788,18 @@ def phase_train_families(torch, np, card, families=TRAIN_FAMILIES, key="train_fa
     return total
 
 
+CHECKPOINT_DIR = []  # phase 8's 2-layer checkpoint, restored by phase 12
+
+
+@contextlib.contextmanager
+def _kept_dir():
+    """A temporary directory that outlives its block: phase 12 removes it."""
+    import tempfile
+
+    CHECKPOINT_DIR.append(tempfile.TemporaryDirectory())
+    yield CHECKPOINT_DIR[-1].name
+
+
 def phase_train_checkpoint(torch, np):
     """Checkpoint on the card at full width and 2 layers (the full state is
     51 GB): two steps with an async checkpoint after the second, a new
@@ -2782,7 +2819,7 @@ def phase_train_checkpoint(torch, np):
     dcfg = DataConfig(batch_size=1, seq_len=64, seed=SEED)
     core.init(pools={"default": 4, "io": 1})
     try:
-        with tempfile.TemporaryDirectory() as d:
+        with _kept_dir() as d:  # kept for phase 12, which restores it onto a mesh
             t0 = time.perf_counter()
             tr = Trainer(Model(cfg), opt, dcfg,
                          TrainConfig(steps=2, log_every=1, ckpt_every=2, ckpt_dir=d),
@@ -4379,6 +4416,313 @@ def phase_data(torch, np, card):
 MAIN_ROW = {"flash_attention": 1, "ssd_scan": 1, "rglru_scan": 1}
 
 
+# ----------------------------------------------------------------- phase 12
+# The device plane on the card: a one-rank NCCL process group (NCCL puts
+# no two ranks on one card; multi-rank meshes are held on gloo by the CPU
+# tests), made by ``launch.mesh`` after phase 11's localities are gone and
+# destroyed at the end.  (a) parity: phase 8a's fp32 2-layer state, one
+# futurized step's loss and every gradient on a ("data", "model") 1×1
+# mesh of DTensors against the same step without a mesh (phase 8a's
+# limits), 2 flash launches a step either way.  (b) full starcoder2_3b
+# (30 layers) under ``get_plan("futurized", compress_pod_grads=True)``:
+# ``Trainer(mesh=...)`` on the 1×1 mesh at phase 8b's shape, MESH_STEPS
+# steps; ``elastic_restart`` onto a ("pod", "data", "model") 1×1×1 mesh
+# and MESH_STEPS steps more through the pod-manual branch (every gradient
+# all-reduced as bf16 over the pod group, counted); losses within
+# TRAIN_BF16_LOSS_TOL of phase 8b's at the same seed and batches, the GID
+# kept and its generation bumped once, the restart counter at 1, exactly
+# 30 flash launches a step; step p50, tokens/s, kernels a step and the
+# device-busy share beside phase 8b's, the peak and the restart's seconds.
+# (c) phase 8's 2-layer checkpoint restored onto the 1×1 mesh with
+# ``shardings=``: every leaf bit-equal to a plain restore and on its
+# requested placements.  (d) ``MeshExecutor`` over phase 9's 2²⁷ fp32
+# elements: transform, reduce, transform_reduce and count_if under
+# ``mesh_policy`` against ``vec`` on the same tensor (exact, sums within
+# RUNTIME_SUM_RTOL), each timed (``_time_ms``), GB/s beside the triad.
+MESH_STEPS = 2
+MESH_ALGOS = ("transform", "reduce", "transform_reduce", "count_if")
+
+
+def _mesh_parity(torch, mesh):
+    """Phase 12(a): see the block comment above."""
+    from repro_torch.configs.starcoder2_3b import full_config
+    from repro_torch.core import migration
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+    from repro_torch.train import step as step_mod
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    layers, B, S = TRAIN_PARITY
+    cfg = replace(full_config(), num_layers=layers, dtype="float32")
+    model = Model(cfg)
+    params = model.init(SEED)
+    batch = {k: v.cuda() for k, v in
+             synth_batch(cfg, DataConfig(batch_size=B, seq_len=S, seed=SEED), 0).items()}
+    ops.reset_launch_counts()
+    loss_p, grads_p = step_mod.value_and_grad(model.loss, params, batch)
+    torch.cuda.synchronize()
+    _check_launches("mesh parity (no mesh)", ops.launch_counts(), {"flash_attention": layers})
+    p_sh, _ = step_mod.train_state_shardings(model, mesh)
+    dparams = migration.migrate_tree(params, p_sh, mesh)
+    dbatch = step_mod.place_batch(model, mesh, batch)
+    ops.reset_launch_counts()  # ← the mesh step
+    loss_m, grads_m = step_mod.value_and_grad(model.loss, dparams, dbatch)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()  # ← and its end
+    _check_launches("mesh parity", launches, {"flash_attention": layers})
+    loss_err = abs(loss_m.full_tensor().item() - loss_p.item())
+    check(loss_err <= TRAIN_LOSS_TOL, f"mesh parity: loss err {loss_err}")
+    worst, worst_rel = None, 0.0
+    for k, g in grads_p.items():
+        gm = grads_m[k]
+        check(list(gm.placements) == list(p_sh[k]),
+              f"mesh parity: {k} grad on {gm.placements}, its param on {p_sh[k]}")
+        err = (gm.full_tensor() - g).abs().max().item()
+        scale = g.abs().max().item()
+        check(scale > 0 and err <= TRAIN_GRAD_RTOL * scale,
+              f"mesh parity: {k} grad err {err} > {TRAIN_GRAD_RTOL} × {scale}")
+        if err / scale >= worst_rel:
+            worst, worst_rel = k, err / scale
+    out = {"layers": layers, "batch": B, "seq": S, "loss": loss_p.item(),
+           "loss_err": loss_err, "loss_tol": TRAIN_LOSS_TOL, "worst_grad": worst,
+           "worst_grad_rel_err": worst_rel, "grad_rtol": TRAIN_GRAD_RTOL,
+           "launches": launches}
+    log(f"[mesh parity] {layers} layers fp32 on a (data, model) 1×1 mesh: loss "
+        f"{loss_p.item():.6f} (err {loss_err:.3g}, tol {TRAIN_LOSS_TOL}); worst grad "
+        f"{worst} {worst_rel:.3g} of its max (rtol {TRAIN_GRAD_RTOL}); launches {launches}")
+    del params, dparams, grads_p, grads_m
+    return out
+
+
+def _mesh_train(torch, card, mesh, pod_mesh):
+    """Phase 12(b): see the block comment above."""
+    import torch.distributed as dist
+
+    import repro_torch.core as core
+    from repro_torch.configs import get_config
+    from repro_torch.core import agas, counters
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.dist.plan import get_plan
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as step_mod
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("starcoder2_3b")
+    B, S, _ = TRAIN_RUN
+    L = cfg.num_layers
+    dcfg = DataConfig(batch_size=B, seq_len=S, seed=SEED)
+    model = Model(cfg, plan=get_plan("futurized", compress_pod_grads=True))
+    check(not step_mod.takes_pod_manual(model, mesh) and
+          step_mod.takes_pod_manual(model, pod_mesh),
+          "mesh train: the pod-manual branch rule")
+    bf16_reduces = [0]
+    all_reduce = dist.all_reduce
+
+    def counted(t, *a, **kw):  # the pod-manual branch's wire, seen from outside
+        if t.dtype == torch.bfloat16:
+            bf16_reduces[0] += 1
+        return all_reduce(t, *a, **kw)
+
+    core.init(pools={"default": 4, "io": 1})
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        tr = Trainer(model, adamw.AdamWConfig(**TRAIN_OPT), dcfg,
+                     TrainConfig(steps=MESH_STEPS, log_every=1), rng_seed=SEED, mesh=mesh)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        hist, step_s = [], []
+        ops.reset_launch_counts()  # ← the mesh training path starts here
+        for _ in range(MESH_STEPS):
+            t0 = time.perf_counter()
+            hist += tr.fit(1)
+            step_s.append(time.perf_counter() - t0)
+        gen0 = agas.default().record(tr.gid).generation
+        t0 = time.perf_counter()
+        tr.elastic_restart(pod_mesh)
+        torch.cuda.synchronize()
+        restart_s = time.perf_counter() - t0
+        rec = agas.default().record(tr.gid)
+        check(rec.generation == gen0 + 1 and rec.placement is pod_mesh,
+              f"mesh train: the restart's rebind (generation {gen0} → {rec.generation})")
+        dist.all_reduce = counted
+        try:
+            for _ in range(MESH_STEPS):
+                t0 = time.perf_counter()
+                hist += tr.fit(1)
+                step_s.append(time.perf_counter() - t0)
+        finally:
+            dist.all_reduce = all_reduce
+        launches = ops.launch_counts()  # ← and ends here
+        peak = torch.cuda.max_memory_allocated()
+        _check_launches("mesh train", launches, {"flash_attention": 2 * MESH_STEPS * L})
+        n_params = len(tr.params)
+        check(bf16_reduces[0] >= MESH_STEPS * n_params,
+              f"mesh train: {bf16_reduces[0]} bf16 all-reduces in {MESH_STEPS} pod-manual "
+              f"steps of {n_params} grads")
+        restarts = counters.default().counter(
+            "/train{loop#0}/elastic_restarts/cumulative").get_value()
+        check(restarts == 1, f"mesh train: {restarts} elastic restarts counted")
+        ref = [h["loss"] for h in REPORT["train"]["history"]]
+        losses = [h["loss"] for h in hist]
+        check(all(math.isfinite(x) for x in losses) and all(
+            abs(a - b) <= TRAIN_BF16_LOSS_TOL for a, b in zip(losses, ref)),
+              f"mesh train: losses {losses} vs phase 8b's {ref}")
+        prof = _device_profile(torch, lambda: tr.fit(1), 1)
+        p50 = statistics.median(step_s)
+        b8 = REPORT["train"]
+        out = {"card": card, "arch": cfg.name, "layers": L, "batch": B, "seq": S,
+               "plan": "futurized+compress_pod_grads", "history": hist, "step_s": step_s,
+               "step_p50_s": p50, "tokens_per_s": B * S / p50, "setup_s": setup_s,
+               "restart_s": restart_s, "max_memory_allocated_bytes": peak,
+               "launches": launches, "bf16_all_reduces": bf16_reduces[0],
+               "phase_8b_losses": ref, "loss_tol": TRAIN_BF16_LOSS_TOL,
+               "profile_one_step": prof,
+               "phase_8b": {"step_p50_s": b8["step_p50_s"], "tokens_per_s": b8["tokens_per_s"],
+                            "kernels_per_step": b8["profile_one_step"].get("kernels_per_call"),
+                            "busy_share": b8["profile_one_step"].get("busy_share"),
+                            "max_memory_allocated_bytes": b8["max_memory_allocated_bytes"]}}
+        busy = ("device time not measured (the profiler saw none)"
+                if prof["device_ms"] is None else
+                f"{prof['kernels_per_call']:.0f} kernels, device busy "
+                f"{100 * prof['busy_share']:.1f}%")
+        log(f"[mesh train] {card}: {cfg.name} {L} layers, B={B}, S={S}, 1×1 then "
+            f"(pod) 1×1×1 mesh: losses {[round(x, 4) for x in losses]} (phase 8b "
+            f"{[round(x, 4) for x in ref]}); step p50 {p50 * 1e3:.1f} ms "
+            f"({[round(t * 1e3, 1) for t in step_s]}), {B * S / p50:.0f} tokens/s (phase 8b "
+            f"{b8['tokens_per_s']:.0f}); one step {busy}; restart {restart_s:.2f} s; "
+            f"max_memory_allocated {peak / 2**30:.2f} GiB; {bf16_reduces[0]} bf16 "
+            f"all-reduces; launches {launches}")
+        tr.close()
+        del tr
+        return out, launches
+    finally:
+        core.finalize()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _mesh_restore(torch, mesh):
+    """Phase 12(c): see the block comment above."""
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.train import step as step_mod
+
+    d = CHECKPOINT_DIR.pop()
+    try:
+        model = Model(replace(get_config("starcoder2_3b"), num_layers=2))
+        p_sh, o_sh = step_mod.train_state_shardings(model, mesh)
+        sh = {"params": p_sh, "opt": o_sh}
+        t0 = time.perf_counter()
+        step, placed = ckpt.restore(d.name, shardings=sh, mesh=mesh)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        step_p, plain = ckpt.restore(d.name)
+        check(step == step_p == 2, f"mesh restore: step {step} vs {step_p}")
+
+        def leaves(tree, shard, prefix=""):
+            for k, v in tree.items():
+                if isinstance(v, dict):
+                    yield from leaves(v, shard[k], f"{prefix}{k}/")
+                else:
+                    yield f"{prefix}{k}", v, shard[k]
+
+        want = dict((k, v) for k, v, _ in leaves(plain, sh))
+        n = nbytes = 0
+        for k, v, pl in leaves(placed, sh):
+            check(list(v.placements) == list(pl) and v.device_mesh is mesh,
+                  f"mesh restore: {k} on {v.placements}, asked {pl}")
+            full = v.full_tensor()
+            check(full.device.type == "cuda" and full.dtype == want[k].dtype and
+                  torch.equal(full.cpu(), want[k]), f"mesh restore: {k} differs")
+            n += 1
+            nbytes += full.numel() * full.element_size()
+        out = {"leaves": n, "bytes": nbytes, "seconds": secs, "step": step}
+        log(f"[mesh restore] phase 8's 2-layer checkpoint onto the 1×1 mesh: {n} leaves, "
+            f"{nbytes / 1e9:.2f} GB bit-equal on their placements, {secs:.1f} s")
+        return out
+    finally:
+        d.cleanup()
+
+
+def _mesh_executor(torch, np, mesh):
+    """Phase 12(d): see the block comment above."""
+    from repro_torch.core import algorithms as alg
+    from repro_torch.core.executor import MeshExecutor, mesh_policy, vec
+
+    rng = np.random.default_rng(SEED + 9)
+    x = torch.from_numpy(rng.uniform(-1.0, 1.0, size=STREAM_N).astype(np.float32))
+    gpu = x.cuda()
+    mag = x.abs().double()
+    policy = mesh_policy(mesh, "data")
+    check(isinstance(policy.executor, MeshExecutor) and policy.kind == "mesh",
+          "mesh executor: mesh_policy")
+    flush = torch.empty(16 * 1024 * 1024, dtype=torch.float32, device="cuda")
+    runtime = REPORT["runtime"]["algorithms"]["card"]
+    out = {"N": STREAM_N, "sum_rtol": RUNTIME_SUM_RTOL, "algorithms": {},
+           "triad_GB_per_s": REPORT.get("stream", {}).get("float32", {}).get("GB_per_s")}
+    for name, call, units, kind in _runtime_algos():
+        if name not in MESH_ALGOS:
+            continue
+        got = call(alg, policy, gpu)
+        want = call(alg, vec, gpu)
+        if name == "transform":
+            check(type(got).__name__ == "DTensor" and got.to_local().is_cuda,
+                  "mesh executor: transform did not come back a DTensor on the card")
+            got = got.full_tensor()
+        err = _held(torch, got, want, kind, mag, name, "mesh vs vec")
+        del got, want
+        ms = _time_ms(torch, lambda: call(alg, policy, gpu), flush, reps=RUNTIME_REPS)
+        nbytes = units * STREAM_N * x.element_size()
+        vec_ms = runtime.get(f"{name} float32", {}).get("ms")
+        out["algorithms"][name] = {"ms": ms, "bytes": nbytes, "GB_per_s": nbytes / ms / 1e6,
+                                   "vec_ms": vec_ms, "err": err}
+    log(f"[mesh executor] 2²⁷ fp32 on the 1-rank mesh, GB/s (vec ms): "
+        f"{ {k: (round(v['GB_per_s'], 1), v['vec_ms'] and round(v['vec_ms'], 3)) for k, v in out['algorithms'].items()} }"
+        f" beside the triad's {out['triad_GB_per_s']}")
+    del gpu
+    return out
+
+
+def phase_mesh(torch, np, card):
+    """Phase 12, the device plane: see the block comment above.  Returns
+    the launches of (b)'s training path."""
+    from repro_torch.launch import mesh as mesh_mod
+
+    mesh_mod.init_process_group(0, 1, "cuda")
+    try:
+        mesh = mesh_mod.make_mesh_shape((1, 1), ("data", "model"))
+        pod_mesh = mesh_mod.make_mesh_shape((1, 1, 1), ("pod", "data", "model"))
+        seconds = {}
+        t0 = time.perf_counter()
+        parity = _mesh_parity(torch, mesh)
+        seconds["a"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        train, launches = _mesh_train(torch, card, mesh, pod_mesh)
+        seconds["b"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restore = _mesh_restore(torch, mesh)
+        seconds["c"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        execs = _mesh_executor(torch, np, mesh)
+        seconds["d"] = time.perf_counter() - t0
+        REPORT["mesh"] = {"card": card, "parity": parity, "train": train,
+                          "restore": restore, "executor": execs, "seconds": seconds}
+        log(f"[mesh] seconds {({k: round(v, 1) for k, v in seconds.items()})}")
+        return launches
+    finally:
+        mesh_mod.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     # the caching allocator grows segments in place instead of keeping
     # freed blocks of fixed-size segments apart: phase 8c's 16,384-token
@@ -4427,6 +4771,7 @@ def main() -> int:
     paths.append(timed("9", phase_runtime, torch, np, card))
     paths.append(timed("10", phase_serve_localities, torch, np, card))
     paths.append(timed("11", phase_data, torch, np, card))
+    paths.append(timed("12", phase_mesh, torch, np, card))
     log(f"[time] {card}: phase seconds "
         f"{ {k: round(v, 1) for k, v in seconds.items()} }, {sum(seconds.values()):.1f} in all")
     launches = {k: sum(p.get(k, 0) for p in paths) for k in paths[0]}

@@ -13,7 +13,11 @@ restores in the other:
 numpy has no bfloat16 of its own: a bf16 leaf is stored as its uint16
 bits, with ``"bfloat16"`` as its dtype in the manifest, and restored as
 bf16 (a reference-written bf16 leaf, two raw bytes, reads the same way).
-``restore`` returns CPU tensors; the caller places them.
+``restore`` returns CPU tensors, or with ``shardings=`` places them as
+DTensors on a target mesh — which may differ from the mesh they were
+saved on (elastic restart).  A state of DTensors is saved through each
+leaf's full value: every rank of its mesh takes part (SPMD), and only the
+mesh's first rank writes.
 
 Checkpoints by GID (``save_gid``/``restore_gid``) cover objects in this
 process and, through :mod:`repro_torch.net`, objects owned by another
@@ -34,12 +38,15 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core import agas as _agas
 from repro_torch.core import counters as _counters
 from repro_torch.core import executor as _executor
+from repro_torch.core import migration as _migration
 from repro_torch.core import parcel as _parcel
-from repro_torch.core.future import Future
+from repro_torch.core.future import Future, make_ready_future
 
 _SEP = "\x1f"  # unit separator: cannot collide with "/" in param paths
 _BF16 = "bfloat16"
@@ -73,7 +80,10 @@ def _unflatten(flat: Dict[str, Any]) -> Any:
 
 
 def _to_host(leaf: Any) -> Tuple[np.ndarray, str]:
-    """(array to write, dtype name for the manifest); a copy on the host."""
+    """(array to write, dtype name for the manifest); a copy on the host.
+    A DTensor's full value is gathered by its mesh's ranks."""
+    if isinstance(leaf, DTensor):
+        leaf = leaf.detach().full_tensor()
     t = torch.as_tensor(leaf).detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16), _BF16
@@ -103,16 +113,32 @@ def _write(ckpt_dir: Path, step: int, host: Dict[str, Tuple[np.ndarray, str]]) -
     return out
 
 
+def _writes(flat: Dict[str, Any]) -> bool:
+    """False on a rank that only helps gather a DTensor state: the first
+    rank of the (first) mesh writes it."""
+    for v in flat.values():
+        if isinstance(v, DTensor):
+            return dist.get_rank() == int(v.device_mesh.mesh.flatten()[0])
+    return True
+
+
 def save(ckpt_dir: Path, step: int, state: Dict[str, Any]) -> Path:
     """Synchronous save of a nested dict of tensors (params/opt/etc)."""
-    return _write(ckpt_dir, step, {k: _to_host(v) for k, v in _flatten(state).items()})
+    flat = _flatten(state)
+    host = {k: _to_host(v) for k, v in flat.items()}
+    if not _writes(flat):
+        return Path(ckpt_dir) / f"step_{step:08d}"
+    return _write(ckpt_dir, step, host)
 
 
 def save_async(ckpt_dir: Path, step: int, state: Dict[str, Any]) -> Future:
     """Snapshot to the host now (the caller may then update the state in
     place); write from the resource partitioner's "io" pool, so the
     trainer keeps going and disk I/O never steals compute slots."""
-    host = {k: _to_host(v) for k, v in _flatten(state).items()}
+    flat = _flatten(state)
+    host = {k: _to_host(v) for k, v in flat.items()}
+    if not _writes(flat):
+        return make_ready_future(Path(ckpt_dir) / f"step_{step:08d}")
     return _executor.get_executor("io", fallback="default").async_execute(
         _write, ckpt_dir, step, host)
 
@@ -133,9 +159,16 @@ def _load(path: Path, dtype: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def restore(ckpt_dir: Path, step: Optional[int] = None) -> Tuple[int, Dict[str, Any]]:
+def restore(ckpt_dir: Path, step: Optional[int] = None,
+            shardings: Optional[Any] = None,
+            mesh: Any = None) -> Tuple[int, Dict[str, Any]]:
     """Load a checkpoint (the latest when ``step`` is None) as a nested dict
-    of CPU tensors; raises ``FileNotFoundError`` when there is none."""
+    of CPU tensors; raises ``FileNotFoundError`` when there is none.  With
+    ``shardings`` (a tree of DTensor placements matching the state's, or
+    part of it) each such leaf is placed onto ``mesh`` — elastic restart;
+    every rank of ``mesh`` reads the same files, so nothing crosses ranks."""
+    if shardings is not None and mesh is None:
+        raise ValueError("restore(shardings=...) needs the target mesh")
     ckpt_dir = Path(ckpt_dir)
     if step is None:
         step = latest_step(ckpt_dir)
@@ -143,8 +176,12 @@ def restore(ckpt_dir: Path, step: Optional[int] = None) -> Tuple[int, Dict[str, 
             raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
     d = ckpt_dir / f"step_{step:08d}"
     manifest = json.loads((d / "manifest.json").read_text())
-    state = _unflatten({path: _load(d / meta["file"], meta["dtype"])
-                        for path, meta in manifest["leaves"].items()})
+    flat = {path: _load(d / meta["file"], meta["dtype"])
+            for path, meta in manifest["leaves"].items()}
+    if shardings is not None:
+        flat_sh = {p: pl for p, pl in _flatten(shardings).items() if p in flat}
+        flat.update(_migration.migrate_tree({p: flat[p] for p in flat_sh}, flat_sh, mesh))
+    state = _unflatten(flat)
     _counters.counter("/checkpoint{store#0}/restores/cumulative").increment()
     return manifest["step"], state
 

@@ -10,10 +10,9 @@
     counters                             APEX-style performance counters
     algorithms / executor                C++17 parallel algorithms + policies
     migration                            object migration
-
-The device-mesh parts of the reference (``MeshExecutor``,
-``parcel.shard_parcel``, ``migration.migrate_to_mesh``) wait for the port's
-mesh.
+    MeshExecutor / mesh_policy           the device plane (a DeviceMesh)
+    parcel.shard_parcel                  a body run at every shard
+    migration.migrate_to_mesh            elastic resharding
 """
 
 from repro_torch.core import agas, algorithms, counters, executor, migration, parcel
@@ -21,10 +20,12 @@ from repro_torch.core.dataflow import TaskGraph, dataflow, futurize
 from repro_torch.core.executor import (
     ExecutionPolicy,
     Executor,
+    MeshExecutor,
     PriorityExecutor,
     SequencedExecutor,
     ThreadPoolExecutor,
     get_executor,
+    mesh_policy,
 )
 from repro_torch.core.future import (
     Channel,
@@ -56,8 +57,8 @@ from repro_torch.core.scheduler import (
 __all__ = [
     "agas", "algorithms", "counters", "executor", "migration", "parcel",
     "TaskGraph", "dataflow", "futurize",
-    "ExecutionPolicy", "Executor", "PriorityExecutor",
-    "SequencedExecutor", "ThreadPoolExecutor", "get_executor",
+    "ExecutionPolicy", "Executor", "MeshExecutor", "PriorityExecutor",
+    "SequencedExecutor", "ThreadPoolExecutor", "get_executor", "mesh_policy",
     "Channel", "ChannelClosed",
     "Future", "FutureError", "Promise", "make_exceptional_future",
     "make_ready_future", "unwrap", "wait_all", "when_all", "when_any",

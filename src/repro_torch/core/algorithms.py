@@ -25,7 +25,15 @@ the bound executor's ``bulk_async_execute``:
   without CUDA — as the reference's ``jnp.asarray`` lands on the default
   accelerator.  Results stay on the device.  Bodies that cannot vectorize
   (``.item()``, Python branches on data, side effects on the host) raise
-  instead of silently degrading to a host loop.
+  instead of silently degrading to a host loop;
+- ``vec.on(MeshExecutor(mesh, axis))`` (:func:`mesh_policy`) — the device
+  plane: the data (the same on every rank) sharded over a mesh axis as a
+  DTensor, bodies run per local shard, sums finished by an ``all_reduce``
+  over the axis's group.  Element-wise results come back as ``Shard(0)``
+  DTensors, whole-array ones (scans, sort, fill, copy) as the DTensors
+  DTensor's own rules give, sums and extrema as plain tensors, the same
+  on every rank (each rank's part finished by an ``all_reduce``).  A
+  non-add ``op`` runs on the whole array on the mesh's device.
 
 Host policies index ``data`` element by element, so they belong to host
 sequences; over a CUDA tensor they would copy one element at a time.
@@ -53,11 +61,13 @@ import operator
 from typing import Any, Callable, List, Optional, Sequence
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch._device import resolve_device
 from repro_torch.core.executor import (
     ExecutionPolicy,
     Executor,
+    MeshExecutor,
     PriorityExecutor,
     SequencedExecutor,
     ThreadPoolExecutor,
@@ -90,8 +100,40 @@ def _as_policy(policy: Any) -> ExecutionPolicy:
         f"policy.on(executor)), got {policy!r}")
 
 
+def _mode(policy: ExecutionPolicy) -> str:
+    ex = policy.executor
+    if ex is not None and ex.plane == "device":
+        return "device"
+    if policy.flavor == "vec":
+        return "vec"
+    return "host"
+
+
 def _is_vec(policy: ExecutionPolicy) -> bool:
-    return policy.flavor == "vec"
+    """The vectorized lowerings: ``vec`` and the device plane."""
+    return _mode(policy) in ("vec", "device")
+
+
+def _device_ex(policy: ExecutionPolicy) -> Optional[MeshExecutor]:
+    return policy.executor if _mode(policy) == "device" else None  # type: ignore[return-value]
+
+
+def _whole(policy: ExecutionPolicy, data: Any) -> torch.Tensor:
+    """vec's operand; on the device plane, the data sharded over the axis
+    (a DTensor)."""
+    dex = _device_ex(policy)
+    return _tensor(data) if dex is None else dex.put(data)
+
+
+def _global(policy: ExecutionPolicy, data: Any) -> torch.Tensor:
+    """The whole data as one plain tensor — on the device plane, on the
+    mesh's device (every rank holds it): a non-add op's operand."""
+    dex = _device_ex(policy)
+    if dex is None:
+        return _tensor(data)
+    if isinstance(data, DTensor):
+        return data.full_tensor()
+    return torch.as_tensor(data).to(dex.device())
 
 
 def _host_executor(policy: ExecutionPolicy) -> Executor:
@@ -137,12 +179,12 @@ def _join(policy: ExecutionPolicy, futs: List[Future],
 
 
 def _offload(policy: ExecutionPolicy, thunk: Callable[[], Any]):
-    """Produce a vec value, honoring the policy bindings: a bound executor
-    runs the whole vectorized dispatch as one task on that pool
-    (``vec.on(rt.get_executor("io"))`` — never silently inline), and
+    """Produce a vec/device value, honoring the policy bindings: a bound
+    *host* executor runs the whole vectorized dispatch as one task on that
+    pool (``vec.on(rt.get_executor("io"))`` — never silently inline), and
     ``task`` policies get a Future."""
     ex = policy.executor
-    if ex is not None:
+    if ex is not None and ex.plane == "host":
         if policy.priority is not None:
             ex = PriorityExecutor(ex, policy.priority)
         fut = ex.async_execute(thunk)
@@ -251,12 +293,18 @@ def for_each(policy: ExecutionPolicy, data: Sequence[Any],
             fn(x)
             return x
 
+        dex = _device_ex(policy)
+
         def thunk() -> None:
-            arr = _tensor(data)
+            arr = _whole(policy, data)
             if arr.shape[0]:
-                _traced("for_each", f"body {getattr(fn, '__name__', fn)!r}",
-                        lambda: torch.vmap(body)(arr))
-                _sync(arr)
+                what = f"body {getattr(fn, '__name__', fn)!r}"
+                if dex is not None:
+                    out = dex.vmap_apply(body, arr, lambda f, a: _vmap("for_each", what, f, a))
+                    _sync(out.to_local())
+                else:
+                    _traced("for_each", what, lambda: torch.vmap(body)(arr))
+                    _sync(arr)
             return None
 
         return _offload(policy, thunk)
@@ -276,6 +324,10 @@ def transform(policy: ExecutionPolicy, data: Any, fn: Callable[[Any], Any]) -> A
     if _is_segmented(data):
         return _seg_dispatch("transform", policy, data, fn)
     if _is_vec(policy):
+        dex = _device_ex(policy)
+        if dex is not None:
+            return _offload(policy, lambda: dex.vmap_apply(
+                fn, data, lambda f, a: _vmap("transform", "body", f, a)))
         return _offload(policy, lambda: _vmap("transform", "body", fn, _tensor(data)))
 
     n = len(data)
@@ -336,13 +388,18 @@ def reduce(
     if _is_segmented(data):
         return _seg_dispatch("reduce", policy, data, init, op)
     if _is_vec(policy):
+        dex = _device_ex(policy)
+
         def thunk():
-            arr = _tensor(data)
+            arr = _whole(policy, data)
             if arr.shape[0] == 0:
                 return init
-            total = (torch.sum(arr, dim=0, dtype=_sum_dtype(arr.dtype))  # elements may be batched
-                     if op is operator.add
-                     else _vec_tree_reduce("reduce", op, arr))
+            if op is not operator.add:
+                total = _vec_tree_reduce("reduce", op, _global(policy, data))
+            elif dex is not None:  # per-shard partial, all_reduce finish
+                total = dex.sum_total(arr, dtype=_sum_dtype(arr.dtype))
+            else:  # elements may be batched
+                total = torch.sum(arr, dim=0, dtype=_sum_dtype(arr.dtype))
             return _with_init(op, init, total)
 
         return _offload(policy, thunk)
@@ -375,17 +432,27 @@ def transform_reduce(
     if _is_segmented(data):
         return _seg_dispatch("transform_reduce", policy, data, fn, init, op)
     if _is_vec(policy):
+        dex = _device_ex(policy)
+
         def thunk():
-            arr = _tensor(data)
+            arr = _whole(policy, data)
             if arr.shape[0] == 0:
                 return init
-            mapped = _vmap("transform_reduce", "body", fn, arr)
+            if dex is not None:
+                mapped = dex.vmap_apply(
+                    fn, arr, lambda f, a: _vmap("transform_reduce", "body", f, a))
+            else:
+                mapped = _vmap("transform_reduce", "body", fn, arr)
             if mapped.dtype == torch.int64 and arr.dtype in _NARROW_INTS:
                 # torch's default integer where the body's jnp gives int32
                 mapped = mapped.to(torch.int32)
-            total = (torch.sum(mapped, dim=0, dtype=_sum_dtype(mapped.dtype))
-                     if op is operator.add
-                     else _vec_tree_reduce("transform_reduce", op, mapped))
+            if op is not operator.add:
+                total = _vec_tree_reduce("transform_reduce", op, mapped.full_tensor()
+                                         if isinstance(mapped, DTensor) else mapped)
+            elif dex is not None:
+                total = dex.sum_total(mapped, dtype=_sum_dtype(mapped.dtype))
+            else:
+                total = torch.sum(mapped, dim=0, dtype=_sum_dtype(mapped.dtype))
             return _with_init(op, init, total)
 
         return _offload(policy, thunk)
@@ -482,12 +549,12 @@ def inclusive_scan(policy: ExecutionPolicy, data: Any,
         return _seg_dispatch("inclusive_scan", policy, data, op)
     if _is_vec(policy):
         def thunk():
-            arr = _tensor(data)
+            arr = _whole(policy, data)
             if arr.shape[0] == 0:
                 return arr
-            return (torch.cumsum(arr, dim=0, dtype=_cumsum_dtype(arr.dtype))
-                    if op is operator.add
-                    else _assoc_scan("inclusive_scan", op, arr))
+            if op is not operator.add:
+                return _assoc_scan("inclusive_scan", op, _global(policy, data))
+            return torch.cumsum(arr, dim=0, dtype=_cumsum_dtype(arr.dtype))
 
         return _offload(policy, thunk)
 
@@ -517,9 +584,13 @@ def exclusive_scan(policy: ExecutionPolicy, data: Any, init: Any = 0,
         return _seg_dispatch("exclusive_scan", policy, data, init, op)
     if _is_vec(policy):
         def thunk():
-            arr = _tensor(data)
+            arr = _whole(policy, data)
             if arr.shape[0] == 0:  # C++: empty exclusive scan writes nothing
                 return arr
+            if op is not operator.add or isinstance(arr, DTensor):
+                # the whole array (on the mesh's device): an init beside a
+                # sharded array has no DTensor rule
+                arr = _global(policy, data)
             # promote like the seq oracle would (a float init over int data
             # yields floats — never silently truncate init to the data
             # dtype), strongly as the reference's jnp.result_type does, and
@@ -564,7 +635,7 @@ def sort(policy: ExecutionPolicy, data: Any) -> Any:
     if _is_segmented(data):
         return _seg_dispatch("sort", policy, data)
     if _is_vec(policy):
-        return _offload(policy, lambda: torch.sort(_tensor(data), dim=-1).values)
+        return _offload(policy, lambda: torch.sort(_whole(policy, data), dim=-1).values)
 
     n = len(data)
 
@@ -647,7 +718,9 @@ def fill(policy: ExecutionPolicy, data: Any, value: Any) -> Any:
         return _seg_dispatch("fill", policy, data, value)
     if _is_vec(policy):
         def thunk():
-            arr = _tensor(data)
+            arr = _whole(policy, data)
+            if isinstance(arr, DTensor):
+                return torch.full_like(arr, value)
             return torch.full(arr.shape, value, dtype=arr.dtype, device=arr.device)
 
         return _offload(policy, thunk)
@@ -672,6 +745,9 @@ def _extremum(policy: ExecutionPolicy, data: Any, name: str,
     if _is_vec(policy):
         # scalars → the element; batched elements → elementwise extremum
         # (no total order on tensors)
+        dex = _device_ex(policy)
+        if dex is not None:  # per-shard pick, all_reduce MIN / MAX finish
+            return _offload(policy, lambda: dex.extremum_total(data, vec_pick is torch.amax))
         return _offload(policy, lambda: vec_pick(_tensor(data), dim=0))
 
     def _run(lo: int, hi: int) -> Any:
@@ -695,7 +771,7 @@ def copy(policy: ExecutionPolicy, data: Any) -> Any:
     """A copy of ``data``; under vec a new tensor on ``data``'s device."""
     policy = _as_policy(policy)
     if _is_vec(policy):
-        return _offload(policy, lambda: _tensor(data).clone())
+        return _offload(policy, lambda: _whole(policy, data).clone())
     n = len(data)
 
     def _run(lo: int, hi: int) -> List[Any]:

@@ -12,10 +12,12 @@ module is that surface:
 - :class:`ThreadPoolExecutor`  — a named pool of the resource partitioner
   (:meth:`repro_torch.core.scheduler.Runtime.get_executor` hands these out);
 - :class:`PriorityExecutor`    — wraps any executor with a scheduler
-  priority (HPX ``annotating_executor`` / thread_priority).
-
-The device-plane executor (data sharded over a device mesh) waits for the
-port's distribution work.
+  priority (HPX ``annotating_executor`` / thread_priority);
+- :class:`MeshExecutor`        — the device plane: data sharded over one
+  axis of a torch ``DeviceMesh`` (a DTensor, ``Shard(0)`` on the axis's
+  1-D submesh), bodies run per local shard, reductions finished by a
+  collective over the axis's process group (the HPX distributed
+  executor's analogue; :func:`mesh_policy`).
 
 **Policies** (how algorithms lower) are *pure rewrite objects* — they carry
 no resources of their own, only a lowering flavor plus executor/parameter
@@ -30,6 +32,8 @@ bindings:
 from __future__ import annotations
 
 from typing import Any, Callable, List, Optional, Sequence, Tuple
+
+import torch
 
 from repro_torch.core import scheduler as _sched
 from repro_torch.core.future import Future, make_exceptional_future, make_ready_future
@@ -150,7 +154,7 @@ class ThreadPoolExecutor(Executor):
 class PriorityExecutor(Executor):
     """Wraps any executor, stamping a scheduler priority on its tasks
     (HPX ``thread_priority`` annotation).  Priority-oblivious executors
-    (sequenced) run unchanged."""
+    (sequenced, mesh) run unchanged."""
 
     def __init__(self, inner: Executor, priority: int):
         self.inner = inner
@@ -176,6 +180,111 @@ class PriorityExecutor(Executor):
         return f"PriorityExecutor({self.inner!r}, priority={self.priority})"
 
 
+class MeshExecutor(Executor):
+    """Device-plane executor: data sharded over one mesh axis, algorithm
+    bodies run per local shard through ``torch.vmap``, sums finished by an
+    ``all_reduce`` over the axis's group.  SPMD: every rank of the mesh
+    calls the same algorithm with the same (global) data, and each keeps
+    its own rows; nothing is copied to split it.
+
+    Host-protocol calls (``post``/``async_execute``) run the Python callable
+    inline — device work is enqueued asynchronously already, so the host
+    side of a device computation never needs a worker thread."""
+
+    plane = "device"
+
+    def __init__(self, mesh: Any, axis: str = "data"):
+        self.mesh = mesh
+        self.axis = axis
+
+    @property
+    def parallelism(self) -> int:
+        return self.mesh.size(list(self.mesh.mesh_dim_names).index(self.axis))
+
+    def _submit(self, fn, args, kwargs, priority):
+        try:
+            return make_ready_future(fn(*args, **kwargs))
+        except BaseException as e:  # noqa: BLE001
+            return make_exceptional_future(e)
+
+    # -- device-plane dispatch (used by repro_torch.core.algorithms) -------
+    def submesh(self) -> Any:
+        """The 1-D mesh of the executor's axis (this rank's row of it)."""
+        return self.mesh if self.mesh.ndim == 1 else self.mesh[self.axis]
+
+    def device(self) -> torch.device:
+        if self.mesh.device_type == "cuda":
+            return torch.device("cuda", torch.cuda.current_device())
+        return torch.device(self.mesh.device_type)
+
+    def put(self, arr: Any) -> Any:
+        """Shard ``arr`` (dim 0) over the executor's axis: a DTensor whose
+        local part is this rank's rows.  ``arr`` is the same on every
+        rank, so no collective runs; a DTensor already so placed stays."""
+        from torch.distributed.tensor import DTensor, Shard, distribute_tensor
+
+        sub = self.submesh()
+        if isinstance(arr, DTensor):
+            if arr.device_mesh == sub and list(arr.placements) == [Shard(0)]:
+                return arr
+            arr = arr.full_tensor()
+        t = torch.as_tensor(arr).to(self.device())
+        return distribute_tensor(t, sub, [Shard(0)], src_data_rank=None)
+
+    def vmap_apply(self, fn: Callable[[Any], Any], arr: Any,
+                   vmap: Optional[Callable[[Callable, Any], Any]] = None) -> Any:
+        """Elementwise map: sharded in, sharded out (``Shard(0)``), the
+        body vectorized over the local rows by ``vmap(fn, local)`` (default
+        ``torch.vmap``)."""
+        from torch.distributed.tensor import DTensor, Shard
+
+        x = self.put(arr)
+        local = (vmap or (lambda f, a: torch.vmap(f)(a)))(fn, x.to_local())
+        shape = torch.Size((x.shape[0],) + tuple(local.shape[1:]))
+        return DTensor.from_local(local, x.device_mesh, [Shard(0)], run_check=False,
+                                  shape=shape, stride=_contiguous_stride(shape))
+
+    def sum_total(self, arr: Any, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """Global sum over dim 0: each rank's partial sum of its rows, then
+        an ``all_reduce`` over the axis's group.  A plain tensor, the same
+        on every rank."""
+        import torch.distributed as dist
+
+        x = self.put(arr)
+        total = torch.sum(x.to_local(), dim=0, dtype=dtype)  # elements may be batched
+        dist.all_reduce(total, group=self.submesh().get_group())
+        return total
+
+    def extremum_total(self, arr: Any, largest: bool) -> torch.Tensor:
+        """Global elementwise min (max with ``largest``) over dim 0: each
+        rank's own rows, then an ``all_reduce`` MIN / MAX; a rank with no
+        rows brings the dtype's identity."""
+        import torch.distributed as dist
+
+        x = self.put(arr)
+        local = x.to_local()
+        if local.shape[0]:
+            part = (torch.amax if largest else torch.amin)(local, dim=0)
+        else:
+            info = (torch.finfo if local.dtype.is_floating_point else torch.iinfo)(local.dtype)
+            part = torch.full(tuple(local.shape[1:]), info.min if largest else info.max,
+                              dtype=local.dtype, device=local.device)
+        dist.all_reduce(part, op=dist.ReduceOp.MAX if largest else dist.ReduceOp.MIN,
+                        group=self.submesh().get_group())
+        return part
+
+    def __repr__(self) -> str:
+        return f"MeshExecutor(axis={self.axis!r}, mesh={self.mesh!r})"
+
+
+def _contiguous_stride(shape: Sequence[int]) -> Tuple[int, ...]:
+    stride, acc = [], 1
+    for n in reversed(tuple(shape)):
+        stride.append(acc)
+        acc *= max(int(n), 1)
+    return tuple(reversed(stride))
+
+
 def get_executor(pool: Optional[str] = None, priority: Optional[int] = None,
                  fallback: Optional[str] = None,
                  runtime: Optional["_sched.Runtime"] = None) -> Executor:
@@ -198,7 +307,8 @@ class ExecutionPolicy:
 
     - ``flavor``     "seq" (inline loop), "par" (chunked over an executor's
       pool), "vec" (vectorized over a batch dimension);
-    - ``executor``   where chunks go (None → seq inline, par default pool);
+    - ``executor``   where chunks go (None → seq inline, par default pool;
+      a device-plane executor switches any flavor to sharded lowering);
     - ``chunk_size`` / ``priority``  executor parameters (``with_``);
     - ``task``       two-way execution: algorithms return ``Future``s
       instead of joining (HPX ``par(task)``).
@@ -252,6 +362,22 @@ class ExecutionPolicy:
         """Back-compat alias for ``with_(chunk_size=n)``."""
         return self.with_(chunk_size=n)
 
+    # -- readers ----------------------------------------------------------
+    @property
+    def kind(self) -> str:
+        """"mesh" when bound to a device-plane executor, else the flavor."""
+        if self.executor is not None and self.executor.plane == "device":
+            return "mesh"
+        return self.flavor
+
+    @property
+    def mesh(self) -> Any:
+        return getattr(self.executor, "mesh", None)
+
+    @property
+    def axis(self) -> Optional[str]:
+        return getattr(self.executor, "axis", None)
+
     def __repr__(self) -> str:
         bits = [self.flavor]
         if self.task:
@@ -278,4 +404,9 @@ par = ExecutionPolicy("par")
 vec = ExecutionPolicy("vec")
 seq_task = ExecutionPolicy("seq", task=True)
 par_task = ExecutionPolicy("par", task=True)  # HPX par(task): two-way algorithms
+
+
+def mesh_policy(mesh: Any, axis: str = "data") -> ExecutionPolicy:
+    """Device-plane policy: ``vec`` lowered through a :class:`MeshExecutor`."""
+    return vec._replace(executor=MeshExecutor(mesh, axis))
 

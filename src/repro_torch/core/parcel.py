@@ -11,9 +11,10 @@ the target object may be a tree of CUDA tensors, "executing where the data
 lives" is real: the action body enqueues kernels on the tensors' own card,
 and nothing is copied — the parcel carries a reference, never the bytes.
 
-The device plane of the reference (``shard_parcel``: an action body run
-per shard of a device mesh, with collectives as its transport) waits for
-the port's mesh.
+The device plane is :func:`shard_parcel`: an action body run at every
+shard of a device mesh (``local_map`` over DTensors), with
+``torch.distributed`` collectives on the mesh's axis groups as its
+transport.
 """
 
 from __future__ import annotations
@@ -209,3 +210,62 @@ def default_port() -> ParcelPort:
 def apply(fn: Callable[..., Any], target, *args: Any, **kwargs: Any) -> Future[Any]:
     """Module-level one-sided invoke: run ``fn(object_at(target), *args)``."""
     return default_port().apply(fn, target, *args, **kwargs)
+
+
+# ----------------------------------------------------------------- device plane
+def shard_parcel(mesh: Any, body: Callable[..., Any], in_specs, out_specs,
+                 check_vma: bool = False) -> Callable[..., Any]:
+    """Device-plane parcel: execute ``body`` at every shard of the operands.
+
+    A thin wrapper over ``torch.distributed.tensor.experimental.local_map``
+    so call sites read as parcel semantics ("ship this function to the
+    shards").  Specs are the plan's (``dist.plan.ShardingPlan.spec``): one
+    entry per tensor dim, naming the mesh axes that shard it.
+    ``in_specs`` holds one spec per positional argument (``None`` for an
+    argument that is no tensor); ``out_specs`` is one spec, or a list of
+    specs for several outputs.  A DTensor argument is redistributed to its
+    spec; a plain tensor, the same on every rank, is split by it without a
+    collective.  As in the reference's ``shard_map``, every sharded dim
+    must divide evenly over its mesh axes (the outputs' global shapes are
+    the local ones times the shard counts).  ``body`` sees each rank's
+    local tensors and may run
+    collectives on ``mesh.get_group(axis)`` — the transport layer.  The
+    outputs are DTensors of ``out_specs``.  ``check_vma`` is the
+    reference's replication check, which local_map does not make.
+    """
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.dist.plan import placements
+
+    def pl(spec):
+        return None if spec is None else placements(spec, mesh)
+
+    ins = tuple(pl(sp) for sp in in_specs)
+    outs = tuple(pl(sp) for sp in out_specs) if isinstance(out_specs, list) else pl(out_specs)
+    mapped = local_map(body, out_placements=outs, in_placements=ins,
+                       device_mesh=mesh, redistribute_inputs=True)
+
+    def run(*args: Any) -> Any:
+        for a, p in zip(args, ins):
+            if p is not None:
+                _check_even(a, p, mesh)
+        args = tuple(distribute_tensor(a, mesh, p, src_data_rank=None)
+                     if p is not None and not isinstance(a, DTensor) else a
+                     for a, p in zip(args, ins))
+        return mapped(*args)
+
+    return run
+
+
+def _check_even(a: Any, placements: Any, mesh: Any) -> None:
+    from torch.distributed.tensor import Shard
+
+    shape = tuple(a.shape)
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard):
+            n = mesh.size(i)
+            if shape[p.dim] % n:
+                raise ValueError(f"shard_parcel: dim {p.dim} of size {shape[p.dim]} does "
+                                 f"not split evenly over mesh dim {i} of {n} ranks")
+            shape = shape[:p.dim] + (shape[p.dim] // n,) + shape[p.dim + 1:]

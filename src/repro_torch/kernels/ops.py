@@ -27,6 +27,12 @@ The wrappers keep the reference's shapes and semantics but drop its TPU
 tile arguments (``block_q``, ``block_k``, ``block_s``, ``block_w``,
 ``block``) and ``interpret``: the tiles never changed a result, and the
 kernels here choose their own.
+
+Every entry point takes plain tensors only: a DTensor raises on either
+device, since a kernel reads raw device pointers and the plain version
+would otherwise run as distributed math.  Mesh code reaches a kernel
+through ``torch.distributed.tensor.experimental.local_map``, with each
+rank's local shard (``models/layers.py``).
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ import threading
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels.decode_attention import (decode_attention_fwd,
                                                   decode_attention_plain,
@@ -70,6 +77,15 @@ def reset_launch_counts() -> None:
             _launches[name] = 0
 
 
+def _plain_only(what: str, *tensors: torch.Tensor) -> None:
+    """A DTensor has no ``data_ptr``, and its plain-version ops would run
+    as distributed math: each kernel takes plain (local) tensors only.
+    Mesh code calls a kernel through ``local_map`` (``models/layers.py``)."""
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError(f"{what} takes plain tensors; a DTensor reaches a "
+                        f"kernel only through local_map, as its local shard")
+
+
 def _route(t: torch.Tensor, what: str) -> bool:
     """True → the CUDA kernel, False → the plain version; anything else raises."""
     if t.device.type == "cuda":
@@ -95,6 +111,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B,S,H,Dh), k/v: (B,S,KV,Dh) → (B,S,H,Dh). GQA via H % KV == 0.
     ``valid_len`` (0 means S) masks K positions at or past it.  Forward
     only: :func:`flash_attention_trainable` is the differentiable op."""
+    _plain_only("flash_attention", q, k, v)
     _no_backward("flash_attention (use flash_attention_trainable)", q, k, v)
     if not _route(q, "flash_attention"):
         return flash_attention_plain(q, k, v, causal=causal, window=window,
@@ -114,6 +131,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (every slot at its own depth), clamped to T.  A slot of length 0 gives
     zeros, as the reference's kernel does.  The kernel reads each K/V head
     once for its G query heads; nothing is repeated or padded."""
+    _plain_only("decode_attention", q, k, v)
     _no_backward("decode_attention", q, k, v)
     if not _route(q, "decode_attention"):
         return decode_attention_plain(q, k, v, length)
@@ -131,6 +149,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     int32 (entries past the fill must be valid pool indices, e.g. 0);
     lengths: (B,) int32 → (B,H,Dh).  The kernel walks each request's own
     page list; no dense gather."""
+    _plain_only("paged_decode_attention", q, k_pages, v_pages, page_table, lengths)
     _no_backward("paged_decode_attention", q, k_pages, v_pages)
     if not _route(q, "paged_decode_attention"):
         return paged_decode_attention_plain(q, k_pages, v_pages, page_table,
@@ -151,6 +170,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     ``chunk`` (clipped to S, as the reference does) is where the fp32 state
     is carried from one chunk to the next; mamba2_780m sets 256, the
     kernel takes 1–256."""
+    _plain_only("ssd_scan", x, dt, A, Bm, Cm)
     _no_backward("ssd_scan", x, dt, A, Bm, Cm)
     chunk = min(chunk, x.shape[1])
     if not _route(x, "ssd_scan"):
@@ -165,6 +185,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """h_t = a_t·h_{t-1} + b_t from h_0 = 0, fp32 carry.
     a/b: (B,S,W) → (B,S,W) in a's dtype."""
+    _plain_only("rglru_scan", a, b)
     _no_backward("rglru_scan", a, b)
     if not _route(a, "rglru_scan"):
         return rglru_scan_plain(a, b)
@@ -175,6 +196,7 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def stream_triad(a: torch.Tensor, b: torch.Tensor, alpha: float = 3.0) -> torch.Tensor:
     """STREAM triad a + alpha·b over (N,), rounded as ``a + alpha * b``."""
+    _plain_only("stream_triad", a, b)
     _no_backward("stream_triad", a, b)
     if not _route(a, "stream_triad"):
         return stream_triad_plain(a, b, alpha)
@@ -207,6 +229,7 @@ def flash_attention_trainable(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     recomputes P, as the reference's ``flash_attention_trainable``.
     q: (B,S,H,Dh), k/v: (B,S,KV,Dh) → (B,S,H,Dh).  Outside grad mode it
     records nothing, so serving pays nothing for it."""
+    _plain_only("flash_attention_trainable", q, k, v)
     return _FlashTrainable.apply(q, k, v, causal, window)
 
 
@@ -267,6 +290,7 @@ def ssd_scan_trainable(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                        return_final_state: bool = False):
     """Training-path SSD scan: :func:`ssd_scan`'s shapes and results, with
     a backward for x, dt, A, Bm and Cm (the final state carries none)."""
+    _plain_only("ssd_scan_trainable", x, dt, A, Bm, Cm)
     return _SSDTrainable.apply(x, dt, A, Bm, Cm, chunk, return_final_state)
 
 
@@ -288,6 +312,7 @@ class _RGLRUTrainable(torch.autograd.Function):
 def rglru_scan_trainable(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Training-path RG-LRU scan: :func:`rglru_scan`'s shapes and result,
     with a backward for a and b."""
+    _plain_only("rglru_scan_trainable", a, b)
     return _RGLRUTrainable.apply(a, b)
 
 

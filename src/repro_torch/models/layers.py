@@ -12,10 +12,17 @@ the same and is free when the caller already holds a compute-dtype copy
 Attention always goes through :mod:`repro_torch.kernels.ops`: the Hopper
 kernels on CUDA tensors, their plain versions on CPU tensors; prefill and
 training attention through ``ops.flash_attention_trainable``, whose
-backward is PyTorch math.  The reference's mesh constraints
-(``plan.constrain``) wait for the distribution slice; of a plan the layers
-read ``bf16_boundaries`` and ``remat_policy`` (a plan of ``None`` sets
-neither).
+backward is PyTorch math.
+
+On a mesh the tensors are DTensors and the reference's constraints
+(``plan.constrain``) redistribute them at the same training and prefill
+places: the embedding and q/k/v batch-sharded with heads and sequence
+replicated, the logits vocab-sharded.  A kernel reads raw
+pointers, so it sees each rank's local shard through ``local_map``
+(:func:`local_flash`); with q/k/v sharded on the batch alone that is
+exact.  Without a mesh every constraint is the identity.  Of a plan the
+layers also read ``bf16_boundaries`` and ``remat_policy`` (a plan of
+``None`` sets neither, and constrains nothing).
 """
 
 from __future__ import annotations
@@ -26,6 +33,8 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.configs.base import ModelConfig
@@ -39,6 +48,11 @@ Params = Dict[str, torch.Tensor]
 
 def cdtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
+
+
+def constrain(plan: Optional[ShardingPlan], x: torch.Tensor, axes) -> torch.Tensor:
+    """``plan.constrain(x, axes)``; the identity without a plan."""
+    return x if plan is None else plan.constrain(x, axes)
 
 
 # ------------------------------------------------------------------- norms
@@ -158,11 +172,38 @@ def attention(cfg: ModelConfig, x: torch.Tensor, p: Params, prefix: str,
         k = apply_rope(k, cos, sin)
     if getattr(plan, "bf16_boundaries", False):
         q, k, v = bf16_cotangent(q), bf16_cotangent(k), bf16_cotangent(v)
-    o = ops.flash_attention_trainable(q, k, v, causal, window)
+    q = constrain(plan, q.reshape(B, S, KV, H // KV, Dh),
+                  ("batch", "seq", None, None, None)).reshape(B, S, H, Dh)
+    k = constrain(plan, k, ("batch", "seq", None, None))
+    v = constrain(plan, v, ("batch", "seq", None, None))
+    o = local_flash(q, k, v, causal, window)
     out = o.reshape(B, S, H * Dh) @ p[f"{prefix}wo"].to(dt)
     if return_kv:
         return out, (k, v)
     return out
+
+
+def local_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                causal: bool, window: int) -> torch.Tensor:
+    """``ops.flash_attention_trainable`` — on DTensors through ``local_map``:
+    each rank runs the kernel (and its backward) on its local q/k/v, and
+    the output carries q's placements.  That is exact only while q, k and
+    v are sharded on the batch dim alone, so any other placement raises."""
+    if not isinstance(q, DTensor):
+        return ops.flash_attention_trainable(q, k, v, causal, window)
+    for t in (q, k, v):
+        if not isinstance(t, DTensor) or t.device_mesh != q.device_mesh or any(
+                isinstance(pl, Partial) or (isinstance(pl, Shard) and pl.dim != 0)
+                for pl in t.placements):
+            raise ValueError(f"flash attention on a mesh needs q/k/v sharded on "
+                             f"the batch alone; got {getattr(t, 'placements', t)}")
+    if list(k.placements) != list(q.placements) or list(v.placements) != list(q.placements):
+        raise ValueError("flash attention on a mesh needs q, k and v on the same "
+                         "batch shards")
+    pl = list(q.placements)  # a list: local_map reads a tuple as one per output
+    fn = local_map(ops.flash_attention_trainable, out_placements=pl,
+                   in_placements=(pl, pl, pl, None, None), device_mesh=q.device_mesh)
+    return fn(q, k, v, causal, window)
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
@@ -270,11 +311,13 @@ def paged_decode_attention(cfg: ModelConfig, x: torch.Tensor, p: Params,
 
 
 # --------------------------------------------------------------- embedding
-def embed(cfg: ModelConfig, table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+def embed(cfg: ModelConfig, table: torch.Tensor, tokens: torch.Tensor,
+          plan: Optional[ShardingPlan] = None) -> torch.Tensor:
     """Token gather. The table has ``cfg.padded_vocab`` rows; tokens are
     always < vocab_size so padding is inert."""
     rows = table.index_select(0, tokens.reshape(-1).long())
-    return rows.to(cdtype(cfg)).reshape(*tokens.shape, table.shape[-1])
+    x = rows.to(cdtype(cfg)).reshape(*tokens.shape, table.shape[-1])
+    return constrain(plan, x, ("batch", "seq", None))
 
 
 def unembed_weight(cfg: ModelConfig, table: torch.Tensor, transpose: bool) -> torch.Tensor:
@@ -287,20 +330,28 @@ def unembed_weight(cfg: ModelConfig, table: torch.Tensor, transpose: bool) -> to
     return w.t() if transpose else w
 
 
-def unembed(cfg: ModelConfig, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x @ W_out → logits fp32; ``w`` from :func:`unembed_weight`.  Padded
-    vocab columns are masked to −1e30 so softmax/argmax semantics match
-    the unpadded vocab."""
+def unembed(cfg: ModelConfig, x: torch.Tensor, w: torch.Tensor,
+            plan: Optional[ShardingPlan] = None) -> torch.Tensor:
+    """x @ W_out → logits fp32, vocab-sharded on a mesh; ``w`` from
+    :func:`unembed_weight`.  Padded vocab columns are masked to −1e30 so
+    softmax/argmax semantics match the unpadded vocab."""
     logits = x.float() @ w
     Vp = logits.shape[-1]
     if Vp != cfg.vocab_size:
         logits[..., cfg.vocab_size:] = NEG
-    return logits
+    return constrain(plan, logits, ("batch", "seq", "vocab"))
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Mean token NLL; logits fp32 (B,S,V), labels (B,S) int."""
+    """Mean token NLL; logits fp32 (B,S,V), labels (B,S) int.  Vocab-sharded
+    DTensor logits are gathered on the vocab dim first (DTensor cannot
+    gather the gold logit across vocab shards)."""
+    if isinstance(logits, DTensor):
+        last = logits.ndim - 1
+        logits = logits.redistribute(logits.device_mesh, [
+            Replicate() if isinstance(pl, Shard) and pl.dim == last else pl
+            for pl in logits.placements])
     lse = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, labels.long()[..., None])[..., 0]
     nll = lse - gold

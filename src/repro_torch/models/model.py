@@ -4,7 +4,17 @@ for all six families: dense, moe, vlm, ssm, hybrid and encdec.
 ``Model(cfg, device=None, *, plan=None)`` runs on ``cuda`` unless the
 caller passes ``device="cpu"``; asking for CUDA where there is none
 raises.  ``plan`` (default ``get_plan("futurized")``) is the training
-step's plan: its remat policy and bf16 boundaries.
+step's plan: its remat policy, bf16 boundaries and, on a mesh, where each
+logical axis lands.
+
+On a mesh the params (and batch) are DTensors: :meth:`loss` runs the
+dense, MoE and VLM families with the mesh of its params active
+(``launch.mesh.use``), plain tensors such as positions taken as
+replicated.  The ``ssm``, ``hybrid`` and ``encdec`` families run on a
+one-rank mesh through its local (whole) tensors, and raise
+``NotImplementedError`` on a larger one: their constraints and their scan
+kernels' ``local_map`` boundaries come with the dry run.  A mesh on
+another device type than the model's raises.
 
     param_specs() / init(seed) / compute_params(params) / init_compute(seed)
     loss(params, batch)                             train objective
@@ -18,14 +28,16 @@ step's plan: its remat policy and bf16 boundaries.
 from __future__ import annotations
 
 import functools
-from typing import Dict, Optional, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist.plan import ShardingPlan, get_plan
 from repro_torch.models import encdec, hybrid, ssm_lm, transformer
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.models.params import ParamSpec, TensorSpec, init_params
 
 Params = Dict[str, torch.Tensor]
@@ -86,8 +98,54 @@ class Model:
         """The train objective on ``batch`` (its fields on the model's
         device: ``tokens``, and the vlm family's ``patches`` or the encdec
         family's ``enc``): next-token cross-entropy, plus
-        ``router_aux_weight`` times the MoE aux loss for the moe family."""
-        return self._m.loss_fn(self.cfg, self.plan, params, batch)
+        ``router_aux_weight`` times the MoE aux loss for the moe family.
+        DTensor params run on their mesh (see the module doc)."""
+        mesh = self.mesh_of(params)
+        if mesh is None:
+            return self._m.loss_fn(self.cfg, self.plan, params, batch)
+        if self._m is not transformer:
+            if mesh.size() > 1:
+                raise NotImplementedError(
+                    f"family {self.cfg.family!r} on a mesh of {mesh.size()} ranks: "
+                    f"its constraints and scan-kernel local_map boundaries come "
+                    f"with the dry run (the next slice of the device plane)")
+            local = {k: v.to_local() if isinstance(v, DTensor) else v
+                     for k, v in params.items()}
+            batch = {k: v.to_local() if isinstance(v, DTensor) else v
+                     for k, v in batch.items()}
+            return self._m.loss_fn(self.cfg, self.plan, local, batch)
+        with mesh_mod.use(mesh), mesh_mod.replicating():
+            return self._m.loss_fn(self.cfg, self.plan, params, batch)
+
+    def mesh_of(self, params: Params) -> Optional[Any]:
+        """The mesh of DTensor params (None for plain ones); a mesh on
+        another device type than the model's raises."""
+        for v in params.values():
+            if isinstance(v, DTensor):
+                mesh = v.device_mesh
+                if mesh.device_type != self.device.type:
+                    raise ValueError(f"a {mesh.device_type} mesh under a model on "
+                                     f"{self.device}")
+                return mesh
+        return None
+
+    def batch_axes(self) -> Dict[str, Tuple]:
+        """Logical axes of each training-batch field."""
+        ax = {"tokens": ("batch", "seq")}
+        if self.cfg.family == "vlm":
+            ax["patches"] = ("batch", "seq", None)
+        if self.cfg.family == "encdec":
+            ax["enc"] = ("batch", "seq", None)
+        return ax
+
+    def cache_axes(self) -> Dict[str, Tuple]:
+        """Logical axes of each field of the dense decode cache (the dense,
+        MoE and VLM families)."""
+        if self._m is not transformer:
+            raise NotImplementedError(
+                f"cache axes of family {self.cfg.family!r} come with the dry run "
+                f"(the next slice of the device plane)")
+        return transformer.cache_axes(self.cfg)
 
     # ----------------------------------------------------------------- serve
     def prefill(self, params: Params, inputs: Dict[str, torch.Tensor],

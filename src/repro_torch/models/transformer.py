@@ -149,18 +149,61 @@ def unbind_layers(params: Params, L: int, prefix: str = "blk/") -> List[Params]:
     """Every layer's slice of the stacked params, by one ``unbind`` per
     param: under autograd each stacked gradient is then assembled once (one
     stack), where indexing would add a full-size zero-padded gradient per
-    layer."""
+    layer.  On a mesh it selects along ``layers``, which is never sharded."""
     cols = {k[len(prefix):]: v.unbind(0) for k, v in params.items() if k.startswith(prefix)}
     return [{k: c[i] for k, c in cols.items()} for i in range(L)]
 
 
-def _ffn(cfg: ModelConfig, x: torch.Tensor, lp: Params,
-         moe_layer: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+# ------------------------------------------------------------- gather points
+_GATHER_AXIS = "embed"  # the FSDP axis
+
+
+def layer_axes(specs: Dict[str, ParamSpec], prefix: str) -> Dict[str, Tuple]:
+    """Per-layer logical axes (the leading 'layers' dim dropped)."""
+    return {path[len(prefix):]: tuple(a for a in s.axes if a != "layers")
+            for path, s in specs.items() if path.startswith(prefix)}
+
+
+def _gathered(axes: Tuple) -> Tuple:
+    return tuple(None if a == _GATHER_AXIS else a for a in axes)
+
+
+def gather_constrain(plan: Optional[ShardingPlan], tree: Params,
+                     axes: Dict[str, Tuple]) -> Params:
+    """Constrain every param to its *gathered* (non-FSDP) spec: the
+    futurized plan's per-layer gather point."""
+    return {k: Lx.constrain(plan, v, _gathered(axes[k])) for k, v in tree.items()}
+
+
+def stacked_gather_constrain(plan: Optional[ShardingPlan], tree: Params,
+                             axes: Dict[str, Tuple]) -> Params:
+    """BSP: gather the whole stack up-front (axes still carry 'layers')."""
+    return {k: Lx.constrain(plan, v, ("layers",) + _gathered(axes[k]))
+            for k, v in tree.items()}
+
+
+def _stack_slices(cfg: ModelConfig, params: Params, prefix: str, L: int,
+                  plan: Optional[ShardingPlan]) -> List[Params]:
+    """The layer slices of one stack at its gather point: the whole stack
+    gathered before the loop (BSP), or each slice as it is reached."""
+    ax = layer_axes(decoder_param_specs(cfg), prefix)
+    stacked = {k: v for k, v in params.items() if k.startswith(prefix)}
+    if getattr(plan, "gather_upfront", False):
+        stacked = stacked_gather_constrain(
+            plan, {k[len(prefix):]: v for k, v in stacked.items()}, ax)
+        stacked = {prefix + k: v for k, v in stacked.items()}
+        return unbind_layers(stacked, L, prefix)
+    return [gather_constrain(plan, lp, ax) for lp in unbind_layers(stacked, L, prefix)]
+
+
+def _ffn(cfg: ModelConfig, x: torch.Tensor, lp: Params, moe_layer: bool,
+         plan: Optional[ShardingPlan] = None
+         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The FFN half of a layer: x + FFN(norm(x)), and the MoE aux loss
     (None for a dense FFN)."""
     h = Lx.norm(cfg, x, lp["ln2"])
     if moe_layer:
-        ffn, aux = moe_ffn(cfg, h, lp, "moe/")
+        ffn, aux = moe_ffn(cfg, h, lp, "moe/", plan=plan)
         return x + ffn, aux
     return x + Lx.mlp(cfg, h, lp, ""), None
 
@@ -169,27 +212,30 @@ def _layer_body(cfg: ModelConfig, x: torch.Tensor, lp: Params,
                 positions: torch.Tensor, collect_kv: bool = False,
                 plan: Optional[ShardingPlan] = None, moe_layer: bool = False):
     """→ (x, aux loss or None, (k, v) or None)."""
+    x = Lx.constrain(plan, x, ("batch", "seq_sp", None))
     h = Lx.norm(cfg, x, lp["ln1"])
     out = Lx.attention(cfg, h, lp, "", positions, causal=cfg.causal,
                        window=cfg.window, return_kv=collect_kv, plan=plan)
     h, kv = out if collect_kv else (out, None)
-    x, aux = _ffn(cfg, x + h, lp, moe_layer)
+    x, aux = _ffn(cfg, x + h, lp, moe_layer, plan)
     return x, aux, kv
 
 
-def logits(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
+def logits(cfg: ModelConfig, params: Params, x: torch.Tensor,
+           plan: Optional[ShardingPlan] = None) -> torch.Tensor:
     """The final norm and the unembedding: x (B,S,D) → logits fp32."""
     x = Lx.norm(cfg, x, params["final_ln"])
-    return unembed(cfg, params, x)
+    return unembed(cfg, params, x, plan)
 
 
-def unembed(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
+def unembed(cfg: ModelConfig, params: Params, x: torch.Tensor,
+            plan: Optional[ShardingPlan] = None) -> torch.Tensor:
     """x (B,S,D) → logits fp32 through ``params["unembed"]``, or through the
     table itself where the params have not been through compute_params."""
     w = params.get("unembed")
     if w is None:  # the fp32 masters, not yet through compute_params
         w = Lx.unembed_weight(cfg, *unembed_table(cfg, params))
-    return Lx.unembed(cfg, x, w)
+    return Lx.unembed(cfg, x, w, plan)
 
 
 def splice_patches(cfg: ModelConfig, x: torch.Tensor,
@@ -212,17 +258,17 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     layer runs under the plan's remat policy (``Lx.remat_wrap``)."""
     if cfg.family == "vlm" and patches is None:
         raise ValueError("the vlm family needs patch embeddings")
-    x = splice_patches(cfg, Lx.embed(cfg, params["tok_embed"], tokens), patches)
+    x = splice_patches(cfg, Lx.embed(cfg, params["tok_embed"], tokens, plan), patches)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for prefix, L, moe_layer in stacks(cfg):
         body = Lx.remat_wrap(plan, functools.partial(
             _layer_body, cfg, positions=positions, plan=plan, moe_layer=moe_layer))
-        for lp in unbind_layers(params, L, prefix):
+        for lp in _stack_slices(cfg, params, prefix, L, plan):
             x, a, _ = body(x, lp)
             if a is not None:
                 aux = aux + a
-    return logits(cfg, params, x), aux
+    return logits(cfg, params, x, plan), aux
 
 
 def loss_fn(cfg: ModelConfig, plan: ShardingPlan, params: Params,
@@ -296,6 +342,16 @@ def init_cache_specs(cfg: ModelConfig, batch: int, cache_len: int) -> Dict[str, 
         for name in _cache_keys(prefix):
             specs[name] = TensorSpec((L, batch, cache_len, KV, Dh), dt)
     return specs
+
+
+def cache_axes(cfg: ModelConfig) -> Dict[str, Tuple]:
+    """Logical axes of each field of the dense decode cache."""
+    ax = ("layers", "batch", "kv_seq", "kv_heads", None)
+    out = {"pos": ("batch",)}
+    for prefix, _, _ in stacks(cfg):
+        for name in _cache_keys(prefix):
+            out[name] = ax
+    return out
 
 
 def decode_step(cfg: ModelConfig, params: Params, cache: Dict[str, torch.Tensor],

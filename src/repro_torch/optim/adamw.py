@@ -6,7 +6,10 @@ The reference is pure (new params, new state); the port updates params,
 m and v in place under ``torch.no_grad()`` and uses the grads' storage as
 its scratch, so a step at full size allocates nothing the size of a
 param.  The moments are fp32, ``step`` a 0-d int32 tensor, all on the
-params' device; nothing here waits for the device.
+params' device; nothing here waits for the device.  DTensor params,
+grads and moments (a mesh) update shard by shard, in their own
+placements: every op here has a DTensor rule, and the global norm reduces
+across the shards.
 """
 
 from __future__ import annotations
@@ -51,6 +54,12 @@ def init(params: Params) -> Dict[str, Any]:
         "v": {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()},
         "step": torch.zeros((), dtype=torch.int32, device=dev),
     }
+
+
+def state_axes(param_specs) -> Dict[str, Any]:
+    """Logical axes for the optimizer state (the params'; ZeRO)."""
+    ax = {p: s.axes for p, s in param_specs.items()}
+    return {"m": ax, "v": dict(ax), "step": ()}
 
 
 def _norm(x: torch.Tensor) -> torch.Tensor:

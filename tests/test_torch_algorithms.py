@@ -1,9 +1,11 @@
 """The port's C++17-style parallel algorithms (``repro_torch.core.algorithms``):
 the reference's cases of ``test_core_algorithms.py`` on the port (every
-policy agrees with the seq oracle; the reference's device-mesh policy waits
-for the port's mesh, so its parametrisations drop out), and each algorithm
-under each policy against the reference on the same numpy-seeded input —
-the reference's ``vec`` on JAX's CPU beside the port's on CPU tensors.
+policy agrees with the seq oracle, the device-mesh policy ``mesh`` among
+them: ``mesh_policy`` on a one-rank gloo mesh in this process), and each
+algorithm under each policy against the reference on the same
+numpy-seeded input — the reference's ``vec`` on JAX's CPU beside the
+port's on CPU tensors, and its ``mesh_policy`` on a one-device mesh beside
+the port's on the one-rank mesh.
 Integers and orderings must be equal; fp32 sums and scans agree within
 1e-6 of the sum of the magnitudes they add (both sides round each partial
 sum to fp32, in different orders).
@@ -18,6 +20,7 @@ import pytest
 import torch
 from hypothesis import given, settings, strategies as st
 
+import jax
 import repro.core as rcore
 import repro.core.executor as rexec
 import repro_torch.core as core
@@ -25,6 +28,8 @@ from repro.core import algorithms as ralg
 from repro_torch.core import algorithms as alg
 from repro_torch.core.executor import par, par_task, seq, seq_task, vec
 from repro_torch.core.future import Future
+from repro_torch.launch import mesh as mesh_mod
+from torch.distributed.tensor import DTensor
 
 ints = st.lists(st.integers(-1000, 1000), min_size=1, max_size=200)
 
@@ -32,10 +37,23 @@ ints = st.lists(st.integers(-1000, 1000), min_size=1, max_size=200)
 @pytest.fixture(scope="module")
 def port_rt():
     """The port's own AMT runtime (the root ``rt`` fixture is the
-    reference's)."""
+    reference's), and a one-rank gloo process group for the mesh policy."""
     runtime = core.init(num_workers=4, policy="local")
+    mesh_mod.init_process_group(0, 1, "cpu")
     yield runtime
+    _MESH.clear()
+    mesh_mod.destroy_process_group()
     core.finalize()
+
+
+_MESH = []
+
+
+def _mesh_pol():
+    """``mesh_policy`` over a one-rank (data,) gloo mesh (made once)."""
+    if not _MESH:
+        _MESH.append(mesh_mod.make_mesh_shape((1,), ("data",), "cpu"))
+    return core.executor.mesh_policy(_MESH[0])
 
 
 def _t(xs, dtype=torch.int64):
@@ -111,12 +129,15 @@ POLICIES = [
     ("par_task", lambda: par_task),
     ("seq_task", lambda: seq_task),
     ("vec", lambda: vec),
+    ("mesh", _mesh_pol),
 ]
+TENSOR_POLICIES = ("vec", "mesh")
 
 
 def _data(name, xs):
-    """vec takes a tensor (data that is not one would go to ``cuda``)."""
-    return _t(xs) if name == "vec" else xs
+    """vec and mesh take a tensor (data that is not one would go to
+    ``cuda``)."""
+    return _t(xs) if name in TENSOR_POLICIES else xs
 
 
 def _val(x):
@@ -128,6 +149,8 @@ def _val(x):
         return x
     if isinstance(x, (list, tuple)):
         return [float(v) for v in x]
+    if isinstance(x, DTensor):
+        x = x.full_tensor()
     arr = torch.as_tensor(x)
     return float(arr) if arr.ndim == 0 else [float(v) for v in arr.tolist()]
 
@@ -333,7 +356,7 @@ def test_staples_agree_with_seq_oracle(port_rt, name, mk, xs):
     d = _data(name, xs)
     assert _val(alg.min_element(pol, d)) == float(min(xs))
     assert _val(alg.max_element(pol, d)) == float(max(xs))
-    filled = alg.fill(pol, list(xs) if name != "vec" else _t(xs), 3)
+    filled = alg.fill(pol, list(xs) if name not in TENSOR_POLICIES else _t(xs), 3)
     assert _val(filled) == [3.0] * len(xs)
 
 
@@ -424,6 +447,9 @@ def _policies(ref: bool):
         "vec": lambda: ex.vec,
         "vec_task_on_io": lambda: ex.vec.on(
             get().get_executor("io", fallback="default")).with_(task=True),
+        "mesh": (lambda: ex.mesh_policy(jax.sharding.Mesh(np.array(jax.devices()[:1]),
+                                                          ("data",))))
+        if ref else _mesh_pol,
     }
 
 
@@ -440,8 +466,8 @@ def _float_data(n=97, seed=1):
 
 def _as_input(arr, ref: bool, pol_name: str):
     """Host policies get a python list (the same list in both packages);
-    vec gets the package's array type."""
-    if not pol_name.startswith("vec"):
+    vec and mesh get the package's array type."""
+    if not pol_name.startswith(("vec", "mesh")):
         return arr.tolist()
     if ref:
         import jax.numpy as jnp
@@ -475,6 +501,8 @@ def _np(x):
         x = x.get(timeout=120)
     if x is None or isinstance(x, (bool, int, float)):
         return x
+    if isinstance(x, DTensor):
+        x = x.full_tensor()
     if isinstance(x, torch.Tensor):
         return x.numpy()
     return np.asarray(x)
@@ -498,6 +526,11 @@ def test_algorithm_matches_reference(rt, port_rt, algo, pol_name):
         if arr.dtype == np.float32 and algo in SUMS:
             scale = np.abs(arr).astype(np.float64).sum() * (3 if algo == "transform_reduce" else 1) + 7
             np.testing.assert_allclose(got, want, rtol=0, atol=1e-6 * scale)
+        elif arr.dtype == np.float32 and algo == "transform" and pol_name == "mesh":
+            # the reference jit-compiles its mesh body, and XLA fuses
+            # 3·x + 1 into one FMA (one rounding); torch rounds 3·x first,
+            # by up to half an ulp of 3·x
+            assert np.all(np.abs(got - want) <= 2.0 ** -23 * (3 * np.abs(arr) + 1))
         else:
             np.testing.assert_array_equal(got, want)
 

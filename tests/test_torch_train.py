@@ -438,8 +438,31 @@ def test_grad_clip_bounds_update():
     # with a tiny clip the parameter change is bounded by ~lr·(1+wd·p)
     delta = max(float((p2[k] - before[k]).abs().max()) for k in before)
     assert 0 < delta < 1e-2
-    with pytest.raises(NotImplementedError, match="mesh"):
-        step_mod.make_train_step(model, adamw.AdamWConfig(), mesh=object())
+
+
+class _Mesh:
+    """The two things the branch rule reads of a mesh."""
+
+    def __init__(self, *names, device_type="cpu"):
+        self.mesh_dim_names, self.device_type = names, device_type
+
+
+@pytest.mark.parametrize("compress", [False, True])
+@pytest.mark.parametrize("names", [None, ("data", "model"), ("pod", "data", "model"),
+                                   ("pod",)])
+def test_pod_manual_branch_taken_exactly_with_compression_and_a_pod_axis(compress, names):
+    """The reference's rule (``train/step.py:66-67``): the pod-manual
+    branch runs when the plan compresses pod gradients and the mesh has a
+    ``pod`` axis, and in no other case; a mesh on another device type than
+    the model's raises."""
+    cfg = get_config("starcoder2_3b", smoke=True)
+    model = Model(cfg, "cpu", plan=tplan.get_plan("futurized", compress_pod_grads=compress))
+    mesh = None if names is None else _Mesh(*names)
+    assert step_mod.takes_pod_manual(model, mesh) == (
+        compress and names is not None and "pod" in names)
+    with pytest.raises(ValueError, match="cuda mesh"):
+        step_mod.make_train_step(model, adamw.AdamWConfig(),
+                                 mesh=_Mesh("data", device_type="cuda"))
 
 
 # -------------------------------------------------------------------- data
