@@ -7,11 +7,12 @@ Phases (any failure exits non-zero; no phase catches its own failure):
 
 1. Device — the card's name and power limit (``nvidia-smi``); no CUDA → exit 2.
 2. Build — the CUDA kernels from ``src/repro_torch/kernels/csrc``, timed.
-3. Kernels — each kernel against its plain PyTorch version on the card, in
-   fp32 and bf16, at the sweeps of ``tests/test_kernels.py`` and at full
-   widths: flash and paged decode at the serving path's shapes (H=24,
-   KV=2, Dh=128; prefill S ∈ {128, 512, 1000}, also with a window and with
-   valid_len < S; decode B=8 with mixed lengths, pages of 16); flash also
+3. Kernels — each kernel, through its ``repro_torch::`` torch op, against
+   its plain PyTorch version on the card, in fp32 and bf16, at the sweeps
+   of ``tests/test_kernels.py`` and at full widths: flash and paged
+   decode at the serving path's shapes (H=24, KV=2, Dh=128; prefill S ∈
+   {128, 512, 1000}, also with a window and with valid_len < S; decode
+   B=8 with mixed lengths, pages of 16); flash also
    at every head dim 16–256, at 1, 2, 12 and 24 q heads per KV head, at S
    off the tile (100, 130, 200, 1000), with windows and valid_len one off
    a K-tile edge on either side, and over a grid of more than one wave
@@ -281,10 +282,26 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    count_if under ``mesh_policy`` against ``vec`` (exact, sums within
    ``RUNTIME_SUM_RTOL``), GB/s beside phase 7's triad.  The report lands
    in ``REPORT["mesh"]``.
+13. The dry run (``launch/dryrun.py``) on the card — the kernels are
+   ``repro_torch::`` torch ops, so a step traces on fake CUDA tensors on a
+   ``fake`` process group with nothing launched.  (a) Full starcoder2_3b
+   at phase 12(b)'s shape and plan on a fake (pod, data, model) 1×1×1
+   mesh: exactly 30 flash-op calls and phase 12(b)'s bf16 all-reduces a
+   step; the predicted peak beside 12(b)'s and 8b's measured ones, the
+   roofline's terms beside 8b's step.  (b) One paged decode step at
+   phase 5's engine shape traced: its decode-op calls equal one real
+   step's launch counts.  (c) starcoder2_3b train_4k on the 256-rank pod
+   mesh, the card's route, traced by ``launch/dryrun.py`` in a process of
+   its own started before phase 12: trace time, predicted peak, roofline.
+   (d) Real bf16 steps on a one-rank NCCL mesh against the same without
+   one: full mamba2_780m training at 1,024 tokens (exact SSD launches,
+   loss within ``DRY_LOSS_TOL``) and full recurrentgemma_2b prefill + 8
+   decode steps (exact RG-LRU, flash and dense-decode launches, equal
+   greedy tokens).  The report lands in ``REPORT["dryrun"]``.
 
 The second-to-last line of standard output is the ``kernels`` JSON, each
 kernel's launches summed over the paths of phases 5, 5c, 5b, 5d, 7, 8b, 8c,
-8d, 9, 10, 11 and 12 (phase 10's summed over its localities); the last
+8d, 9, 10, 11, 12 and 13(d) (phase 10's summed over its localities); the last
 is ``{"ok": true, "device": {...}}``.  A fuller report is written to
 ``chiprun_out/chip_smoke.json``.
 """
@@ -508,8 +525,7 @@ def phase_kernels(torch, np):
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops
-    from repro_torch.kernels.decode_attention import (paged_decode_attention_fwd,
-                                                      paged_decode_attention_plain,
+    from repro_torch.kernels.decode_attention import (paged_decode_attention_plain,
                                                       split_ranges)
     from repro_torch.kernels.flash_attention import (flash_attention_fwd,
                                                      flash_attention_plain, flash_plan)
@@ -643,7 +659,7 @@ def phase_kernels(torch, np):
         for (B, S, H, KV, Dh), causal, window, vl in flash_cases:
             q, k, v = _flash_inputs(torch, gen, B, S, H, KV, Dh, dtype)
             masks = {"causal": causal, "window": window, "valid_len": vl}
-            o = flash_attention_fwd(q, k, v, **masks)
+            o = torch.ops.repro_torch.flash_attention(q, k, v, causal, window, vl)
             torch.cuda.synchronize()
             f32 = [x.float() for x in (q, k, v)]
             moved = None
@@ -656,7 +672,7 @@ def phase_kernels(torch, np):
         for lens, H, KV, Dh, page, maxp in paged_cases:
             q, kp, vp, pt, lengths = _paged_inputs(torch, gen, lens, H, KV, Dh, page,
                                                    maxp, dtype)
-            o = paged_decode_attention_fwd(q, kp, vp, pt, lengths)
+            o = torch.ops.repro_torch.paged_decode_attention(q, kp, vp, pt, lengths)
             torch.cuda.synchronize()
             f32 = [x.float() for x in (q, kp, vp)]
             splits = _splits(torch, len(lens), H, KV, maxp, page)
@@ -1005,45 +1021,15 @@ def _triad_inputs(torch, gen, N, dtype):
                  for _ in range(2))
 
 
-def _ssd_flops(S, H, P, N, B, chunk, dtype, final=False):
-    """The SSD's operations, {dtype: flops}, by the cheapest of three ways
-    to compute it (at the peak rates), and all three.  The recurrence: per
-    step and head, decay the fp32 (N, P) state, add dt·x ⊗ B and read
-    C·state: 5·N·P flops, fp32.  The chunked dual form: C·Bᵀ over j ≤ i
-    (both operands in the input dtype, so bf16 runs on tensor cores), then
-    scores·x, the carried state's C·S (no chunk but the first has one) and
-    the state update (no chunk but the last feeds one) in fp32.  The same
-    products as the kernel runs them: bf16 on the tensor cores, an
-    operand split into bf16 hi + lo (the scores, S_in, w ⊙ x) counting
-    twice; fp32 on fp32 FMAs.  ``final``: the call also returns the state
-    after step S, so the last chunk's state update counts too."""
-    recurrence = {"float32": 5 * N * P * S * H * B}
-    cb = sx = cs = st = 0
-    starts = range(0, S, chunk)
-    for c, t0 in enumerate(starts):
-        q = min(chunk, S - t0)
-        cb += q * (q + 1) // 2 * N * 2
-        sx += q * (q + 1) // 2 * P * 2
-        cs += q * N * P * 2 if c > 0 else 0
-        st += q * N * P * 2 if final or c < len(starts) - 1 else 0
-    dual = {dtype: B * H * cb}
-    dual["float32"] = dual.get("float32", 0) + B * H * (sx + cs + st)
-    split = 2 if dtype == "bfloat16" else 1
-    kernel = {dtype: B * H * (cb + split * (sx + cs + st))}
-    ways = {"recurrence": recurrence, "chunked": dual, "kernel": kernel}
-    return min(ways.values(), key=_ops_ms), ways
-
-
 def _check_ops_kernels(torch, gen, rng, record):
     """Phase 3 for the kernels behind ops.decode_attention, ops.ssd_scan,
     ops.rglru_scan and ops.stream_triad: full widths, then the sweeps of
     tests/test_kernels.py."""
-    from repro_torch.kernels.decode_attention import (DENSE_TILE, decode_attention_fwd,
-                                                      decode_attention_plain,
+    from repro_torch.kernels.decode_attention import (DENSE_TILE, decode_attention_plain,
                                                       lengths_for, split_ranges)
-    from repro_torch.kernels.rglru_scan import rglru_scan_fwd, rglru_scan_plain
-    from repro_torch.kernels.ssd_scan import ssd_scan_fwd, ssd_scan_plain
-    from repro_torch.kernels.stream import stream_triad_fwd, stream_triad_plain
+    from repro_torch.kernels.rglru_scan import rglru_scan_plain
+    from repro_torch.kernels.ssd_scan import ssd_scan_plain
+    from repro_torch.kernels.stream import stream_triad_plain
 
     decode_cases = [(STARCODER_CACHE, STARCODER_LENS), (STARCODER_CACHE, 1024),
                     (STARCODER_CACHE, 2000),  # clamped to T
@@ -1113,7 +1099,8 @@ def _check_ops_kernels(torch, gen, rng, record):
             q, k, v = _decode_inputs(torch, gen, B, T, H, KV, Dh, dtype)
             if isinstance(length, list):
                 length = torch.tensor(length, dtype=torch.int32, device="cuda")
-            o = decode_attention_fwd(q, k, v, length)
+            o = torch.ops.repro_torch.decode_attention(q, k, v,
+                                                       lengths_for(length, B, T, q.device))
             torch.cuda.synchronize()
             f32 = [x.float() for x in (q, k, v)]
             shorter = (lengths_for(length, B, T, q.device) - 1).clamp_min(0)
@@ -1125,7 +1112,7 @@ def _check_ops_kernels(torch, gen, rng, record):
                    decode_attention_plain(*f32, shorter))
         for (B, S, H, P, G, N), chunk, steep in ssd_cases:
             args = _ssd_inputs(torch, gen, B, S, H, P, G, N, dtype, steep)
-            y = ssd_scan_fwd(*args, chunk=chunk)
+            y, _ = torch.ops.repro_torch.ssd_scan(*args, chunk, False)
             torch.cuda.synchronize()
             check(bool(torch.isfinite(y).all().item()), f"ssd_scan {B, S, H}: not finite")
             f32 = [x.float() for x in args]
@@ -1134,21 +1121,21 @@ def _check_ops_kernels(torch, gen, rng, record):
                    ssd_scan_plain(*f32, chunk=chunk), None)
         for (B, S, W), slow in rglru_cases:
             a, b = _rglru_inputs(torch, gen, B, S, W, dtype, slow)
-            h = rglru_scan_fwd(a, b)
+            h = torch.ops.repro_torch.rglru_scan(a, b)
             torch.cuda.synchronize()
             record("rglru_scan", [B, S, W] + (["slow"] if slow else []), dtype, h,
                    rglru_scan_plain(a, b), rglru_scan_plain(a.float(), b.float()), None)
         for N in triad_cases:
             a, b = _triad_inputs(torch, gen, N, dtype)
-            o = stream_triad_fwd(a, b, 3.0)
+            o = torch.ops.repro_torch.stream_triad(a, b, 3.0)
             torch.cuda.synchronize()
             record("stream_triad", [N], dtype, o, stream_triad_plain(a, b, 3.0),
                    stream_triad_plain(a.float(), b.float(), 3.0), None)
             del a, b, o
-    _check_ssd_model_form(torch, gen, record, ssd_scan_fwd, ssd_scan_plain)
+    _check_ssd_model_form(torch, gen, record, ssd_scan_plain)
 
 
-def _check_ssd_model_form(torch, gen, record, ssd_scan_fwd, ssd_scan_plain):
+def _check_ssd_model_form(torch, gen, record, ssd_scan_plain):
     """The SSD as the Mamba-2 block calls it, at mamba2_780m's widths: bf16
     x, B and C with an fp32 dt, and the fp32 final state (B, H, P, N).  y
     at S = 2048 and a ragged 2000; the final state there and at S on a
@@ -1158,7 +1145,7 @@ def _check_ssd_model_form(torch, gen, record, ssd_scan_fwd, ssd_scan_plain):
     B, _, H, P, G, N = MAMBA
     for S in (2048, 2000, 1023, 1024, 1025, 100):
         args = _ssd_inputs(torch, gen, B, S, H, P, G, N, torch.bfloat16, dt_fp32=True)
-        y, final = ssd_scan_fwd(*args, chunk=MAMBA_CHUNK, return_final_state=True)
+        y, final = torch.ops.repro_torch.ssd_scan(*args, MAMBA_CHUNK, True)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(y).all().item() and torch.isfinite(final).all().item()),
               f"ssd_scan fp32 dt S={S}: not finite")
@@ -1256,6 +1243,7 @@ def _whisper_self_lens():
 def _time_ops_kernels(torch, F, gen, flush):
     """The four ops kernels at the full widths of phase 7, bf16; the triad
     in fp32, as STREAM counts it, and in bf16."""
+    from repro_torch.kernels import ops
     from repro_torch.kernels.rglru_scan import rglru_scan_fwd, rglru_scan_plain
     from repro_torch.kernels.ssd_scan import ssd_scan_fwd, ssd_scan_plain
     from repro_torch.kernels.stream import stream_triad_fwd, stream_triad_plain
@@ -1282,7 +1270,7 @@ def _time_ops_kernels(torch, F, gen, flush):
     out["ssd_scan"] = []
     for model_form in (False, True):
         args = _ssd_inputs(torch, gen, B, S, H, P, G, N, bf16, dt_fp32=model_form)
-        flops, ways = _ssd_flops(S, H, P, N, B, MAMBA_CHUNK, "bfloat16", final=model_form)
+        flops, ways = ops.ssd_flops(B, S, H, P, N, MAMBA_CHUNK, "bfloat16", final=model_form)
         nbytes = (2 * (2 * B * S * H * P + 2 * B * S * G * N) + 4 * H
                   + B * S * H * (4 if model_form else 2)         # dt
                   + (4 * B * H * P * N if model_form else 0))    # the final state
@@ -4723,6 +4711,313 @@ def phase_mesh(torch, np, card):
         torch.cuda.empty_cache()
 
 
+# ----------------------------------------------------------------- phase 13
+# The dry run on the card (``launch/dryrun.py``): the kernels are torch
+# ops, so a step traces on fake CUDA tensors (``FakeTensorMode``) with each
+# op's fake implementation, on a ``fake`` process group, and nothing
+# launches.  (a) full starcoder2_3b at phase 12(b)'s shape on a fake
+# ("pod", "data", "model") 1×1×1 mesh under phase 12(b)'s plan: exactly 30
+# flash-op calls a step and as many bf16 all-reduces a step as phase 12(b)
+# counted; the predicted peak (MemTracker) beside phase 12(b)'s and 8b's
+# measured peaks, the roofline's compute and memory terms beside 8b's
+# step.  (b) one paged decode step at phase 5's engine shape (B=8, 1024
+# tokens a slot, pages of 16), traced, against one real step of the same
+# shapes: the decode-kernel op calls equal the real step's launch counts.
+# (c) ``launch/dryrun.py``'s CLI for starcoder2_3b train_4k on the
+# 256-rank production mesh, the card's route, in a process of its own
+# started before phase 12 (it runs on the host beside phases 12 and
+# 13(a, b, d); the record lands in ``chiprun_out/dryrun_torch``): its trace
+# time, predicted peak and roofline.  (d) real bf16 steps
+# on a one-rank NCCL mesh against the same steps without one: a full
+# mamba2_780m training step at 1,024 tokens (exact SSD launches, the loss
+# within DRY_LOSS_TOL), and full recurrentgemma_2b prefill + 8 decode
+# steps (exact RG-LRU, flash and dense-decode launches, equal greedy
+# tokens).
+DRY_LOSS_TOL = 2e-2
+DRY_POD_TIMEOUT = 300  # s: 13(c)'s trace, from the end of (a, b, d)
+DRY_MAMBA = (2, 512)            # (B, S) of (d)'s training step: 1,024 tokens
+DRY_GRIFFIN = (2, 256, 8)       # (B, prompt, decode steps) of (d)'s serving
+
+
+def _dry_train_trace(torch, card):
+    """Phase 13(a): see the block comment above."""
+    from repro_torch.analysis import roofline
+    from repro_torch.configs import ShapeCell, get_config
+    from repro_torch.dist.plan import get_plan
+    from repro_torch.launch import dryrun
+    from repro_torch.models.model import Model
+
+    B, S, _ = TRAIN_RUN
+    cfg = get_config("starcoder2_3b")
+    model = Model(cfg, plan=get_plan("futurized", compress_pod_grads=True))
+    cell = ShapeCell("phase_12b", S, B, "train")
+    t0 = time.perf_counter()
+    m = dryrun.measure_cell(model, cell, (1, 1, 1), ("pod", "data", "model"), model.device)
+    secs = time.perf_counter() - t0
+    rec = dryrun.cell_record("starcoder2_3b", cell, "1x1x1", "futurized+compress_pod_grads",
+                             1, model, m)
+    flash = rec["kernel_calls"].get("flash_attention", 0)
+    bf16 = dryrun.bf16_all_reduces(m["trace"])
+    mesh12 = REPORT["mesh"]["train"]
+    want_bf16 = mesh12["bf16_all_reduces"] // MESH_STEPS
+    check(flash == cfg.num_layers and rec["kernel_calls"] == {"flash_attention": flash},
+          f"dry train: kernel op calls {rec['kernel_calls']}, want {cfg.num_layers} flash")
+    check(bf16 == want_bf16, f"dry train: {bf16} bf16 all-reduces a step traced, phase 12(b) "
+                             f"counted {want_bf16}")
+    roof = roofline.analyze(rec)
+    b8 = REPORT["train"]
+    out = {"card": card, "arch": cfg.name, "batch": B, "seq": S, "mesh": "1x1x1",
+           "trace_s": secs, "kernel_calls": rec["kernel_calls"], "bf16_all_reduces": bf16,
+           "predicted_peak_bytes": rec["memory"]["peak_size_in_bytes"],
+           "argument_bytes": rec["memory"]["argument_size_in_bytes"],
+           "phase_12b_peak_bytes": mesh12["max_memory_allocated_bytes"],
+           "phase_8b_peak_bytes": b8["max_memory_allocated_bytes"],
+           "flops": rec["hlo_flops_per_device"], "hbm_traffic": rec["hbm_traffic_per_device"],
+           "compute_s": roof.compute_s, "memory_s": roof.memory_s,
+           "collective_s": roof.collective_s, "bottleneck": roof.bottleneck,
+           "phase_8b_step_p50_s": b8["step_p50_s"], "comm_counts": rec["comm_counts"]}
+    log(f"[dry train] {card}: {cfg.name} B={B}, S={S} traced on fake CUDA tensors on a fake "
+        f"1×1×1 pod mesh in {secs:.1f} s: {flash} flash-op calls, {bf16} bf16 all-reduces a "
+        f"step (phase 12(b): {want_bf16}); predicted peak "
+        f"{out['predicted_peak_bytes'] / 2**30:.2f} GiB (arguments "
+        f"{out['argument_bytes'] / 2**30:.2f}) beside phase 12(b)'s measured "
+        f"{out['phase_12b_peak_bytes'] / 2**30:.2f} GiB and 8b's "
+        f"{out['phase_8b_peak_bytes'] / 2**30:.2f} GiB; roofline compute "
+        f"{roof.compute_s * 1e3:.1f} ms, memory {roof.memory_s * 1e3:.1f} ms "
+        f"({roof.bottleneck}-bound) beside 8b's measured step "
+        f"{b8['step_p50_s'] * 1e3:.1f} ms")
+    return out
+
+
+def _dry_decode_trace(torch, card):
+    """Phase 13(b): see the block comment above."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist import hlo_analysis as H
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+
+    B, T, page = 8, 1024, 16
+    maxp = T // page
+    model = Model(get_config("starcoder2_3b"))
+    params = model.init_compute(SEED)
+    specs = model.paged_cache_specs(B * maxp + 1, page, B, maxp)
+    cache = {k: torch.zeros(s.shape, dtype=s.dtype, device="cuda") for k, s in specs.items()}
+    cache["page_table"] = (1 + torch.arange(B * maxp, dtype=torch.int32, device="cuda")
+                           ).reshape(B, maxp)
+    cache["pos"] = torch.tensor([16 + 120 * b for b in range(B)], dtype=torch.int32,
+                                device="cuda")
+    token = torch.zeros(B, 1, dtype=torch.int32, device="cuda")
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        model.decode_paged(params, cache, token)
+        torch.cuda.synchronize()
+        real = {k: v for k, v in ops.launch_counts().items() if v}
+        with FakeTensorMode(allow_non_fake_inputs=True) as fake:
+            fp = {k: fake.from_tensor(v) for k, v in params.items()}
+            fc = {k: fake.from_tensor(v) for k, v in cache.items()}
+            t0 = time.perf_counter()
+            _out, an, _trace = H.profile(model.decode_paged, fp, fc, fake.from_tensor(token))
+            secs = time.perf_counter() - t0
+    check(ops.launch_counts() == {**dict.fromkeys(ops.KERNELS, 0), **real},
+          "dry decode: the trace launched a kernel")
+    check(an.kernel_calls == real, f"dry decode: op calls {an.kernel_calls} traced, "
+                                   f"{real} launched by one real step")
+    out = {"batch": B, "cache_len": T, "page": page, "trace_s": secs,
+           "kernel_calls": an.kernel_calls, "launches": real, "flops": an.dot_flops,
+           "hbm_traffic": an.memory_traffic}
+    log(f"[dry decode] {card}: one paged decode step at phase 5's engine shape traced in "
+        f"{secs:.2f} s: op calls {an.kernel_calls} = one real step's launches {real}; "
+        f"{an.dot_flops / 1e9:.2f} GFLOP, {an.memory_traffic / 1e9:.2f} GB of traffic predicted")
+    del params, cache
+    return out
+
+
+DRY_POD = {}  # 13(c)'s process, started before phase 12
+
+
+def start_dry_pod_cell():
+    """Start phase 13(c)'s trace, ``launch.dryrun``'s CLI in a process of
+    its own on the card's route (the host's cores are otherwise idle
+    through phase 12's single-threaded dispatch): it runs beside phases 12
+    and 13(a, b, d), and 13(c) joins it."""
+    out = ROOT / "chiprun_out" / "dryrun_torch"
+    out.mkdir(parents=True, exist_ok=True)
+    log_f = open(out / "starcoder2_3b__train_4k__pod.log", "w")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    DRY_POD.update(t0=time.perf_counter(), out=out, log=log_f, proc=subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "starcoder2_3b",
+         "--shape", "train_4k", "--mesh", "pod", "--out", str(out), "--force"],
+        cwd=ROOT, env=env, stdout=log_f, stderr=subprocess.STDOUT))
+
+
+def stop_dry_pod_cell():
+    """Stop 13(c)'s process if it still runs (a failed phase before it)."""
+    proc = DRY_POD.get("proc")
+    if proc is not None and proc.poll() is None:
+        proc.kill()
+        proc.wait()
+    if "log" in DRY_POD:
+        DRY_POD["log"].close()
+
+
+def _dry_pod_cell(torch, card):
+    """Phase 13(c): see the block comment above."""
+    from repro_torch.analysis import roofline
+
+    proc = DRY_POD["proc"]
+    try:
+        rc = proc.wait(timeout=DRY_POD_TIMEOUT)
+    finally:
+        stop_dry_pod_cell()
+    secs = time.perf_counter() - DRY_POD["t0"]
+    check(rc == 0, f"dry pod cell: the trace exited {rc}; see "
+                   f"{DRY_POD['out'] / 'starcoder2_3b__train_4k__pod.log'}")
+    rec = json.loads((DRY_POD["out"] / "starcoder2_3b__train_4k__pod__futurized.json"
+                      ).read_text())
+    roof = roofline.analyze(rec)
+    check(rec["kernel_calls"] == {"flash_attention": 30} and rec["device"] == "cuda",
+          f"dry pod cell: kernel op calls {rec['kernel_calls']} on {rec['device']}")
+    out = {"seconds": secs, "trace_s": rec["compile_s"], "record": rec,
+           "roofline": {k: getattr(roof, k) for k in ("compute_s", "memory_s", "collective_s",
+                                                      "bottleneck", "useful_ratio",
+                                                      "roofline_fraction")}}
+    log(f"[dry pod] {card}: starcoder2_3b train_4k on the fake 256-rank pod mesh, the card's "
+        f"route, traced in {rec['compile_s']:.1f} s ({secs:.1f} s from its start before phase "
+        f"12 to its end): predicted peak "
+        f"{rec['memory']['peak_size_in_bytes'] / 2**30:.1f} GiB a rank, "
+        f"{rec['collectives']['count']} collectives, roofline compute "
+        f"{roof.compute_s:.3f} s, memory {roof.memory_s:.3f} s, collective "
+        f"{roof.collective_s:.3f} s ({roof.bottleneck}-bound)")
+    return out
+
+
+def _dry_mesh_steps(torch, card):
+    """Phase 13(d): see the block comment above.  Returns its launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import migration
+    from repro_torch.data.pipeline import DataConfig, synth_batch
+    from repro_torch.kernels import ops
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models.hybrid import _pattern
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+    from repro_torch.train import step as step_mod
+
+    mesh_mod.init_process_group(0, 1, "cuda")
+    total = dict.fromkeys(ops.KERNELS, 0)
+    try:
+        mesh = mesh_mod.make_mesh_shape((1, 1), ("data", "model"))
+        cfg = get_config("mamba2_780m")
+        model = Model(cfg)
+        B, S = DRY_MAMBA
+        batch = {k: v.cuda() for k, v in
+                 synth_batch(cfg, DataConfig(batch_size=B, seq_len=S, seed=SEED), 0).items()}
+        losses = {}
+        for on_mesh in (False, True):
+            params = model.init(SEED)
+            opt = adamw.init(params)
+            if on_mesh:
+                p_sh, o_sh = step_mod.train_state_shardings(model, mesh)
+                placed = migration.migrate_tree({"params": params, "opt": opt},
+                                                {"params": p_sh, "opt": o_sh}, mesh)
+                params, opt = placed["params"], placed["opt"]
+            step = step_mod.make_train_step(model, adamw.AdamWConfig(**TRAIN_OPT),
+                                            mesh if on_mesh else None)
+            ops.reset_launch_counts()  # ← (d)'s training path, each side
+            _p, _o, met = step(params, opt, batch)
+            loss = met["loss"]
+            losses[on_mesh] = float(loss.full_tensor() if hasattr(loss, "full_tensor")
+                                    else loss)
+            launches = ops.launch_counts()  # ← and its end
+            _check_launches(f"dry mesh {cfg.name} (mesh {on_mesh})", launches,
+                            {"ssd_scan": cfg.num_layers})
+            total = {k: total[k] + launches[k] for k in total}
+            del params, opt, _p, _o
+            gc.collect()
+            torch.cuda.empty_cache()
+        err = abs(losses[True] - losses[False])
+        check(math.isfinite(losses[True]) and err <= DRY_LOSS_TOL,
+              f"dry mesh {cfg.name}: loss {losses[True]} on the mesh, {losses[False]} without")
+
+        gcfg = get_config("recurrentgemma_2b")
+        gmodel = Model(gcfg)
+        Bg, P, steps = DRY_GRIFFIN
+        prompt = synth_batch(gcfg, DataConfig(batch_size=Bg, seq_len=P, seed=SEED), 0)
+        prompt = {"tokens": prompt["tokens"][:, :P].cuda()}
+        decode = step_mod.make_decode_step(gmodel)
+        attn_layers = _pattern(gcfg)[0]  # one a (rec, rec, attn) group
+        rec_layers = gcfg.num_layers - attn_layers
+        tokens = {}
+        for on_mesh in (False, True):
+            params = gmodel.init_compute(SEED)
+            inputs = prompt
+            if on_mesh:  # "unembed" is no param: made from the table at each step
+                params.pop("unembed")
+                p_sh = step_mod.train_state_shardings(gmodel, mesh)[0]
+                params = migration.migrate_tree(params, p_sh, mesh)
+                inputs = step_mod.place_batch(gmodel, mesh, prompt)
+            ops.reset_launch_counts()  # ← (d)'s serving path, each side
+            with torch.no_grad():
+                logits, cache = gmodel.prefill(params, inputs)
+                logits = gmodel.plan.constrain(logits, ("batch", None))
+                tok = logits.argmax(-1).to(torch.int32)[:, None]
+                seq = [tok.full_tensor() if hasattr(tok, "full_tensor") else tok]
+                for _ in range(steps):
+                    tok, cache = decode(params, cache, tok)
+                    seq.append(tok.full_tensor() if hasattr(tok, "full_tensor") else tok)
+            torch.cuda.synchronize()
+            launches = ops.launch_counts()  # ← and its end
+            _check_launches(f"dry mesh {gcfg.name} (mesh {on_mesh})", launches,
+                            {"rglru_scan": rec_layers, "flash_attention": attn_layers,
+                             "decode_attention": attn_layers * steps})
+            total = {k: total[k] + launches[k] for k in total}
+            tokens[on_mesh] = torch.cat(seq, 1).cpu()
+            del params, cache
+            gc.collect()
+            torch.cuda.empty_cache()
+        check(torch.equal(tokens[True], tokens[False]),
+              f"dry mesh {gcfg.name}: greedy tokens on the mesh differ from without")
+        out = {"mamba_loss": losses, "mamba_loss_err": err, "loss_tol": DRY_LOSS_TOL,
+               "griffin_tokens": tokens[True].tolist(), "launches": total}
+        log(f"[dry mesh] {card}: {cfg.name} B={B}, S={S} one bf16 step on a 1×1 NCCL mesh: "
+            f"loss {losses[True]:.5f} (without {losses[False]:.5f}, err {err:.3g}, tol "
+            f"{DRY_LOSS_TOL}); {gcfg.name} prefill of {Bg}×{P} + {steps} decode steps on the "
+            f"mesh: greedy tokens equal; launches {total}")
+        return out, total
+    finally:
+        mesh_mod.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_dryrun(torch, np, card):
+    """Phase 13, the dry run on the card: see the block comment above.
+    Returns the launches of (d)'s paths."""
+    seconds = {}
+    try:
+        t0 = time.perf_counter()
+        train = _dry_train_trace(torch, card)
+        seconds["a"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        decode = _dry_decode_trace(torch, card)
+        seconds["b"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        steps, launches = _dry_mesh_steps(torch, card)
+        seconds["d"] = time.perf_counter() - t0
+    except BaseException:
+        stop_dry_pod_cell()
+        raise
+    t0 = time.perf_counter()
+    pod = _dry_pod_cell(torch, card)
+    seconds["c, waiting"] = time.perf_counter() - t0
+    REPORT["dryrun"] = {"card": card, "train": train, "decode": decode, "pod": pod,
+                        "mesh_steps": steps, "seconds": seconds}
+    log(f"[dryrun] seconds {({k: round(v, 1) for k, v in seconds.items()})}")
+    return launches
+
+
 def main() -> int:
     # the caching allocator grows segments in place instead of keeping
     # freed blocks of fixed-size segments apart: phase 8c's 16,384-token
@@ -4771,7 +5066,13 @@ def main() -> int:
     paths.append(timed("9", phase_runtime, torch, np, card))
     paths.append(timed("10", phase_serve_localities, torch, np, card))
     paths.append(timed("11", phase_data, torch, np, card))
-    paths.append(timed("12", phase_mesh, torch, np, card))
+    start_dry_pod_cell()  # 13(c), beside phases 12 and 13
+    try:
+        paths.append(timed("12", phase_mesh, torch, np, card))
+    except BaseException:
+        stop_dry_pod_cell()
+        raise
+    paths.append(timed("13", phase_dryrun, torch, np, card))
     log(f"[time] {card}: phase seconds "
         f"{ {k: round(v, 1) for k, v in seconds.items()} }, {sum(seconds.values()):.1f} in all")
     launches = {k: sum(p.get(k, 0) for p in paths) for k in paths[0]}

@@ -28,6 +28,8 @@ WORLD = 8
 def _rank(rank: int, args: argparse.Namespace, store: str) -> None:
     import torch.distributed as dist
 
+    torch.set_num_threads(1)  # eight ranks on a few cores: one thread each
+
     import repro_torch.core as core
     from repro_torch.checkpoint import ckpt
     from repro_torch.configs import get_config

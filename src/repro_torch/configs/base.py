@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import importlib
 from dataclasses import dataclass
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
 
 @dataclass(frozen=True)
@@ -95,6 +95,24 @@ class ModelConfig:
         return self.num_layers - self.first_dense if self.is_moe else 0
 
 
+@dataclass(frozen=True)
+class ShapeCell:
+    """One assigned (input shape) cell of the dry run."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES: Dict[str, ShapeCell] = {
+    "train_4k": ShapeCell("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524_288, 1, "decode"),
+}
+
+
 # every architecture of the reference, in its order
 ARCH_IDS: List[str] = [
     "whisper_small", "mamba2_780m", "qwen25_3b", "starcoder2_3b", "granite_34b",
@@ -117,3 +135,17 @@ def get_config(arch: str, smoke: bool = False) -> ModelConfig:
         raise KeyError(f"unknown arch {arch!r}; choose from {ARCH_IDS}")
     mod = importlib.import_module(f"repro_torch.configs.{arch}")
     return mod.smoke_config() if smoke else mod.full_config()
+
+
+def cells_for(cfg: ModelConfig) -> List[str]:
+    """The shape cells that apply to an arch: long_500k needs a
+    sub-quadratic family."""
+    cells = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.sub_quadratic:
+        cells.append("long_500k")
+    return cells
+
+
+def all_cells() -> List[Tuple[str, str]]:
+    """Every live (arch, shape) cell of the dry run."""
+    return [(arch, cell) for arch in ARCH_IDS for cell in cells_for(get_config(arch))]

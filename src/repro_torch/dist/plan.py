@@ -70,7 +70,7 @@ def mesh_sizes(mesh: Any) -> Dict[str, int]:
     if names is None:
         raise ValueError("a DeviceMesh without mesh_dim_names cannot resolve "
                          "logical axes")
-    return dict(zip(names, (int(n) for n in mesh.mesh.shape)))
+    return dict(zip(names, (int(n) for n in mesh.shape)))
 
 
 def placements(spec: Sequence[Any], mesh: Any) -> List[Any]:

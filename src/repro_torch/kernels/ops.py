@@ -1,14 +1,25 @@
 """Public wrappers around the kernels: the port's counterpart of the
 reference's single-source kernel API, ``repro.kernels.ops``.
 
-Each wrapper dispatches on the device of the tensors it is given: a CPU
-tensor goes to the kernel's plain PyTorch version, a CUDA tensor to the
-hand-written Hopper kernel — or the wrapper raises.  There is no fallback
-from one to the other.
+Each of the six kernels is a torch op under the ``repro_torch::``
+namespace (``torch.ops.repro_torch.flash_attention`` …), defined through
+``torch.library.Library``, the counterpart of the abstract evaluation a
+``pallas_call`` has in JAX.  Each op has
 
-Every kernel wrapper counts its launches (:func:`launch_counts`), so a run
-can show that its main path went through the kernels; plain-version calls
-are not counted.
+- a CUDA implementation: the hand-written Hopper kernel, which counts its
+  launch (:func:`launch_counts`);
+- a CPU implementation: the kernel's plain PyTorch version, not counted;
+- a fake implementation (``register_fake``): output shapes and dtypes
+  only, so a step traces under ``FakeTensorMode`` (``launch/dryrun.py``)
+  with no kernel launched and no count moved;
+- a FLOP formula (``torch.utils.flop_counter``, :data:`FLOP_FORMULAS`)
+  that counts what the kernel table's bounds count: flash the unmasked
+  (causal, windowed) pairs, all S² without a mask; the decode kernels the
+  live K/V rows (every row of the extent where the lengths are fake); the
+  SSD the least of its three ways (:func:`ssd_flops`).
+
+Torch's dispatch picks the implementation by device, so any other device
+raises and there is no fallback from one to the other.
 
 Gradients: a kernel writes its output from outside autograd, so no
 wrapper of a bare kernel may be differentiated.  Each raises a
@@ -16,7 +27,7 @@ wrapper of a bare kernel may be differentiated.  Each raises a
 input requires grad — on both devices, so the CPU (whose plain versions
 autograd could differentiate) and the card never disagree.  Training goes
 through the ``*_trainable`` ops, each a ``torch.autograd.Function`` whose
-forward is the kernel (the plain version on CPU tensors):
+forward is the op:
 :func:`flash_attention_trainable` with
 :func:`~repro_torch.kernels.flash_attention.flash_attention_bwd`,
 :func:`ssd_scan_trainable`, whose backward differentiates the plain
@@ -31,20 +42,22 @@ kernels here choose their own.
 Every entry point takes plain tensors only: a DTensor raises on either
 device, since a kernel reads raw device pointers and the plain version
 would otherwise run as distributed math.  Mesh code reaches a kernel
-through ``torch.distributed.tensor.experimental.local_map``, with each
-rank's local shard (``models/layers.py``).
+through ``local_map``, with each rank's local shard
+(``models/layers.py::on_shards``).
 """
 
 from __future__ import annotations
 
+import math
 import threading
 from typing import Dict, Optional, Tuple
 
 import torch
 from torch.distributed.tensor import DTensor
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels.decode_attention import (decode_attention_fwd,
-                                                  decode_attention_plain,
+                                                  decode_attention_plain, lengths_for,
                                                   paged_decode_attention_fwd,
                                                   paged_decode_attention_plain)
 from repro_torch.kernels.flash_attention import (flash_attention_bwd,
@@ -80,19 +93,16 @@ def reset_launch_counts() -> None:
 def _plain_only(what: str, *tensors: torch.Tensor) -> None:
     """A DTensor has no ``data_ptr``, and its plain-version ops would run
     as distributed math: each kernel takes plain (local) tensors only.
-    Mesh code calls a kernel through ``local_map`` (``models/layers.py``)."""
+    Mesh code calls a kernel through ``local_map`` (``models/layers.py``).
+    A tensor on neither the card nor the CPU (a meta tensor) has no
+    implementation to run either: it raises rather than reach the op's
+    fake implementation, which only ``FakeTensorMode`` uses."""
     if any(isinstance(t, DTensor) for t in tensors):
         raise TypeError(f"{what} takes plain tensors; a DTensor reaches a "
                         f"kernel only through local_map, as its local shard")
-
-
-def _route(t: torch.Tensor, what: str) -> bool:
-    """True → the CUDA kernel, False → the plain version; anything else raises."""
-    if t.device.type == "cuda":
-        return True
-    if t.device.type == "cpu":
-        return False
-    raise ValueError(f"{what}: no kernel for device {t.device}")
+    dev = tensors[0].device
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"{what}: no kernel for device {dev}")
 
 
 def _no_backward(what: str, *tensors: torch.Tensor) -> None:
@@ -105,6 +115,216 @@ def _no_backward(what: str, *tensors: torch.Tensor) -> None:
             f"torch.no_grad() or torch.inference_mode()")
 
 
+# ------------------------------------------------------------------ the ops
+# Defined through ``torch.library.Library``: the dispatcher calls each
+# implementation directly.  ``torch.library.custom_op`` adds a Python
+# layer a call, which cost the host-bound paged decode step of phase 5
+# ~12 ms on the card (``chip_pair.py --serve``; PERF.md §6).
+_LIB = torch.library.Library("repro_torch", "DEF")
+
+
+def _define(schema: str, cpu, cuda, fake):
+    """Define ``repro_torch::<schema>`` with its CPU (plain version), CUDA
+    (the kernel, counted) and fake (shapes only) implementations; → the
+    op overload."""
+    name = schema.split("(")[0]
+    _LIB.define(schema)
+    _LIB.impl(name, cpu, "CPU")
+    _LIB.impl(name, cuda, "CUDA")
+    torch.library.register_fake(f"repro_torch::{name}", fake, lib=_LIB)
+    return getattr(torch.ops.repro_torch, name).default
+
+
+def _flash_cuda(q, k, v, causal, window, valid_len):
+    o = flash_attention_fwd(q, k, v, causal=causal, window=window, valid_len=valid_len)
+    _count("flash_attention")
+    return o
+
+
+_flash_op = _define(
+    "flash_attention(Tensor q, Tensor k, Tensor v, bool causal, int window, "
+    "int valid_len) -> Tensor",
+    lambda q, k, v, causal, window, valid_len: flash_attention_plain(
+        q, k, v, causal=causal, window=window, valid_len=valid_len),
+    _flash_cuda, lambda q, k, v, causal, window, valid_len: torch.empty_like(q))
+
+
+def _decode_cuda(q, k, v, lengths):
+    o = decode_attention_fwd(q, k, v, lengths)
+    _count("decode_attention")
+    return o
+
+
+_decode_op = _define(
+    "decode_attention(Tensor q, Tensor k, Tensor v, Tensor lengths) -> Tensor",
+    decode_attention_plain, _decode_cuda, lambda q, k, v, lengths: torch.empty_like(q))
+
+
+def _paged_cuda(q, k_pages, v_pages, page_table, lengths):
+    o = paged_decode_attention_fwd(q, k_pages, v_pages, page_table, lengths)
+    _count("paged_decode_attention")
+    return o
+
+
+_paged_op = _define(
+    "paged_decode_attention(Tensor q, Tensor k_pages, Tensor v_pages, "
+    "Tensor page_table, Tensor lengths) -> Tensor",
+    paged_decode_attention_plain, _paged_cuda, lambda q, *_: torch.empty_like(q))
+
+
+def _no_state(x: torch.Tensor) -> torch.Tensor:
+    """The SSD op's second output where no final state was asked for."""
+    return x.new_empty((0,), dtype=torch.float32)
+
+
+def _ssd_cpu(x, dt, A, Bm, Cm, chunk, return_final_state):
+    out = ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk,
+                         return_final_state=return_final_state)
+    return out if return_final_state else (out, _no_state(x))
+
+
+def _ssd_cuda(x, dt, A, Bm, Cm, chunk, return_final_state):
+    out = ssd_scan_fwd(x, dt, A, Bm, Cm, chunk=chunk, return_final_state=return_final_state)
+    _count("ssd_scan")
+    return out if return_final_state else (out, _no_state(x))
+
+
+def _ssd_fake(x, dt, A, Bm, Cm, chunk, return_final_state):
+    B, _, H, P = x.shape
+    state = (x.new_empty((B, H, P, Bm.shape[3]), dtype=torch.float32)
+             if return_final_state else _no_state(x))
+    return torch.empty_like(x), state
+
+
+_ssd_op = _define(
+    "ssd_scan(Tensor x, Tensor dt, Tensor A, Tensor Bm, Tensor Cm, int chunk, "
+    "bool return_final_state) -> (Tensor, Tensor)", _ssd_cpu, _ssd_cuda, _ssd_fake)
+
+
+def _rglru_cuda(a, b):
+    h = rglru_scan_fwd(a, b)
+    _count("rglru_scan")
+    return h
+
+
+_rglru_op = _define("rglru_scan(Tensor a, Tensor b) -> Tensor", rglru_scan_plain,
+                    _rglru_cuda, lambda a, b: torch.empty_like(a))
+
+
+def _triad_cuda(a, b, alpha):
+    o = stream_triad_fwd(a, b, alpha)
+    _count("stream_triad")
+    return o
+
+
+_triad_op = _define("stream_triad(Tensor a, Tensor b, float alpha) -> Tensor",
+                    stream_triad_plain, _triad_cuda, lambda a, b, alpha: torch.empty_like(a))
+
+
+# ---------------------------------------------------------- FLOP formulas
+def flash_pairs(S: int, causal: bool, window: int = 0, valid_len: int = 0) -> int:
+    """The (query, key) pairs flash attention leaves unmasked: every key
+    below ``valid_len`` (0 means S), at or before the query when causal,
+    and after ``query − window`` when windowed (the kernel's masks)."""
+    K = valid_len if 0 < valid_len < S else S
+    if window <= 0 and K == S:
+        return S * (S + 1) // 2 if causal else S * S
+    if window <= 0 and not causal:
+        return S * K
+    return sum(max(0, (min(i + 1, K) if causal else K)
+                   - (max(0, i - window + 1) if window > 0 else 0)) for i in range(S))
+
+
+def ssd_flops(B: int, S: int, H: int, P: int, N: int, chunk: int, dtype: str,
+              final: bool = False) -> Tuple[Dict[str, int], Dict[str, Dict[str, int]]]:
+    """The SSD's operations, {dtype: flops}, by the cheapest of three ways
+    to compute it at the H100's peak rates (bf16 989e12, fp32 67e12), and
+    all three.  The recurrence: per step and head, decay the fp32 (N, P)
+    state, add dt·x ⊗ B and read C·state: 5·N·P flops, fp32.  The chunked
+    dual form: C·Bᵀ over j ≤ i in the input dtype, then scores·x, the
+    carried state's C·S (no chunk but the first has one) and the state
+    update (no chunk but the last feeds one) in fp32.  The kernel's: the
+    same products, an operand split into bf16 hi + lo counting twice.
+    ``final``: the call also returns the state after step S."""
+    recurrence = {"float32": 5 * N * P * S * H * B}
+    cb = sx = cs = st = 0
+    starts = range(0, S, chunk)
+    for c, t0 in enumerate(starts):
+        q = min(chunk, S - t0)
+        cb += q * (q + 1) // 2 * N * 2
+        sx += q * (q + 1) // 2 * P * 2
+        cs += q * N * P * 2 if c > 0 else 0
+        st += q * N * P * 2 if final or c < len(starts) - 1 else 0
+    dual = {dtype: B * H * cb}
+    dual["float32"] = dual.get("float32", 0) + B * H * (sx + cs + st)
+    split = 2 if dtype == "bfloat16" else 1
+    kernel = {dtype: B * H * (cb + split * (sx + cs + st))}
+    ways = {"recurrence": recurrence, "chunked": dual, "kernel": kernel}
+    peak = {"bfloat16": 989e12, "float32": 67e12, "float16": 989e12}
+    return (min(ways.values(), key=lambda f: sum(n / peak[d] for d, n in f.items())),
+            ways)
+
+
+def _live_rows(lengths: torch.Tensor, extent: int) -> int:
+    """Σ min(length, extent) over the rows, or every row's whole extent
+    where the lengths have no data (a fake or meta tensor)."""
+    from torch._subclasses.fake_tensor import is_fake
+
+    if is_fake(lengths) or lengths.device.type == "meta":
+        return lengths.numel() * extent
+    return int(lengths.long().clamp(0, extent).sum())
+
+
+def _flash_flops(q, k, v, causal, window, valid_len, *_, out_shape=None, **__):
+    B, S, H, Dh = q
+    return int(4 * Dh * H * B * flash_pairs(S, causal, window, valid_len))
+
+
+def _decode_flops(q, k, v, lengths, *_, out_val=None, **__):
+    B, H, Dh = q.shape
+    return 4 * Dh * H * _live_rows(lengths, k.shape[1])
+
+
+def _paged_flops(q, k_pages, v_pages, page_table, lengths, *_, out_val=None, **__):
+    B, H, Dh = q.shape
+    return 4 * Dh * H * _live_rows(lengths, page_table.shape[1] * k_pages.shape[1])
+
+
+def _ssd_op_flops(x, dt, A, Bm, Cm, chunk, return_final_state, *_, out_shape=None, **__):
+    B, S, H, P = x
+    flops, _ways = ssd_flops(B, S, H, P, Bm[3], min(chunk, S), "bfloat16",
+                             final=return_final_state)
+    return int(sum(flops.values()))
+
+
+def _rglru_flops(a, b, *_, out_shape=None, **__):
+    return 2 * math.prod(a)
+
+
+def _triad_flops(a, b, alpha, *_, out_shape=None, **__):
+    return 2 * math.prod(a)
+
+
+FLOP_FORMULAS = {
+    "flash_attention": register_flop_formula(torch.ops.repro_torch.flash_attention)(
+        _flash_flops),
+    "decode_attention": register_flop_formula(torch.ops.repro_torch.decode_attention,
+                                              get_raw=True)(_decode_flops),
+    "paged_decode_attention": register_flop_formula(
+        torch.ops.repro_torch.paged_decode_attention, get_raw=True)(_paged_flops),
+    "ssd_scan": register_flop_formula(torch.ops.repro_torch.ssd_scan)(_ssd_op_flops),
+    "rglru_scan": register_flop_formula(torch.ops.repro_torch.rglru_scan)(_rglru_flops),
+    "stream_triad": register_flop_formula(torch.ops.repro_torch.stream_triad)(_triad_flops),
+}
+"""{kernel: its op's FLOP formula}, as ``FlopCounterMode`` calls it."""
+
+OPS = {"flash_attention": _flash_op, "decode_attention": _decode_op,
+       "paged_decode_attention": _paged_op, "ssd_scan": _ssd_op, "rglru_scan": _rglru_op,
+       "stream_triad": _triad_op}
+"""{kernel: its ``repro_torch::`` op overload}."""
+
+
+# ----------------------------------------------------------------- wrappers
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     valid_len: int = 0) -> torch.Tensor:
@@ -113,13 +333,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     only: :func:`flash_attention_trainable` is the differentiable op."""
     _plain_only("flash_attention", q, k, v)
     _no_backward("flash_attention (use flash_attention_trainable)", q, k, v)
-    if not _route(q, "flash_attention"):
-        return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     valid_len=valid_len)
-    o = flash_attention_fwd(q, k, v, causal=causal, window=window,
-                            valid_len=valid_len)
-    _count("flash_attention")
-    return o
+    return _flash_op(q, k, v, causal, window, valid_len)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -133,11 +347,11 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     once for its G query heads; nothing is repeated or padded."""
     _plain_only("decode_attention", q, k, v)
     _no_backward("decode_attention", q, k, v)
-    if not _route(q, "decode_attention"):
-        return decode_attention_plain(q, k, v, length)
-    o = decode_attention_fwd(q, k, v, length)
-    _count("decode_attention")
-    return o
+    B, T = q.shape[0], k.shape[1]
+    if not (torch.is_tensor(length) and length.dtype == torch.int32
+            and tuple(length.shape) == (B,) and length.device == q.device):
+        length = lengths_for(length, B, T, q.device)
+    return _decode_op(q, k, v, length)
 
 
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -151,12 +365,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     page list; no dense gather."""
     _plain_only("paged_decode_attention", q, k_pages, v_pages, page_table, lengths)
     _no_backward("paged_decode_attention", q, k_pages, v_pages)
-    if not _route(q, "paged_decode_attention"):
-        return paged_decode_attention_plain(q, k_pages, v_pages, page_table,
-                                            lengths)
-    o = paged_decode_attention_fwd(q, k_pages, v_pages, page_table, lengths)
-    _count("paged_decode_attention")
-    return o
+    return _paged_op(q, k_pages, v_pages, page_table, lengths)
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -172,14 +381,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     kernel takes 1–256."""
     _plain_only("ssd_scan", x, dt, A, Bm, Cm)
     _no_backward("ssd_scan", x, dt, A, Bm, Cm)
-    chunk = min(chunk, x.shape[1])
-    if not _route(x, "ssd_scan"):
-        return ssd_scan_plain(x, dt, A, Bm, Cm, chunk=chunk,
-                              return_final_state=return_final_state)
-    out = ssd_scan_fwd(x, dt, A, Bm, Cm, chunk=chunk,
-                       return_final_state=return_final_state)
-    _count("ssd_scan")
-    return out
+    y, state = _ssd_op(x, dt, A, Bm, Cm, min(chunk, x.shape[1]), return_final_state)
+    return (y, state) if return_final_state else y
 
 
 def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -187,22 +390,14 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     a/b: (B,S,W) → (B,S,W) in a's dtype."""
     _plain_only("rglru_scan", a, b)
     _no_backward("rglru_scan", a, b)
-    if not _route(a, "rglru_scan"):
-        return rglru_scan_plain(a, b)
-    h = rglru_scan_fwd(a, b)
-    _count("rglru_scan")
-    return h
+    return _rglru_op(a, b)
 
 
 def stream_triad(a: torch.Tensor, b: torch.Tensor, alpha: float = 3.0) -> torch.Tensor:
     """STREAM triad a + alpha·b over (N,), rounded as ``a + alpha * b``."""
     _plain_only("stream_triad", a, b)
     _no_backward("stream_triad", a, b)
-    if not _route(a, "stream_triad"):
-        return stream_triad_plain(a, b, alpha)
-    o = stream_triad_fwd(a, b, alpha)
-    _count("stream_triad")
-    return o
+    return _triad_op(a, b, float(alpha))
 
 
 class _FlashTrainable(torch.autograd.Function):

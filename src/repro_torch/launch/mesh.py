@@ -22,7 +22,11 @@ function called without a process group raises.
 
 The reference's ambient mesh (``with mesh:``) is :func:`use`: model code
 that groups work by the mesh's batch degree (``models/moe.py``) reads
-:func:`active`.  The reference's v5e hardware constants are left out.
+:func:`active`.
+
+The hardware constants at the end are one H100 SXM5's, in the place of
+the reference's v5e ones; ``analysis/roofline.py`` and the kernel table's
+bounds (``chip_smoke.py``) read the same peak and HBM figures.
 """
 
 from __future__ import annotations
@@ -93,7 +97,8 @@ def make_mesh_shape(shape: Sequence[int], axes: Sequence[str],
                     device_type: str = "cuda") -> Any:
     """A ``DeviceMesh`` of ``shape`` named ``axes`` over the first
     ``prod(shape)`` ranks of the process group (every rank must call it,
-    members or not: it creates the per-axis groups)."""
+    members or not: it creates the per-axis groups).  A ``fake`` process
+    group (the dry run's) takes either device type."""
     from torch.distributed.device_mesh import DeviceMesh
 
     shape, axes = tuple(int(n) for n in shape), tuple(axes)
@@ -104,7 +109,7 @@ def make_mesh_shape(shape: Sequence[int], axes: Sequence[str],
         raise ValueError(f"a {shape} mesh needs {n} ranks; the process group "
                          f"has {world}")
     backend = dist.get_backend()
-    if BACKENDS.get(device_type) != backend:
+    if backend != "fake" and BACKENDS.get(device_type) != backend:
         raise ValueError(f"a {device_type} mesh over a {backend} process group")
     return DeviceMesh(device_type, torch.arange(n).reshape(shape), mesh_dim_names=axes)
 
@@ -158,3 +163,15 @@ def replicating() -> contextlib.AbstractContextManager:
     if getattr(DTensor._op_dispatcher, "_allow_implicit_replication", False):
         return contextlib.nullcontext()
     return implicit_replication()
+
+
+# ------------------------------------------------- H100 hardware constants
+POD_SIZE = 256  # ranks per pod (16×16), as in the reference; dist/hlo_analysis
+                # classifies a collective whose group spans pods as cross-pod
+PEAK_FLOPS_BF16 = 989e12  # per GPU, dense bf16 (NVIDIA H100 SXM5 data sheet)
+HBM_BW = 3.35e12  # bytes/s per GPU (NVIDIA H100 SXM5 data sheet, HBM3)
+ICI_BW = 50e9  # bytes/s per GPU within a pod: a 256-rank pod spans 32
+               # eight-GPU nodes, so its rings cross NDR InfiniBand, 400 Gb/s
+               # a GPU (NVIDIA ConnectX-7 / DGX H100 documentation)
+DCI_BW = 25e9  # bytes/s per GPU across pods: the reference's documented
+               # assumption, kept as one

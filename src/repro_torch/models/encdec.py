@@ -30,14 +30,12 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dist.plan import ShardingPlan
 from repro_torch.models import layers as Lx
 from repro_torch.models.params import ParamSpec, TensorSpec
-from repro_torch.models.transformer import (attn_specs, layer_params, mlp_specs,
-                                            unbind_layers, unembed)
+from repro_torch.models.transformer import attn_specs, mlp_specs, stack_slices, unembed
 
 Params = Dict[str, torch.Tensor]
 
@@ -76,31 +74,36 @@ def encdec_param_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     return specs
 
 
-def _stack(params: Params, prefix: str) -> Params:
-    """The stacked per-layer params of one stack, without its final norm."""
-    return {k: v for k, v in params.items()
-            if k.startswith(prefix) and k != f"{prefix}final_ln"}
+def _layers(cfg: ModelConfig, params: Params, prefix: str,
+            plan: Optional[ShardingPlan]):
+    """The encoder's (``enc/``) or decoder's (``dec/``) layer params, each
+    at its gather point (``stack_slices``)."""
+    L = cfg.enc_layers if prefix == "enc/" else cfg.dec_layers
+    return stack_slices(encdec_param_specs(cfg), params, prefix, L, plan)
 
 
 # ------------------------------------------------------------------ blocks
-def _cross_kv(cfg: ModelConfig, lp: Params, y_enc: torch.Tensor
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The cross-attention's K/V (B, S_enc, KV, Dh) from the encoder output."""
+def _cross_kv(cfg: ModelConfig, lp: Params, y_enc: torch.Tensor,
+              plan: Optional[ShardingPlan] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The cross-attention's K/V (B, S_enc, KV, Dh) from the encoder output,
+    batch-sharded with heads replicated on a mesh."""
     B, Se, _ = y_enc.shape
     KV, Dh = cfg.num_kv_heads, cfg.head_dim
-    return (Lx._proj(cfg, y_enc, lp, "x", "k").reshape(B, Se, KV, Dh),
-            Lx._proj(cfg, y_enc, lp, "x", "v").reshape(B, Se, KV, Dh))
+    return tuple(Lx.rows(plan, Lx._proj(cfg, y_enc, lp, "x", n)).reshape(B, Se, KV, Dh)
+                 for n in "kv")
 
 
 def _cross_attention(cfg: ModelConfig, x: torch.Tensor, lp: Params,
-                     xk: torch.Tensor, xv: torch.Tensor) -> torch.Tensor:
+                     xk: torch.Tensor, xv: torch.Tensor,
+                     plan: Optional[ShardingPlan] = None) -> torch.Tensor:
     """Full-sequence cross-attention: queries x (B,Sd,D), K/V from the
     encoder (no mask)."""
     B, Sd, _ = x.shape
     H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = Lx._proj(cfg, x, lp, "x", "q").reshape(B, Sd, KV, H // KV, Dh)
+    q = Lx.rows(plan, Lx._proj(cfg, x, lp, "x", "q")).reshape(B, Sd, KV, H // KV, Dh)
     o = Lx.sdpa(q, xk, xv, 1.0 / math.sqrt(Dh))
-    return o.reshape(B, Sd, H * Dh) @ lp["xwo"].to(Lx.cdtype(cfg))
+    return Lx.residual(plan, Lx.rows(plan, o.reshape(B, Sd, H * Dh))
+                       @ lp["xwo"].to(Lx.cdtype(cfg)))
 
 
 def _enc_layer(cfg: ModelConfig, x: torch.Tensor, lp: Params, positions: torch.Tensor,
@@ -108,7 +111,7 @@ def _enc_layer(cfg: ModelConfig, x: torch.Tensor, lp: Params, positions: torch.T
     h = Lx.norm(cfg, x, lp["ln1"])
     x = x + Lx.attention(cfg, h, lp, "", positions, causal=False, plan=plan)
     h = Lx.norm(cfg, x, lp["ln2"])
-    return x + Lx.mlp(cfg, h, lp, "")
+    return x + Lx.mlp(cfg, h, lp, "", plan)
 
 
 def _dec_layer(cfg: ModelConfig, x: torch.Tensor, lp: Params, y_enc: torch.Tensor,
@@ -122,10 +125,10 @@ def _dec_layer(cfg: ModelConfig, x: torch.Tensor, lp: Params, y_enc: torch.Tenso
     h, kv = out if collect_kv else (out, None)
     x = x + h
     h = Lx.norm(cfg, x, lp["lnx"])
-    xk, xv = _cross_kv(cfg, lp, y_enc)
-    x = x + _cross_attention(cfg, h, lp, xk, xv)
+    xk, xv = _cross_kv(cfg, lp, y_enc, plan)
+    x = x + _cross_attention(cfg, h, lp, xk, xv, plan)
     h = Lx.norm(cfg, x, lp["ln2"])
-    x = x + Lx.mlp(cfg, h, lp, "")
+    x = x + Lx.mlp(cfg, h, lp, "", plan)
     return x, (kv + (xk, xv) if collect_kv else None)
 
 
@@ -134,26 +137,27 @@ def _encoder(cfg: ModelConfig, params: Params, enc_x: torch.Tensor,
     B, Se, D = enc_x.shape
     dt = Lx.cdtype(cfg)
     pos = Lx.sinusoidal_positions(Se, D, enc_x.device)
-    x = enc_x.to(dt) + pos[None].to(dt)
+    x = Lx.constrain(plan, enc_x.to(dt) + pos[None].to(dt), ("batch", "seq", None))
     positions = torch.arange(Se, dtype=torch.int32, device=x.device)
     body = Lx.remat_wrap(plan, functools.partial(_enc_layer, cfg, positions=positions,
                                                  plan=plan))
-    for lp in unbind_layers(_stack(params, "enc/"), cfg.enc_layers, "enc/"):
+    for lp in _layers(cfg, params, "enc/", plan):
         x = body(x, lp)
     return Lx.norm(cfg, x, params["enc/final_ln"])
 
 
-def _decoder_input(cfg: ModelConfig, params: Params, dec_tokens: torch.Tensor
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _decoder_input(cfg: ModelConfig, params: Params, dec_tokens: torch.Tensor,
+                   plan: Optional[ShardingPlan] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Token embeddings plus learned positions 0..Sd-1, and those positions."""
     Sd = dec_tokens.shape[1]
-    x = Lx.embed(cfg, params["tok_embed"], dec_tokens)
-    x = x + params["pos_embed"][:Sd][None].to(x.dtype)
+    x = Lx.embed(cfg, params["tok_embed"], dec_tokens, plan)
+    x = x + Lx.whole(plan, params["pos_embed"])[:Sd][None].to(x.dtype)
     return x, torch.arange(Sd, dtype=torch.int32, device=x.device)
 
 
-def _logits(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
-    return unembed(cfg, params, Lx.norm(cfg, x, params["dec/final_ln"]))
+def _logits(cfg: ModelConfig, params: Params, x: torch.Tensor,
+            plan: Optional[ShardingPlan] = None) -> torch.Tensor:
+    return unembed(cfg, params, Lx.norm(cfg, x, params["dec/final_ln"]), plan)
 
 
 # ------------------------------------------------------------------ forward
@@ -163,12 +167,13 @@ def forward(cfg: ModelConfig, params: Params, enc_x: torch.Tensor,
     """enc_x: (B, S_enc, D) stub embeddings; dec_tokens: (B, S_dec) →
     (logits fp32 (B, S_dec, V), a zero aux loss)."""
     y_enc = _encoder(cfg, params, enc_x, plan)
-    x, positions = _decoder_input(cfg, params, dec_tokens)
+    x, positions = _decoder_input(cfg, params, dec_tokens, plan)
     body = Lx.remat_wrap(plan, functools.partial(_dec_layer, cfg, positions=positions,
                                                  plan=plan))
-    for lp in unbind_layers(_stack(params, "dec/"), cfg.dec_layers, "dec/"):
+    for lp in _layers(cfg, params, "dec/", plan):
         x, _ = body(x, lp, y_enc)
-    return _logits(cfg, params, x), torch.zeros((), dtype=torch.float32, device=x.device)
+    return _logits(cfg, params, x, plan), torch.zeros((), dtype=torch.float32,
+                                                      device=x.device)
 
 
 def loss_fn(cfg: ModelConfig, plan: ShardingPlan, params: Params,
@@ -194,49 +199,55 @@ def init_cache_specs(cfg: ModelConfig, batch: int, cache_len: int,
             "pos": TensorSpec((batch,), torch.int32)}
 
 
+def cache_axes(cfg: ModelConfig) -> Dict[str, Tuple]:
+    """Logical axes of each decode-cache field."""
+    ax = ("layers", "batch", "kv_seq", "kv_heads", None)
+    return {"k": ax, "v": ax, "xk": ax, "xv": ax, "pos": ("batch",)}
+
+
 def prefill(cfg: ModelConfig, params: Params, enc_x: torch.Tensor,
-            dec_tokens: torch.Tensor, cache_len: Optional[int] = None
+            dec_tokens: torch.Tensor, cache_len: Optional[int] = None,
+            plan: Optional[ShardingPlan] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Encoder pass + decoder prefill → (last logits (B, V) fp32, cache)."""
     B, Sd = dec_tokens.shape
     T = cache_len or Sd
     if T < Sd:
         raise ValueError(f"cache_len {T} shorter than the prompt {Sd}")
-    y_enc = _encoder(cfg, params, enc_x)
-    x, positions = _decoder_input(cfg, params, dec_tokens)
+    y_enc = _encoder(cfg, params, enc_x, plan)
+    x, positions = _decoder_input(cfg, params, dec_tokens, plan)
     kvs = []
-    dec = _stack(params, "dec/")
-    for i in range(cfg.dec_layers):
-        x, kv = _dec_layer(cfg, x, layer_params(dec, i, "dec/"), y_enc, positions,
-                           collect_kv=True)
+    for lp in _layers(cfg, params, "dec/", plan):
+        x, kv = _dec_layer(cfg, x, lp, y_enc, positions, collect_kv=True, plan=plan)
         kvs.append(kv)
     dt = Lx.cdtype(cfg)
     k, v, xk, xv = (torch.stack(t).to(dt) for t in zip(*kvs))
-    pad = (0, 0, 0, 0, 0, T - Sd)  # zero-fill positions Sd..T-1
-    cache = {"k": F.pad(k, pad), "v": F.pad(v, pad), "xk": xk, "xv": xv,
+    # zero-fill positions Sd..T-1
+    cache = {"k": Lx.pad_cache(k, T), "v": Lx.pad_cache(v, T), "xk": xk, "xv": xv,
              "pos": torch.full((B,), Sd, dtype=torch.int32, device=x.device)}
-    return _logits(cfg, params, x[:, -1:, :])[:, 0, :], cache
+    return _logits(cfg, params, x[:, -1:, :], plan)[:, 0, :], cache
 
 
 def decode_step(cfg: ModelConfig, params: Params, cache: Dict[str, torch.Tensor],
-                token: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                token: torch.Tensor, plan: Optional[ShardingPlan] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decoder token against the self K/V (written in place) and the
     fixed cross K/V.  token: (B, 1) → (logits (B, V) fp32, new cache)."""
     pos = cache["pos"]
-    x = Lx.embed(cfg, params["tok_embed"], token)
-    x = x + params["pos_embed"].index_select(0, pos.long())[:, None, :].to(x.dtype)
-    dec = _stack(params, "dec/")
-    for i in range(cfg.dec_layers):
-        lp = layer_params(dec, i, "dec/")
+    x = Lx.embed(cfg, params["tok_embed"], token, plan)
+    x = x + Lx.whole(plan, params["pos_embed"]).index_select(0, pos.long())[:, None, :].to(
+        x.dtype)
+    for i, lp in enumerate(_layers(cfg, params, "dec/", plan)):
         h = Lx.norm(cfg, x, lp["ln1"])
-        h, _, _ = Lx.decode_attention(cfg, h, lp, "", cache["k"][i], cache["v"][i], pos)
+        h, _, _ = Lx.decode_attention(cfg, h, lp, "", cache["k"][i], cache["v"][i], pos,
+                                      plan=plan)
         x = x + h
         h = Lx.norm(cfg, x, lp["lnx"])
         h, _, _ = Lx.decode_attention(cfg, h, lp, "x", cache["xk"][i], cache["xv"][i],
-                                      pos, cross=True)
+                                      pos, cross=True, plan=plan)
         x = x + h
         h = Lx.norm(cfg, x, lp["ln2"])
-        x = x + Lx.mlp(cfg, h, lp, "")
+        x = x + Lx.mlp(cfg, h, lp, "", plan)
     new_cache = dict(cache)
     new_cache["pos"] = pos + 1
-    return _logits(cfg, params, x)[:, 0, :], new_cache
+    return _logits(cfg, params, x, plan)[:, 0, :], new_cache

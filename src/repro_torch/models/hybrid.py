@@ -22,8 +22,7 @@ from repro_torch.dist.plan import ShardingPlan
 from repro_torch.models import layers as Lx
 from repro_torch.models.params import ParamSpec, TensorSpec
 from repro_torch.models.rglru import rec_block, rec_block_decode, rec_param_specs
-from repro_torch.models.transformer import (attn_specs, layer_params, logits, mlp_specs,
-                                            unbind_layers)
+from repro_torch.models.transformer import attn_specs, logits, mlp_specs, stack_slices
 
 Params = Dict[str, torch.Tensor]
 
@@ -54,18 +53,19 @@ def hybrid_param_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     return specs
 
 
-def _mlp_res(cfg: ModelConfig, x: torch.Tensor, lp: Params, prefix: str) -> torch.Tensor:
+def _mlp_res(cfg: ModelConfig, x: torch.Tensor, lp: Params, prefix: str,
+             plan: Optional[ShardingPlan] = None) -> torch.Tensor:
     h = Lx.norm(cfg, x, lp[f"{prefix}ln2"])
-    return x + Lx.mlp(cfg, h, lp, prefix)
+    return x + Lx.mlp(cfg, h, lp, prefix, plan)
 
 
 def _rec_with_state(cfg: ModelConfig, x: torch.Tensor, lp: Params, prefix: str,
-                    collect: bool):
+                    collect: bool, plan: Optional[ShardingPlan] = None):
     """rec_block + MLP, with ``collect`` also (conv_state, h_final): the
     final carry is the last step's h, ``hseq[:, -1]``."""
-    out = rec_block(cfg, x, lp, prefix, collect_state=collect)
+    out = rec_block(cfg, x, lp, prefix, collect_state=collect, plan=plan)
     x, state = out if collect else (out, None)
-    return _mlp_res(cfg, x, lp, prefix), state
+    return _mlp_res(cfg, x, lp, prefix, plan), state
 
 
 def _attn_with_kv(cfg: ModelConfig, x: torch.Tensor, lp: Params, prefix: str,
@@ -78,24 +78,49 @@ def _attn_with_kv(cfg: ModelConfig, x: torch.Tensor, lp: Params, prefix: str,
     out = Lx.attention(cfg, h, lp, prefix, positions, causal=True,
                        window=cfg.window, return_kv=collect, plan=plan)
     h_attn, kv = out if collect else (out, None)
-    x = _mlp_res(cfg, x + h_attn, lp, prefix)
+    x = _mlp_res(cfg, x + h_attn, lp, prefix, plan)
     if collect:
         k, v = kv
         S = k.shape[1]
         W = min(cfg.window, S)
-        kv = tuple(torch.roll(t[:, S - W:], shifts=S % W, dims=1) for t in (k, v))
+        kv = tuple(_ring(t[:, S - W:], S % W) for t in (k, v))
     return x, kv
 
 
-def _groups(cfg: ModelConfig, params: Params):
+def _ring(t: torch.Tensor, shift: int) -> torch.Tensor:
+    """``torch.roll(t, shift, dims=1)`` as two slices and a cat, which
+    DTensor places on every torch release (not all have a rule for roll)."""
+    if shift == 0:
+        return t
+    W = t.shape[1]
+    return torch.cat([t[:, W - shift:], t[:, :W - shift]], dim=1)
+
+
+def _groups(cfg: ModelConfig, params: Params, plan: Optional[ShardingPlan] = None):
+    """The (rec, rec, attn) groups' and the tail layers' params, each at
+    its gather point (``stack_slices``)."""
     G, tail = _pattern(cfg)
-    return ([layer_params(params, g, "grp/") for g in range(G)],
-            [layer_params(params, t, "tail/") for t in range(tail)])
+    specs = hybrid_param_specs(cfg)
+    return (stack_slices(specs, params, "grp/", G, plan),
+            stack_slices(specs, params, "tail/", tail, plan) if tail else [])
 
 
-def _embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor) -> torch.Tensor:
-    x = Lx.embed(cfg, params["tok_embed"], tokens)
+def _embed(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+           plan: Optional[ShardingPlan] = None) -> torch.Tensor:
+    x = Lx.embed(cfg, params["tok_embed"], tokens, plan)
     return x * math.sqrt(cfg.d_model)  # gemma-style embedding scale
+
+
+def _group_with_state(cfg: ModelConfig, x: torch.Tensor, lp: Params,
+                      positions: torch.Tensor, collect: bool,
+                      plan: Optional[ShardingPlan]):
+    """One (rec, rec, attn) group on its batch-sharded input; with
+    ``collect`` also its states (the two rec layers', the ring's K/V)."""
+    x = Lx.constrain(plan, x, ("batch", "seq", None))
+    x, sa = _rec_with_state(cfg, x, lp, "ra/", collect, plan)
+    x, sb = _rec_with_state(cfg, x, lp, "rb/", collect, plan)
+    x, kv = _attn_with_kv(cfg, x, lp, "at/", positions, collect, plan=plan)
+    return x, (sa, sb, kv)
 
 
 def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
@@ -103,23 +128,18 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     """tokens: (B, S) → (logits fp32 (B,S,V), aux_loss 0).  Each (rec,
     rec, attn) group and each tail layer runs under the plan's remat
     policy (``Lx.remat_wrap``), as the reference wraps its scan bodies."""
-    x = _embed(cfg, params, tokens)
+    x = _embed(cfg, params, tokens, plan)
     positions = torch.arange(tokens.shape[1], dtype=torch.int32, device=x.device)
-    G, tail = _pattern(cfg)
-
-    def group(x, lp):
-        x, _ = _rec_with_state(cfg, x, lp, "ra/", False)
-        x, _ = _rec_with_state(cfg, x, lp, "rb/", False)
-        return _attn_with_kv(cfg, x, lp, "at/", positions, False, plan=plan)[0]
-
-    group = Lx.remat_wrap(plan, group)
-    rec = Lx.remat_wrap(plan, lambda x, lp: _rec_with_state(cfg, x, lp, "", False)[0])
-    for lp in unbind_layers(params, G, "grp/"):
+    groups, tails = _groups(cfg, params, plan)
+    group = Lx.remat_wrap(
+        plan, lambda x, lp: _group_with_state(cfg, x, lp, positions, False, plan)[0])
+    rec = Lx.remat_wrap(plan, lambda x, lp: _rec_with_state(cfg, x, lp, "", False, plan)[0])
+    for lp in groups:
         x = group(x, lp)
-    for lp in unbind_layers(params, tail, "tail/"):
+    for lp in tails:
         x = rec(x, lp)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return logits(cfg, params, x), aux
+    return logits(cfg, params, x, plan), aux
 
 
 def loss_fn(cfg: ModelConfig, plan: ShardingPlan, params: Params,
@@ -154,63 +174,74 @@ def init_cache_specs(cfg: ModelConfig, batch: int,
     return specs
 
 
+def cache_axes(cfg: ModelConfig) -> Dict[str, Tuple]:
+    """Logical axes of each decode-cache field."""
+    kv = ("layers", "batch", "kv_seq", "kv_heads", None)
+    out = {"conv_a": ("layers", "batch", None, "lru"), "h_a": ("layers", "batch", "lru"),
+           "conv_b": ("layers", "batch", None, "lru"), "h_b": ("layers", "batch", "lru"),
+           "k": kv, "v": kv, "pos": ("batch",)}
+    if _pattern(cfg)[1]:
+        out["tail_conv"] = ("layers", "batch", None, "lru")
+        out["tail_h"] = ("layers", "batch", "lru")
+    return out
+
+
 def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
-            cache_len: Optional[int] = None
+            cache_len: Optional[int] = None, plan: Optional[ShardingPlan] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """tokens: (B, S) at their exact length → (last-position logits (B, V)
     fp32, cache).  The ring is zero-padded past S when the prompt is
     shorter than the window."""
     B, S = tokens.shape
     dev = tokens.device
-    x = _embed(cfg, params, tokens)
+    x = _embed(cfg, params, tokens, plan)
     positions = torch.arange(S, dtype=torch.int32, device=dev)
-    groups, tails = _groups(cfg, params)
+    groups, tails = _groups(cfg, params, plan)
     col = {n: [] for n in ("conv_a", "h_a", "conv_b", "h_b", "k", "v",
                            "tail_conv", "tail_h")}
     for lp in groups:
-        x, (ca, ha) = _rec_with_state(cfg, x, lp, "ra/", True)
-        x, (cb, hb) = _rec_with_state(cfg, x, lp, "rb/", True)
-        x, (kw, vw) = _attn_with_kv(cfg, x, lp, "at/", positions, True)
+        x, ((ca, ha), (cb, hb), (kw, vw)) = _group_with_state(cfg, x, lp, positions,
+                                                              True, plan)
         for n, t in (("conv_a", ca), ("h_a", ha), ("conv_b", cb), ("h_b", hb),
                      ("k", kw), ("v", vw)):
             col[n].append(t)
     for lp in tails:
-        x, (cs, hs) = _rec_with_state(cfg, x, lp, "", True)
+        x, (cs, hs) = _rec_with_state(cfg, x, lp, "", True, plan)
         col["tail_conv"].append(cs)
         col["tail_h"].append(hs)
     specs = init_cache_specs(cfg, B)
     cache = {n: torch.stack(ts).to(specs[n].dtype) for n, ts in col.items() if ts}
     if S < cfg.window:  # pad the window ring past the prompt
-        pad = (0, 0, 0, 0, 0, cfg.window - S)
-        cache["k"] = torch.nn.functional.pad(cache["k"], pad)
-        cache["v"] = torch.nn.functional.pad(cache["v"], pad)
+        cache["k"] = Lx.pad_cache(cache["k"], cfg.window)
+        cache["v"] = Lx.pad_cache(cache["v"], cfg.window)
     cache["pos"] = torch.full((B,), S, dtype=torch.int32, device=dev)
-    return logits(cfg, params, x[:, -1:, :])[:, 0, :], cache
+    return logits(cfg, params, x[:, -1:, :], plan)[:, 0, :], cache
 
 
 def decode_step(cfg: ModelConfig, params: Params, cache: Dict[str, torch.Tensor],
-                token: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                token: torch.Tensor, plan: Optional[ShardingPlan] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decode step. token: (B, 1) → (logits (B,V) fp32, new cache); the
     states and the ring are updated in place."""
     pos = cache["pos"]
-    x = _embed(cfg, params, token)
-    groups, tails = _groups(cfg, params)
+    x = _embed(cfg, params, token, plan)
+    groups, tails = _groups(cfg, params, plan)
 
     def rec(x, lp, prefix, conv, h):
-        x, new_conv, new_h = rec_block_decode(cfg, x, lp, prefix, conv, h)
+        x, new_conv, new_h = rec_block_decode(cfg, x, lp, prefix, conv, h, plan)
         conv.copy_(new_conv)
         h.copy_(new_h)
-        return _mlp_res(cfg, x, lp, prefix)
+        return _mlp_res(cfg, x, lp, prefix, plan)
 
     for g, lp in enumerate(groups):
         x = rec(x, lp, "ra/", cache["conv_a"][g], cache["h_a"][g])
         x = rec(x, lp, "rb/", cache["conv_b"][g], cache["h_b"][g])
         h = Lx.norm(cfg, x, lp["at/ln1"])
         h, _, _ = Lx.decode_attention(cfg, h, lp, "at/", cache["k"][g], cache["v"][g],
-                                      pos, window=cfg.window)
-        x = _mlp_res(cfg, x + h, lp, "at/")
+                                      pos, window=cfg.window, plan=plan)
+        x = _mlp_res(cfg, x + h, lp, "at/", plan)
     for t, lp in enumerate(tails):
         x = rec(x, lp, "", cache["tail_conv"][t], cache["tail_h"][t])
     new_cache = dict(cache)
     new_cache["pos"] = pos + 1
-    return logits(cfg, params, x)[:, 0, :], new_cache
+    return logits(cfg, params, x, plan)[:, 0, :], new_cache

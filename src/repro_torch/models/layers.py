@@ -15,19 +15,24 @@ training attention through ``ops.flash_attention_trainable``, whose
 backward is PyTorch math.
 
 On a mesh the tensors are DTensors and the reference's constraints
-(``plan.constrain``) redistribute them at the same training and prefill
-places: the embedding and q/k/v batch-sharded with heads and sequence
-replicated, the logits vocab-sharded.  A kernel reads raw
-pointers, so it sees each rank's local shard through ``local_map``
-(:func:`local_flash`); with q/k/v sharded on the batch alone that is
-exact.  Without a mesh every constraint is the identity.  Of a plan the
-layers also read ``bf16_boundaries`` and ``remat_policy`` (a plan of
-``None`` sets neither, and constrains nothing).
+(``plan.constrain``) redistribute them at the same training, prefill and
+decode places: the embedding and q/k/v batch-sharded with heads and
+sequence replicated, the logits vocab-sharded; a sublayer's output is
+reduced into the residual stream's placement (:func:`residual`).  A
+kernel reads raw pointers, so it sees each rank's local shards through
+``local_map`` (:func:`on_shards`): batch and kv-head shards, along which
+its rows are independent, so that is exact.  So do the few ops that
+DTensor does not place on every torch release (the embedding lookup,
+the loss's gold logit, cache padding).  Without a mesh every constraint
+is the identity.  Of a plan the layers also read ``bf16_boundaries`` and
+``remat_policy`` (a plan of ``None`` sets neither, and constrains
+nothing).
 """
 
 from __future__ import annotations
 
 import functools
+import math
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -53,6 +58,26 @@ def cdtype(cfg: ModelConfig) -> torch.dtype:
 def constrain(plan: Optional[ShardingPlan], x: torch.Tensor, axes) -> torch.Tensor:
     """``plan.constrain(x, axes)``; the identity without a plan."""
     return x if plan is None else plan.constrain(x, axes)
+
+
+def rows(plan: Optional[ShardingPlan], x: torch.Tensor) -> torch.Tensor:
+    """``x`` sharded on its batch dim (dim 0) alone, every other dim
+    replicated, in the forward and in the backward: where a model-sharded
+    projection splits into parts or heads, or parts merge back (DTensor
+    cannot split a dim its shards cut unevenly, and a gradient may arrive
+    sharded where the forward was not)."""
+    x = constrain(plan, x, ("batch",) + (None,) * (x.dim() - 1))
+    if not isinstance(x, DTensor):
+        return x
+    pl = x.placements
+    return DTensor.from_local(x.to_local(grad_placements=pl), x.device_mesh, pl,
+                              run_check=False, shape=x.shape, stride=x.stride())
+
+
+def whole(plan: Optional[ShardingPlan], x: torch.Tensor) -> torch.Tensor:
+    """``x`` replicated on every rank (a weight that a batch-sharded op
+    reads whole, such as a depthwise conv's)."""
+    return constrain(plan, x, (None,) * x.dim())
 
 
 # ------------------------------------------------------------------- norms
@@ -130,15 +155,26 @@ def act_fn(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------- mlp
-def mlp(cfg: ModelConfig, x: torch.Tensor, p: Params, prefix: str) -> torch.Tensor:
-    """Gated (SwiGLU/GeGLU) or plain 2-layer MLP. Weights: w_in/w_gate/w_out."""
+def mlp(cfg: ModelConfig, x: torch.Tensor, p: Params, prefix: str,
+        plan: Optional[ShardingPlan] = None) -> torch.Tensor:
+    """Gated (SwiGLU/GeGLU) or plain 2-layer MLP. Weights: w_in/w_gate/w_out.
+    On a mesh its output is reduced into the residual stream's placement
+    (:func:`residual`)."""
     dt = cdtype(cfg)
     h = x @ p[f"{prefix}w_in"].to(dt)
     if cfg.glu:
         h = act_fn(cfg, x @ p[f"{prefix}w_gate"].to(dt)) * h
     else:
         h = act_fn(cfg, h)
-    return h @ p[f"{prefix}w_out"].to(dt)
+    return residual(plan, h @ p[f"{prefix}w_out"].to(dt))
+
+
+def residual(plan: Optional[ShardingPlan], y: torch.Tensor) -> torch.Tensor:
+    """A sublayer's output (B, S, D) in the residual stream's placement,
+    ``("batch", "seq_sp", None)``: a model-sharded output projection
+    leaves partial sums, which this reduces before the next norm reads
+    them (DTensor would otherwise carry them through the residual add)."""
+    return constrain(plan, y, ("batch", "seq_sp", None))
 
 
 # --------------------------------------------------------------- attention
@@ -163,21 +199,21 @@ def attention(cfg: ModelConfig, x: torch.Tensor, p: Params, prefix: str,
     dt = cdtype(cfg)
     B, S, _ = x.shape
     H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = _proj(cfg, x, p, prefix, "q").reshape(B, S, H, Dh)
-    k = _proj(cfg, x, p, prefix, "k").reshape(B, S, KV, Dh)
-    v = _proj(cfg, x, p, prefix, "v").reshape(B, S, KV, Dh)
+    # the reference's q/k/v constraints (batch-sharded, heads replicated),
+    # moved ahead of the split into heads: a shard of the model axis need
+    # not hold whole heads, and DTensor cannot split a dim cut unevenly
+    q, k, v = (constrain(plan, _proj(cfg, x, p, prefix, n), ("batch", "seq", None))
+               for n in "qkv")
+    q, k, v = q.reshape(B, S, H, Dh), k.reshape(B, S, KV, Dh), v.reshape(B, S, KV, Dh)
     if cfg.rope:
         cos, sin = rope_tables(cfg, positions, Dh)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
     if getattr(plan, "bf16_boundaries", False):
         q, k, v = bf16_cotangent(q), bf16_cotangent(k), bf16_cotangent(v)
-    q = constrain(plan, q.reshape(B, S, KV, H // KV, Dh),
-                  ("batch", "seq", None, None, None)).reshape(B, S, H, Dh)
-    k = constrain(plan, k, ("batch", "seq", None, None))
-    v = constrain(plan, v, ("batch", "seq", None, None))
-    o = local_flash(q, k, v, causal, window)
-    out = o.reshape(B, S, H * Dh) @ p[f"{prefix}wo"].to(dt)
+    # the output projection row-parallel: o's heads sharded as wo's rows
+    o = constrain(plan, local_flash(q, k, v, causal, window), ("batch", "seq", "heads"))
+    out = residual(plan, o @ p[f"{prefix}wo"].to(dt))
     if return_kv:
         return out, (k, v)
     return out
@@ -185,25 +221,97 @@ def attention(cfg: ModelConfig, x: torch.Tensor, p: Params, prefix: str,
 
 def local_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 causal: bool, window: int) -> torch.Tensor:
-    """``ops.flash_attention_trainable`` — on DTensors through ``local_map``:
-    each rank runs the kernel (and its backward) on its local q/k/v, and
-    the output carries q's placements.  That is exact only while q, k and
-    v are sharded on the batch dim alone, so any other placement raises."""
-    if not isinstance(q, DTensor):
-        return ops.flash_attention_trainable(q, k, v, causal, window)
-    for t in (q, k, v):
-        if not isinstance(t, DTensor) or t.device_mesh != q.device_mesh or any(
-                isinstance(pl, Partial) or (isinstance(pl, Shard) and pl.dim != 0)
-                for pl in t.placements):
-            raise ValueError(f"flash attention on a mesh needs q/k/v sharded on "
-                             f"the batch alone; got {getattr(t, 'placements', t)}")
-    if list(k.placements) != list(q.placements) or list(v.placements) != list(q.placements):
-        raise ValueError("flash attention on a mesh needs q, k and v on the same "
-                         "batch shards")
-    pl = list(q.placements)  # a list: local_map reads a tuple as one per output
-    fn = local_map(ops.flash_attention_trainable, out_placements=pl,
-                   in_placements=(pl, pl, pl, None, None), device_mesh=q.device_mesh)
-    return fn(q, k, v, causal, window)
+    """``ops.flash_attention_trainable`` on q (B,S,H,Dh), k/v (B,S,KV,Dh),
+    its output flattened to (B,S,H·Dh) — on DTensors through
+    :func:`on_shards`: each rank runs the kernel (and its backward) on its
+    batch shard, and the flattening happens there too, so its backward
+    never splits a dim that the model axis shards."""
+    def fn(q, k, v):
+        B, S, H, Dh = q.shape
+        return ops.flash_attention_trainable(q, k, v, causal, window).reshape(B, S, H * Dh)
+
+    return on_shards(fn, (q, k, v), (BATCH, BATCH, BATCH), BATCH)
+
+
+# the roles of a tensor's dims at a kernel boundary: (batch dim, head dim)
+BATCH = (0, None)
+ROWS_HEADS = (0, 1)   # (B, heads, Dh): one token's q, k, v or output
+CACHE = (0, 2)        # (B, T, KV, Dh): a dense cache, one layer's slice
+POOL = (None, 2)      # (P, page, KV, Dh): a block pool, every rank's own pages
+SUM = "sum"           # an output that is each rank's partial sum
+STACKED = (1, 3)      # (L, B, T, KV, Dh): a stack of layers' caches
+
+
+def on_shards(fn: Callable, args: Tuple, roles: Tuple, out_roles,
+              inplace: Tuple[int, ...] = ()):
+    """``fn(*args)`` with a kernel inside, on plain tensors: each rank runs
+    it on its own shards (``local_map``).  ``roles[i]`` is ``(batch dim,
+    head dim)`` of ``args[i]`` (either may be None; None for a non-tensor
+    argument), ``out_roles`` the same for the output (a list for a tuple
+    of outputs; :data:`SUM` for a sum over the rank's rows, a partial sum
+    across ranks).  A kernel's rows are independent along both, so a shard
+    of either is exact.
+
+    The first argument leads: each mesh dim that shards its batch dim
+    shards every argument's batch dim, each mesh dim that shards its head
+    dim shards every head dim, and every other mesh dim replicates (the
+    arguments are redistributed to that; plain tensors are taken as
+    replicated).  An argument without the dim a mesh dim shards is
+    replicated over it, and its gradient there is a partial sum.  An
+    argument in ``inplace`` is written by ``fn`` and must already have its
+    placements, since a redistribution would copy it: a cache sharded
+    along another dim (``kv_seq``) raises.  Without a DTensor argument it
+    is ``fn(*args)``."""
+    if not any(isinstance(a, DTensor) for a in args):
+        return fn(*args)
+    lead, (lb, lh) = args[0], roles[0]
+    mesh = next(a for a in args if isinstance(a, DTensor)).device_mesh
+    kinds = [None] * mesh.ndim  # per mesh dim: 0 batch, 1 heads, None neither
+    if isinstance(lead, DTensor):
+        for i, pl in enumerate(lead.placements):
+            if isinstance(pl, Shard) and pl.dim in (lb, lh):
+                kinds[i] = 0 if pl.dim == lb else 1
+
+    def want(role, grad=False):
+        if role is None:
+            role = (None, None)
+        return [Shard(role[k]) if k is not None and role[k] is not None
+                else Partial() if k is not None and grad else Replicate()
+                for k in kinds]
+
+    placed, ins, grads = [], [], []
+    for i, (a, r) in enumerate(zip(args, roles)):
+        if not isinstance(a, torch.Tensor):
+            placed.append(a)
+            ins.append(None)
+            grads.append(None)
+            continue
+        w = want(r)
+        if not isinstance(a, DTensor):
+            a = DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim, run_check=False)
+        if list(a.placements) != w:
+            if i in inplace:
+                raise ValueError(f"a kernel writes this tensor in place on its shards, "
+                                 f"which need placements {w}; got {list(a.placements)}")
+            a = a.redistribute(mesh, w)
+        placed.append(a)
+        ins.append(w)
+        grads.append(want(r, grad=True))
+    def out(role):
+        return ([Partial() if k is not None else Replicate() for k in kinds]
+                if role is SUM else want(role))
+
+    outs = (tuple(out(r) for r in out_roles) if isinstance(out_roles, list)
+            else out(out_roles))
+    return local_map(fn, out_placements=outs, in_placements=tuple(ins),
+                     in_grad_placements=tuple(grads), device_mesh=mesh)(*placed)
+
+
+def pad_cache(t: torch.Tensor, T: int) -> torch.Tensor:
+    """A stacked cache (L, B, S, KV, Dh) zero-filled to T positions, on
+    each rank's shards (not every torch release places a DTensor ``pad``)."""
+    pad = (0, 0, 0, 0, 0, T - t.shape[2])
+    return on_shards(lambda t: F.pad(t, pad), (t,), (STACKED,), STACKED)
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
@@ -219,22 +327,38 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> tor
 
 # ------------------------------------------------------------- decode attn
 def _decode_qkv(cfg: ModelConfig, x: torch.Tensor, p: Params, prefix: str,
-                pos: torch.Tensor):
-    """One token's q (B, H, Dh) and k/v (B, KV, Dh), RoPE at ``pos``."""
+                pos: torch.Tensor, plan: Optional[ShardingPlan] = None):
+    """One token's q (B, H, Dh) and k/v (B, KV, Dh), RoPE at ``pos``; on a
+    mesh the projections are batch-sharded with heads replicated before
+    they split into heads, as in :func:`attention`."""
     B = x.shape[0]
     H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = _proj(cfg, x, p, prefix, "q").reshape(B, H, Dh)
-    k = _proj(cfg, x, p, prefix, "k").reshape(B, KV, Dh)
-    v = _proj(cfg, x, p, prefix, "v").reshape(B, KV, Dh)
+    q, k, v = (constrain(plan, _proj(cfg, x[:, 0], p, prefix, n), ("batch", None))
+               for n in "qkv")
+    q, k, v = q.reshape(B, H, Dh), k.reshape(B, KV, Dh), v.reshape(B, KV, Dh)
     if cfg.rope:
         q = _rope_single(cfg, q, pos)
         k = _rope_single(cfg, k, pos)
     return q, k, v
 
 
+def _write_slot(k_cache: torch.Tensor, v_cache: torch.Tensor, k: torch.Tensor,
+                v: torch.Tensor, pos: torch.Tensor, window: int) -> torch.Tensor:
+    """Write one token's K/V at each row's slot (``pos mod T`` in a ring,
+    ``min(pos, T − 1)`` otherwise), in place; → the rows' lengths."""
+    B, T = k_cache.shape[:2]
+    pos_l = pos.long()
+    slot = pos_l % T if window > 0 else pos_l.clamp_max(T - 1)
+    rows = torch.arange(B, device=pos.device)
+    k_cache[rows, slot] = k.to(k_cache.dtype)
+    v_cache[rows, slot] = v.to(v_cache.dtype)
+    return (pos + 1).clamp_max(T).to(torch.int32)
+
+
 def decode_attention(cfg: ModelConfig, x: torch.Tensor, p: Params, prefix: str,
                      k_cache: torch.Tensor, v_cache: torch.Tensor, pos: torch.Tensor,
-                     window: int = 0, cross: bool = False
+                     window: int = 0, cross: bool = False,
+                     plan: Optional[ShardingPlan] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One-token attention against a dense KV cache, per-slot positions.
 
@@ -256,32 +380,105 @@ def decode_attention(cfg: ModelConfig, x: torch.Tensor, p: Params, prefix: str,
     tensors.  ``cross=True`` attends to a fixed encoder cache instead
     (the enc-dec decoder's cross-attention, weights ``{prefix}wq`` etc.):
     no cache write, RoPE on q only, and every row over all T positions.
+
+    On a mesh the write and the kernel run on each rank's shards
+    (:func:`on_shards`): the cache leads, sharded on its batch and
+    ``kv_heads`` dims (``cache_axes``); q and the new K/V follow it.  A
+    cache sharded over its positions too (``kv_seq``) takes the write on
+    the shard that holds the slot (:func:`_write_seq_shards`), and the
+    kernel reads it gathered over the positions (a copy a layer: the
+    kernel returns no log-sum-exp to combine partial softmaxes with).
     Returns (out (B,1,D), k_cache, v_cache).
     """
     B, T = x.shape[0], k_cache.shape[1]
+    H, Dh = cfg.num_heads, cfg.head_dim
     if cross:
-        q = _proj(cfg, x, p, prefix, "q").reshape(B, cfg.num_heads, cfg.head_dim)
+        q = constrain(plan, _proj(cfg, x[:, 0], p, prefix, "q"), ("batch", None))
+        q = q.reshape(B, H, Dh)
         if cfg.rope:
             q = _rope_single(cfg, q, pos)
-        lengths = torch.full((B,), T, dtype=torch.int32, device=x.device)
-        o = ops.decode_attention(q, k_cache, v_cache, lengths)
-        return o.reshape(B, 1, -1) @ p[f"{prefix}wo"].to(cdtype(cfg)), k_cache, v_cache
-    q, k, v = _decode_qkv(cfg, x, p, prefix, pos)
-    pos_l = pos.long()
-    slot = pos_l % T if window > 0 else pos_l.clamp_max(T - 1)
-    rows = torch.arange(B, device=pos.device)
-    k_cache[rows, slot] = k.to(k_cache.dtype)
-    v_cache[rows, slot] = v.to(v_cache.dtype)
-    lengths = (pos + 1).clamp_max(T).to(torch.int32)
-    o = ops.decode_attention(q, k_cache, v_cache, lengths)
-    return o.reshape(B, 1, -1) @ p[f"{prefix}wo"].to(cdtype(cfg)), k_cache, v_cache
+
+        def attend(kc, vc, q):
+            lengths = torch.full((q.shape[0],), kc.shape[1], dtype=torch.int32,
+                                 device=q.device)
+            return ops.decode_attention(q, kc, vc, lengths).reshape(q.shape[0], 1, -1)
+
+        o = on_shards(attend, (k_cache, v_cache, q), (CACHE, CACHE, ROWS_HEADS),
+                      (0, 2))
+        return residual(plan, o @ p[f"{prefix}wo"].to(cdtype(cfg))), k_cache, v_cache
+    q, k, v = _decode_qkv(cfg, x, p, prefix, pos, plan)
+    if _seq_dims(k_cache):
+        _write_seq_shards(k_cache, v_cache, k, v, pos, window)
+
+        def attend(kc, vc, q, pos):
+            lengths = (pos + 1).clamp_max(kc.shape[1]).to(torch.int32)
+            return ops.decode_attention(q, kc, vc, lengths).reshape(q.shape[0], 1, -1)
+
+        o = on_shards(attend, (k_cache, v_cache, q, pos), (CACHE, CACHE, ROWS_HEADS, BATCH),
+                      (0, 2))
+        return residual(plan, o @ p[f"{prefix}wo"].to(cdtype(cfg))), k_cache, v_cache
+
+    def write_attend(kc, vc, q, k, v, pos):
+        lengths = _write_slot(kc, vc, k, v, pos, window)
+        return ops.decode_attention(q, kc, vc, lengths).reshape(q.shape[0], 1, -1)
+
+    o = on_shards(write_attend, (k_cache, v_cache, q, k, v, pos),
+                  (CACHE, CACHE, ROWS_HEADS, ROWS_HEADS, ROWS_HEADS, BATCH), (0, 2),
+                  inplace=(0, 1))
+    return residual(plan, o @ p[f"{prefix}wo"].to(cdtype(cfg))), k_cache, v_cache
+
+
+def _seq_dims(cache: torch.Tensor) -> list:
+    """The mesh dims that shard a (B, T, KV, Dh) cache's positions
+    (``kv_seq``), in mesh order; none for a plain tensor."""
+    if not isinstance(cache, DTensor):
+        return []
+    return [i for i, pl in enumerate(cache.placements) if isinstance(pl, Shard) and pl.dim == 1]
+
+
+def _write_seq_shards(k_cache: DTensor, v_cache: DTensor, k: torch.Tensor,
+                      v: torch.Tensor, pos: torch.Tensor, window: int) -> None:
+    """Write one token's K/V into a cache whose positions are sharded
+    (``kv_seq``), in place: each rank holds the new rows of its batch and
+    head shards and writes those whose slot falls in its own position
+    range (the others write their slot's old value back, so nothing waits
+    on the device for a mask)."""
+    mesh, pl = k_cache.device_mesh, list(k_cache.placements)
+    dims = _seq_dims(k_cache)
+    T = k_cache.shape[1]
+    shard = 0
+    for i in dims:  # the rank's index along the positions, mesh order major
+        shard = shard * mesh.size(i) + mesh.get_local_rank(i)
+    Tl = T // math.prod(mesh.size(i) for i in dims)
+    row_pl = [Replicate() if i in dims else Shard(1) if p == Shard(2) else p
+              for i, p in enumerate(pl)]
+    pos_pl = [Shard(0) if p == Shard(0) else Replicate() for p in pl]
+    k, v = (t.redistribute(mesh, row_pl) if isinstance(t, DTensor)
+            else DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False).redistribute(mesh, row_pl)
+            for t in (k, v))
+    pos = pos if isinstance(pos, DTensor) else DTensor.from_local(
+        pos, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    pos = pos.redistribute(mesh, pos_pl)
+
+    def write(kc, vc, k, v, pos):
+        pos_l = pos.long()
+        slot = (pos_l % T if window > 0 else pos_l.clamp_max(T - 1)) - shard * Tl
+        mine = ((slot >= 0) & (slot < Tl))[:, None, None]
+        rows, at = torch.arange(kc.shape[0], device=pos.device), slot.clamp(0, Tl - 1)
+        kc[rows, at] = torch.where(mine, k.to(kc.dtype), kc[rows, at])
+        vc[rows, at] = torch.where(mine, v.to(vc.dtype), vc[rows, at])
+        return pos
+
+    local_map(write, out_placements=pos_pl, in_placements=(pl, pl, row_pl, row_pl, pos_pl),
+              device_mesh=mesh)(k_cache, v_cache, k, v, pos)
 
 
 # ------------------------------------------------------- paged decode attn
 def paged_decode_attention(cfg: ModelConfig, x: torch.Tensor, p: Params,
                            prefix: str, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, page_table: torch.Tensor,
-                           pos: torch.Tensor
+                           pos: torch.Tensor, plan: Optional[ShardingPlan] = None
                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One-token attention against a *paged* KV cache.
 
@@ -295,28 +492,48 @@ def paged_decode_attention(cfg: ModelConfig, x: torch.Tensor, p: Params,
     The reference returns new pools (JAX arrays are immutable); the port
     writes the token into the pools in place and returns the same tensors.
     Pages are per request, so live slots write distinct places; idle slots
-    all write the scratch page, which no live slot reads.
+    all write the scratch page, which no live slot reads.  On a mesh the
+    write and the kernel run on each rank's shards (:func:`on_shards`):
+    q leads, batch-sharded, and each rank's pool (replicated over the
+    batch, sharded like q's heads) holds the pages of its own rows.
     Returns (out (B,1,D), k_pages, v_pages).
     """
-    B, page = x.shape[0], k_pages.shape[1]
-    q, k, v = _decode_qkv(cfg, x, p, prefix, pos)
-    pos_l = pos.long()
-    pidx = page_table.long()[torch.arange(B, device=pos.device), pos_l // page]
-    off = pos_l % page
-    k_pages[pidx, off] = k.to(k_pages.dtype)
-    v_pages[pidx, off] = v.to(v_pages.dtype)
-    lengths = pos + 1
-    o = ops.paged_decode_attention(q, k_pages, v_pages, page_table, lengths)
-    return o.reshape(B, 1, -1) @ p[f"{prefix}wo"].to(cdtype(cfg)), k_pages, v_pages
+    q, k, v = _decode_qkv(cfg, x, p, prefix, pos, plan)
+
+    def write_attend(q, kp, vp, k, v, pt, pos):
+        B, page = q.shape[0], kp.shape[1]
+        pos_l = pos.long()
+        pidx = pt.long()[torch.arange(B, device=pos.device), pos_l // page]
+        off = pos_l % page
+        kp[pidx, off] = k.to(kp.dtype)
+        vp[pidx, off] = v.to(vp.dtype)
+        return ops.paged_decode_attention(q, kp, vp, pt, pos + 1).reshape(B, 1, -1)
+
+    o = on_shards(write_attend, (q, k_pages, v_pages, k, v, page_table, pos),
+                  (ROWS_HEADS, POOL, POOL, ROWS_HEADS, ROWS_HEADS, BATCH, BATCH), (0, 2),
+                  inplace=(1, 2))
+    return residual(plan, o @ p[f"{prefix}wo"].to(cdtype(cfg))), k_pages, v_pages
 
 
 # --------------------------------------------------------------- embedding
 def embed(cfg: ModelConfig, table: torch.Tensor, tokens: torch.Tensor,
           plan: Optional[ShardingPlan] = None) -> torch.Tensor:
     """Token gather. The table has ``cfg.padded_vocab`` rows; tokens are
-    always < vocab_size so padding is inert."""
-    rows = table.index_select(0, tokens.reshape(-1).long())
-    x = rows.to(cdtype(cfg)).reshape(*tokens.shape, table.shape[-1])
+    always < vocab_size so padding is inert.  On a mesh the table is cast
+    to the compute dtype (the cast commutes with the gather), gathered
+    whole, and each rank looks up its own rows' tokens (:func:`on_shards`;
+    the table's gradient a partial sum over the batch): DTensor's own
+    lookups leave a masked partial sum, or a backward, that not every
+    torch release can place."""
+    if isinstance(table, DTensor):
+        def lookup(tokens, table):
+            rows = table.index_select(0, tokens.reshape(-1).long())
+            return rows.reshape(*tokens.shape, table.shape[-1])
+
+        x = on_shards(lookup, (tokens, table.to(cdtype(cfg))), (BATCH, None), BATCH)
+    else:
+        rows = table.index_select(0, tokens.reshape(-1).long())
+        x = rows.to(cdtype(cfg)).reshape(*tokens.shape, table.shape[-1])
     return constrain(plan, x, ("batch", "seq", None))
 
 
@@ -335,29 +552,51 @@ def unembed(cfg: ModelConfig, x: torch.Tensor, w: torch.Tensor,
     """x @ W_out → logits fp32, vocab-sharded on a mesh; ``w`` from
     :func:`unembed_weight`.  Padded vocab columns are masked to −1e30 so
     softmax/argmax semantics match the unpadded vocab."""
-    logits = x.float() @ w
+    x = constrain(plan, x, ("batch", "seq", None))
+    logits = x.float() @ constrain(plan, w, (None, "vocab"))  # the FSDP gather point
     Vp = logits.shape[-1]
-    if Vp != cfg.vocab_size:
+    if Vp != cfg.vocab_size and isinstance(logits, DTensor):  # no sliced fill on shards
+        keep = torch.arange(Vp, device=logits.device) < cfg.vocab_size
+        logits = torch.where(keep, logits, NEG)
+    elif Vp != cfg.vocab_size:
         logits[..., cfg.vocab_size:] = NEG
     return constrain(plan, logits, ("batch", "seq", "vocab"))
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Mean token NLL; logits fp32 (B,S,V), labels (B,S) int.  Vocab-sharded
-    DTensor logits are gathered on the vocab dim first (DTensor cannot
-    gather the gold logit across vocab shards)."""
+    """Mean token NLL; logits fp32 (B,S,V), labels (B,S) int.  DTensor
+    logits are gathered on the vocab dim and each rank sums its own rows
+    (:func:`on_shards`), so neither the gold logit's gather nor its
+    backward ever spans more than a rank's rows; the two sums are then
+    reduced over the ranks."""
     if isinstance(logits, DTensor):
-        last = logits.ndim - 1
-        logits = logits.redistribute(logits.device_mesh, [
-            Replicate() if isinstance(pl, Shard) and pl.dim == last else pl
-            for pl in logits.placements])
+        if mask is None:
+            mask = torch.ones(labels.shape, dtype=torch.float32, device=labels.device)
+        total, count = on_shards(_nll_sums, (logits, labels, mask), (BATCH, BATCH, BATCH),
+                                 [SUM, SUM])
+        rep = [Replicate()] * total.device_mesh.ndim
+        return (total.redistribute(total.device_mesh, rep)
+                / count.redistribute(total.device_mesh, rep).clamp_min(1.0))
+    return _nll(logits, labels, mask)
+
+
+def _nll(logits: torch.Tensor, labels: torch.Tensor,
+         mask: Optional[torch.Tensor]) -> torch.Tensor:
     lse = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, labels.long()[..., None])[..., 0]
     nll = lse - gold
     if mask is not None:
         return (nll * mask).sum() / mask.sum().clamp_min(1.0)
     return nll.mean()
+
+
+def _nll_sums(logits: torch.Tensor, labels: torch.Tensor,
+              mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(Σ mask·nll, Σ mask) over one rank's rows."""
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    return ((lse - gold) * mask).sum(), mask.sum()
 
 
 # ------------------------------------------------------------------- remat

@@ -7,37 +7,40 @@ raises.  ``plan`` (default ``get_plan("futurized")``) is the training
 step's plan: its remat policy, bf16 boundaries and, on a mesh, where each
 logical axis lands.
 
-On a mesh the params (and batch) are DTensors: :meth:`loss` runs the
-dense, MoE and VLM families with the mesh of its params active
-(``launch.mesh.use``), plain tensors such as positions taken as
-replicated.  The ``ssm``, ``hybrid`` and ``encdec`` families run on a
-one-rank mesh through its local (whole) tensors, and raise
-``NotImplementedError`` on a larger one: their constraints and their scan
-kernels' ``local_map`` boundaries come with the dry run.  A mesh on
-another device type than the model's raises.
+On a mesh the params (and batch, inputs or cache) are DTensors: every
+family runs with the mesh of its params active (``launch.mesh.use``),
+plain tensors such as positions taken as replicated, the plan's gather
+points and constraints at the reference's sites, and each kernel on each
+rank's shards (``layers.on_shards``).  Without a mesh the serving paths
+take no plan, so their constraints cost nothing.  A mesh on another
+device type than the model's raises.
 
     param_specs() / init(seed) / compute_params(params) / init_compute(seed)
+    abstract_params() / batch_specs(cell) / prefill_specs(cell) / decode_specs(cell)
+                                                    dry-run stand-ins, no data
     loss(params, batch)                             train objective
     prefill(params, inputs, cache_len, valid_len)   → (last logits, cache)
     decode(params, cache, token)                    → (logits, new cache)
-    cache_specs(batch, cache_len, enc_len) / init_cache(batch, cache_len, enc_len)
+    cache_specs(batch, cache_len, enc_len) / cache_axes() / init_cache(...)
     decode_paged(params, cache, token)              → (logits, new cache)
     paged_cache_specs(num_pages, page_size, max_batch, max_pages_per_req)
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Dict, Iterator, Optional, Tuple, Union
 
 import torch
 from torch.distributed.tensor import DTensor
 
 from repro_torch._device import resolve_device
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeCell
 from repro_torch.dist.plan import ShardingPlan, get_plan
 from repro_torch.models import encdec, hybrid, ssm_lm, transformer
 from repro_torch.launch import mesh as mesh_mod
+from repro_torch.models import params as P
 from repro_torch.models.params import ParamSpec, TensorSpec, init_params
 
 Params = Dict[str, torch.Tensor]
@@ -93,6 +96,12 @@ class Model:
                              convert=functools.partial(transformer.cast_param, self.cfg))
         return self.compute_params(params)
 
+    def abstract_params(self, device="meta", dtype: Optional[torch.dtype] = None
+                        ) -> Params:
+        """The params as stand-ins without data (meta tensors, or fake ones
+        under ``FakeTensorMode``): the dry run's."""
+        return P.abstract_params(self._specs, device, dtype)
+
     # ----------------------------------------------------------------- train
     def loss(self, params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """The train objective on ``batch`` (its fields on the model's
@@ -100,21 +109,7 @@ class Model:
         family's ``enc``): next-token cross-entropy, plus
         ``router_aux_weight`` times the MoE aux loss for the moe family.
         DTensor params run on their mesh (see the module doc)."""
-        mesh = self.mesh_of(params)
-        if mesh is None:
-            return self._m.loss_fn(self.cfg, self.plan, params, batch)
-        if self._m is not transformer:
-            if mesh.size() > 1:
-                raise NotImplementedError(
-                    f"family {self.cfg.family!r} on a mesh of {mesh.size()} ranks: "
-                    f"its constraints and scan-kernel local_map boundaries come "
-                    f"with the dry run (the next slice of the device plane)")
-            local = {k: v.to_local() if isinstance(v, DTensor) else v
-                     for k, v in params.items()}
-            batch = {k: v.to_local() if isinstance(v, DTensor) else v
-                     for k, v in batch.items()}
-            return self._m.loss_fn(self.cfg, self.plan, local, batch)
-        with mesh_mod.use(mesh), mesh_mod.replicating():
+        with self._on_mesh(params):
             return self._m.loss_fn(self.cfg, self.plan, params, batch)
 
     def mesh_of(self, params: Params) -> Optional[Any]:
@@ -129,6 +124,18 @@ class Model:
                 return mesh
         return None
 
+    @contextlib.contextmanager
+    def _on_mesh(self, params: Params) -> Iterator[Optional[ShardingPlan]]:
+        """The block runs with the params' mesh active and plain tensors
+        taken as replicated; yields the serving paths' plan (None without
+        a mesh)."""
+        mesh = self.mesh_of(params)
+        if mesh is None:
+            yield None
+            return
+        with mesh_mod.use(mesh), mesh_mod.replicating():
+            yield self.plan
+
     def batch_axes(self) -> Dict[str, Tuple]:
         """Logical axes of each training-batch field."""
         ax = {"tokens": ("batch", "seq")}
@@ -139,13 +146,41 @@ class Model:
         return ax
 
     def cache_axes(self) -> Dict[str, Tuple]:
-        """Logical axes of each field of the dense decode cache (the dense,
-        MoE and VLM families)."""
-        if self._m is not transformer:
-            raise NotImplementedError(
-                f"cache axes of family {self.cfg.family!r} come with the dry run "
-                f"(the next slice of the device plane)")
-        return transformer.cache_axes(self.cfg)
+        """Logical axes of each field of the family's decode cache."""
+        return self._m.cache_axes(self.cfg)
+
+    # ------------------------------------------------------- dry-run inputs
+    def _inputs(self, B: int, S: int, n_tokens: int, device) -> Dict[str, torch.Tensor]:
+        """``tokens`` (B, n_tokens) int32, and the vlm family's ``patches``
+        (B, n_patches, D) or the encdec family's ``enc`` (B, S, D)."""
+        cfg = self.cfg
+        dt = getattr(torch, cfg.dtype)
+        out = {"tokens": torch.empty((B, n_tokens), dtype=torch.int32, device=device)}
+        if cfg.family == "vlm":
+            out["patches"] = torch.empty((B, cfg.n_patches, cfg.d_model), dtype=dt,
+                                         device=device)
+        if cfg.family == "encdec":
+            out["enc"] = torch.empty((B, S, cfg.d_model), dtype=dt, device=device)
+        return out
+
+    def batch_specs(self, cell: ShapeCell, device="meta") -> Dict[str, torch.Tensor]:
+        """A training batch of a shape cell as stand-ins without data
+        (``tokens`` one longer than the cell's sequence)."""
+        return self._inputs(cell.global_batch, cell.seq_len, cell.seq_len + 1, device)
+
+    def prefill_specs(self, cell: ShapeCell, device="meta") -> Dict[str, torch.Tensor]:
+        """A prefill's inputs of a shape cell as stand-ins without data."""
+        return self._inputs(cell.global_batch, cell.seq_len, cell.seq_len, device)
+
+    def decode_specs(self, cell: ShapeCell, device="meta"
+                     ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+        """(the cache, the token) of a decode cell as stand-ins: one new
+        token against a cache of ``cell.seq_len`` (the encdec family's
+        cross-attention cache as long)."""
+        B, S = cell.global_batch, cell.seq_len
+        cache = {k: torch.empty(s.shape, dtype=s.dtype, device=device)
+                 for k, s in self.cache_specs(B, S, enc_len=S).items()}
+        return cache, torch.empty((B, 1), dtype=torch.int32, device=device)
 
     # ----------------------------------------------------------------- serve
     def prefill(self, params: Params, inputs: Dict[str, torch.Tensor],
@@ -157,23 +192,25 @@ class Model:
         hybrid's ring do not grow with it).  ``valid_len`` supports
         right-padded prompts (the serve engine's bucketed admission):
         dense, moe and vlm families only, as in the reference."""
-        if self._m is transformer:
-            return transformer.prefill(self.cfg, params, inputs["tokens"],
-                                       cache_len=cache_len, valid_len=valid_len,
-                                       patches=inputs.get("patches"))
-        if valid_len is not None:
-            raise ValueError(f"family {self.cfg.family!r} prefills at the exact "
-                             f"prompt length (no valid_len)")
-        if self._m is encdec:
-            return encdec.prefill(self.cfg, params, inputs["enc"], inputs["tokens"],
-                                  cache_len=cache_len)
-        return self._m.prefill(self.cfg, params, inputs["tokens"])
+        with self._on_mesh(params) as plan:
+            if self._m is transformer:
+                return transformer.prefill(self.cfg, params, inputs["tokens"],
+                                           cache_len=cache_len, valid_len=valid_len,
+                                           patches=inputs.get("patches"), plan=plan)
+            if valid_len is not None:
+                raise ValueError(f"family {self.cfg.family!r} prefills at the exact "
+                                 f"prompt length (no valid_len)")
+            if self._m is encdec:
+                return encdec.prefill(self.cfg, params, inputs["enc"], inputs["tokens"],
+                                      cache_len=cache_len, plan=plan)
+            return self._m.prefill(self.cfg, params, inputs["tokens"], plan=plan)
 
     def decode(self, params: Params, cache: Dict[str, torch.Tensor],
                token: torch.Tensor):
         """One decode step against the family's own cache
         (:meth:`cache_specs`); the cache's tensors are updated in place."""
-        return self._m.decode_step(self.cfg, params, cache, token)
+        with self._on_mesh(params) as plan:
+            return self._m.decode_step(self.cfg, params, cache, token, plan=plan)
 
     def cache_specs(self, batch: int, cache_len: int,
                     enc_len: Optional[int] = None) -> Dict[str, TensorSpec]:
@@ -204,7 +241,8 @@ class Model:
         (:func:`repro_torch.models.transformer.paged_cache_specs` layout)."""
         if not self.supports_paged:
             raise ValueError(f"family {self.cfg.family!r} has no paged cache")
-        return transformer.decode_step_paged(self.cfg, params, cache, token)
+        with self._on_mesh(params) as plan:
+            return transformer.decode_step_paged(self.cfg, params, cache, token, plan=plan)
 
     def paged_cache_specs(self, num_pages: int, page_size: int,
                           max_batch: int, max_pages_per_req: int):

@@ -4,8 +4,10 @@ and init, ported from the reference's ``models/params.py``.
 A flat ``{path: tensor}`` dict is the params container everywhere, with
 the reference's path names (``blk/wq`` …) and stacked ``(L, …)`` layer
 shapes, so :func:`from_reference` maps the reference's params one to one.
-The logical sharding axes are kept for the distribution slice; nothing
-reads them yet.
+The logical sharding axes are what a plan resolves against a mesh
+(``dist/plan.py``).  :func:`abstract_params` gives stand-ins that hold
+no data (meta tensors, or fake ones under ``FakeTensorMode``) for the dry
+run, the reference's ``ShapeDtypeStruct``s.
 """
 
 from __future__ import annotations
@@ -97,3 +99,16 @@ def from_reference(flat: Mapping[str, np.ndarray], cfg,
         out[path] = torch.from_numpy(arr.copy()).to(device=device, dtype=spec.dtype)
     return out
 
+
+
+def abstract_params(specs: Dict[str, ParamSpec], device="meta",
+                    dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
+    """Stand-ins for the dry run that allocate nothing: meta tensors, or
+    fake ones when called under ``FakeTensorMode`` with a real device;
+    each spec's dtype unless ``dtype`` overrides it."""
+    return {p: torch.empty(s.shape, dtype=dtype or s.dtype, device=device)
+            for p, s in specs.items()}
+
+
+def param_bytes(specs: Dict[str, ParamSpec]) -> int:
+    return int(sum(math.prod(s.shape) * s.dtype.itemsize for s in specs.values()))

@@ -23,8 +23,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.plan import ShardingPlan
 from repro_torch.kernels import ops
-from repro_torch.models.layers import cdtype, norm
+from repro_torch.models.layers import BATCH, cdtype, norm, on_shards, residual, rows, whole
 from repro_torch.models.params import ParamSpec
 from repro_torch.models.ssm import causal_conv1d, conv_state, conv_step
 
@@ -69,26 +70,28 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
                h0: Optional[torch.Tensor] = None) -> torch.Tensor:
     """h_t = a_t h_{t-1} + b_t through ``ops.rglru_scan_trainable`` (the
     kernel forward, with a backward in grad mode). a/b: (B,S,W) fp32;
-    ``h0`` (B,W) is folded into the first step: b_0 += a_0·h0."""
+    ``h0`` (B,W) is folded into the first step: b_0 += a_0·h0.  On a mesh
+    each rank scans its own batch rows (``on_shards``)."""
     if h0 is not None:
         b = b.clone()
         b[:, 0, :] += a[:, 0, :] * h0
-    return ops.rglru_scan_trainable(a, b)
+    return on_shards(ops.rglru_scan_trainable, (a, b), (BATCH, BATCH), BATCH)
 
 
 def rec_block(cfg: ModelConfig, x: torch.Tensor, p: Params, prefix: str,
-              collect_state: bool = False):
+              collect_state: bool = False, plan: Optional[ShardingPlan] = None):
     """Griffin recurrent block (train/prefill): x (B,S,D) → (B,S,D); with
     ``collect_state`` also (conv_state (B,K−1,W) in the compute dtype, the
-    final carry h_S (B,W) fp32) for the decode cache."""
+    final carry h_S (B,W) fp32) for the decode cache.  On a mesh
+    (``plan``) the recurrence's input is batch-sharded."""
     dt = cdtype(cfg)
     h = norm(cfg, x, p[f"{prefix}ln"])
     gate = F.gelu(h @ p[f"{prefix}w_gate_branch"].to(dt), approximate="tanh")
-    xw_raw = h @ p[f"{prefix}w_x"].to(dt)
+    xw_raw = rows(plan, h @ p[f"{prefix}w_x"].to(dt))
     xw = causal_conv1d(xw_raw, p[f"{prefix}conv_w"], p[f"{prefix}conv_b"])
     a, gx = _gates(p, prefix, xw)
     hseq = rglru_scan(a, gx)
-    y = (gate * hseq.to(dt)) @ p[f"{prefix}rec_out"].to(dt)
+    y = residual(plan, (gate * hseq.to(dt)) @ p[f"{prefix}rec_out"].to(dt))
     if not collect_state:
         return x + y
     return x + y, (conv_state(cfg, xw_raw), hseq[:, -1, :].float())
@@ -96,15 +99,18 @@ def rec_block(cfg: ModelConfig, x: torch.Tensor, p: Params, prefix: str,
 
 def rec_block_decode(cfg: ModelConfig, x: torch.Tensor, p: Params, prefix: str,
                      conv_state: torch.Tensor, h_state: torch.Tensor,
+                     plan: Optional[ShardingPlan] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One-token decode. x: (B,1,D); conv_state: (B,K−1,W); h_state: (B,W)
     fp32. Returns (out, new_conv_state, new_h)."""
     dt = cdtype(cfg)
     h = norm(cfg, x, p[f"{prefix}ln"])[:, 0]  # (B,D)
     gate = F.gelu(h @ p[f"{prefix}w_gate_branch"].to(dt), approximate="tanh")
-    xw, new_conv = conv_step(cfg, conv_state, h @ p[f"{prefix}w_x"].to(dt),
-                             p[f"{prefix}conv_w"], p[f"{prefix}conv_b"])
+    xw, new_conv = conv_step(cfg, rows(plan, conv_state),
+                             rows(plan, h @ p[f"{prefix}w_x"].to(dt)),
+                             whole(plan, p[f"{prefix}conv_w"]),
+                             whole(plan, p[f"{prefix}conv_b"]))
     a, gx = _gates(p, prefix, xw)
     new_h = a * h_state.float() + gx
-    y = (gate * new_h.to(dt)) @ p[f"{prefix}rec_out"].to(dt)
-    return x + y[:, None, :], new_conv.to(conv_state.dtype), new_h.to(h_state.dtype)
+    y = residual(plan, ((gate * new_h.to(dt)) @ p[f"{prefix}rec_out"].to(dt))[:, None, :])
+    return x + y, new_conv.to(conv_state.dtype), new_h.to(h_state.dtype)

@@ -18,14 +18,15 @@ token, in plain tensor ops with the state in fp32.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.plan import ShardingPlan
 from repro_torch.kernels import ops
-from repro_torch.models.layers import cdtype, norm
+from repro_torch.models.layers import BATCH, cdtype, norm, on_shards, residual, rows, whole
 from repro_torch.models.params import ParamSpec
 
 Params = Dict[str, torch.Tensor]
@@ -64,11 +65,16 @@ def ssm_param_specs(cfg: ModelConfig, L: int, prefix: str) -> Dict[str, ParamSpe
 
 def causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv then silu. x: (B,S,C), w: (K,C), b: (C,).
-    One ``F.conv1d`` with a group per channel over x left-padded by K − 1."""
-    K, C = w.shape
-    w, b = w.to(x.dtype), b.to(x.dtype)
-    y = F.conv1d(F.pad(x.transpose(1, 2), (K - 1, 0)), w.t()[:, None, :], b, groups=C)
-    return F.silu(y.transpose(1, 2))
+    One ``F.conv1d`` with a group per channel over x left-padded by K − 1;
+    on a mesh on each rank's batch rows, the weights whole (``on_shards``:
+    DTensor's convolution takes no batch sharded over two mesh dims)."""
+    def conv(x, w, b):
+        K, C = w.shape
+        w, b = w.to(x.dtype), b.to(x.dtype)
+        y = F.conv1d(F.pad(x.transpose(1, 2), (K - 1, 0)), w.t()[:, None, :], b, groups=C)
+        return F.silu(y.transpose(1, 2))
+
+    return on_shards(conv, (x, w, b), (BATCH, None, None), BATCH)
 
 
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
@@ -81,10 +87,15 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Te
     Bm/Cm: (B,S,G,N), G|H.  Returns (y (B,S,H,P) in x's dtype, final state
     (B,H,P,N) fp32), or y alone without ``return_final_state``.  The chunk
     is clipped to S; a ragged last chunk ends at step S, so the final
-    state is the state after S steps.
+    state is the state after S steps.  On a mesh each rank scans its own
+    batch rows (``Lx.on_shards``).
     """
-    return ops.ssd_scan_trainable(x, dt, A, Bm, Cm, chunk=chunk,
-                                  return_final_state=return_final_state)
+    def scan(x, dt, A, Bm, Cm):
+        return ops.ssd_scan_trainable(x, dt, A, Bm, Cm, chunk=chunk,
+                                      return_final_state=return_final_state)
+
+    return on_shards(scan, (x, dt, A, Bm, Cm), (BATCH, BATCH, None, BATCH, BATCH),
+                     [BATCH, BATCH] if return_final_state else BATCH)
 
 
 def ssd_decode_step(state: torch.Tensor, x: torch.Tensor, dt: torch.Tensor,
@@ -117,17 +128,18 @@ def _split_xbc(cfg: ModelConfig, xbc: torch.Tensor):
 
 
 def ssm_block(cfg: ModelConfig, x: torch.Tensor, p: Params, prefix: str,
-              collect_state: bool = False):
+              collect_state: bool = False, plan: Optional[ShardingPlan] = None):
     """One Mamba-2 block (train/prefill): x (B,S,D) → (B,S,D); with
     ``collect_state`` also (conv_state (B,K−1,conv_ch) in the compute
     dtype, final ssm state (B,H,P,N) fp32) for the decode cache.  The
     conv state is the last K − 1 pre-conv inputs, left-padded with zeros
-    when S < K − 1."""
+    when S < K − 1.  On a mesh (``plan``) the input projection is
+    batch-sharded before it splits."""
     d = ssm_dims(cfg)
     dt_ = cdtype(cfg)
     B, S, D = x.shape
     h = norm(cfg, x, p[f"{prefix}ln"])
-    z, xbc_raw, dt = _split_in_proj(cfg, h @ p[f"{prefix}in_proj"].to(dt_))
+    z, xbc_raw, dt = _split_in_proj(cfg, rows(plan, h @ p[f"{prefix}in_proj"].to(dt_)))
     xbc = causal_conv1d(xbc_raw, p[f"{prefix}conv_w"], p[f"{prefix}conv_b"])
     xs, Bm, Cm = _split_xbc(cfg, xbc)
     xs = xs.reshape(B, S, d["H"], d["P"])
@@ -139,10 +151,10 @@ def ssm_block(cfg: ModelConfig, x: torch.Tensor, p: Params, prefix: str,
                       return_final_state=collect_state)
     y, final_state = out if collect_state else (out, None)
     y = y + p[f"{prefix}D"].to(dt_)[None, None, :, None] * xs
-    y = y.reshape(B, S, d["d_inner"])
+    y = rows(plan, y.reshape(B, S, d["d_inner"]))
     # gated RMSNorm (Mamba-2: norm(y * silu(z)))
     y = norm(cfg, y * F.silu(z), p[f"{prefix}gate_ln"])
-    out = x + y @ p[f"{prefix}out_proj"].to(dt_)
+    out = x + residual(plan, y @ p[f"{prefix}out_proj"].to(dt_))
     if not collect_state:
         return out
     return out, (conv_state(cfg, xbc_raw), final_state.float())
@@ -152,8 +164,12 @@ def conv_state(cfg: ModelConfig, x_raw: torch.Tensor) -> torch.Tensor:
     """The last K − 1 pre-conv inputs (B,K−1,C) in the compute dtype,
     left-padded with zeros when the sequence is shorter."""
     K, S = cfg.ssm_conv, x_raw.shape[1]
-    pad = F.pad(x_raw, (0, 0, max(K - 1 - S, 0), 0))
-    return pad[:, pad.shape[1] - (K - 1):, :].to(cdtype(cfg))
+
+    def last(x):
+        pad = F.pad(x, (0, 0, max(K - 1 - S, 0), 0))
+        return pad[:, pad.shape[1] - (K - 1):, :].to(cdtype(cfg))
+
+    return on_shards(last, (x_raw,), (BATCH,), BATCH)
 
 
 def conv_step(cfg: ModelConfig, conv_state: torch.Tensor, x_new: torch.Tensor,
@@ -168,6 +184,7 @@ def conv_step(cfg: ModelConfig, conv_state: torch.Tensor, x_new: torch.Tensor,
 
 def ssm_block_decode(cfg: ModelConfig, x: torch.Tensor, p: Params, prefix: str,
                      conv_state: torch.Tensor, ssm_state: torch.Tensor,
+                     plan: Optional[ShardingPlan] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One-token decode. x: (B,1,D). conv_state: (B,K−1,conv_ch),
     ssm_state: (B,H,P,N). Returns (out, new_conv_state, new_ssm_state)."""
@@ -175,9 +192,10 @@ def ssm_block_decode(cfg: ModelConfig, x: torch.Tensor, p: Params, prefix: str,
     dt_ = cdtype(cfg)
     B = x.shape[0]
     h = norm(cfg, x, p[f"{prefix}ln"])[:, 0]  # (B,D)
-    z, xbc, dt = _split_in_proj(cfg, h @ p[f"{prefix}in_proj"].to(dt_))
-    xbc, new_conv = conv_step(cfg, conv_state, xbc, p[f"{prefix}conv_w"],
-                              p[f"{prefix}conv_b"])
+    z, xbc, dt = _split_in_proj(cfg, rows(plan, h @ p[f"{prefix}in_proj"].to(dt_)))
+    xbc, new_conv = conv_step(cfg, rows(plan, conv_state), xbc,
+                              whole(plan, p[f"{prefix}conv_w"]),
+                              whole(plan, p[f"{prefix}conv_b"]))
     xs, Bm, Cm = _split_xbc(cfg, xbc)
     xs = xs.reshape(B, d["H"], d["P"])
     Bm = Bm.reshape(B, d["G"], d["N"])
@@ -186,7 +204,7 @@ def ssm_block_decode(cfg: ModelConfig, x: torch.Tensor, p: Params, prefix: str,
     A = -torch.exp(p[f"{prefix}A_log"].float())
     ys, new_state = ssd_decode_step(ssm_state, xs, dt, A, Bm, Cm)
     ys = ys + p[f"{prefix}D"].to(dt_)[None, :, None] * xs
-    ys = ys.reshape(B, d["d_inner"])
+    ys = rows(plan, ys.reshape(B, d["d_inner"]))
     ys = norm(cfg, ys * F.silu(z), p[f"{prefix}gate_ln"])
-    out = x + (ys @ p[f"{prefix}out_proj"].to(dt_))[:, None, :]
+    out = x + residual(plan, (ys @ p[f"{prefix}out_proj"].to(dt_))[:, None, :])
     return out, new_conv.to(conv_state.dtype), new_state

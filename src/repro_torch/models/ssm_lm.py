@@ -19,7 +19,7 @@ from repro_torch.dist.plan import ShardingPlan
 from repro_torch.models import layers as Lx
 from repro_torch.models.params import ParamSpec, TensorSpec
 from repro_torch.models.ssm import ssm_block, ssm_block_decode, ssm_dims, ssm_param_specs
-from repro_torch.models.transformer import layer_params, logits, unbind_layers
+from repro_torch.models.transformer import logits, stack_slices
 
 Params = Dict[str, torch.Tensor]
 
@@ -34,17 +34,28 @@ def lm_param_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     return specs
 
 
+def _blocks(cfg: ModelConfig, params: Params, plan: Optional[ShardingPlan]):
+    """Each block's params at its gather point (``stack_slices``)."""
+    return stack_slices(lm_param_specs(cfg), params, "blk/", cfg.num_layers, plan)
+
+
 def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             plan: Optional[ShardingPlan] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens: (B, S) → (logits fp32 (B,S,V), aux_loss 0).  Each block runs
     under the plan's remat policy (``Lx.remat_wrap``), as the reference
-    wraps its scan body."""
-    x = Lx.embed(cfg, params["tok_embed"], tokens)
-    body = Lx.remat_wrap(plan, lambda x, lp: ssm_block(cfg, x, lp, ""))
-    for lp in unbind_layers(params, cfg.num_layers):
+    wraps its scan body; on a mesh its params are gathered at the plan's
+    gather point and its input is batch-sharded, as in the reference."""
+    x = Lx.embed(cfg, params["tok_embed"], tokens, plan)
+
+    def block(x, lp):
+        return ssm_block(cfg, Lx.constrain(plan, x, ("batch", "seq", None)), lp, "",
+                         plan=plan)
+
+    body = Lx.remat_wrap(plan, block)
+    for lp in _blocks(cfg, params, plan):
         x = body(x, lp)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return logits(cfg, params, x), aux
+    return logits(cfg, params, x, plan), aux
 
 
 def loss_fn(cfg: ModelConfig, plan: ShardingPlan, params: Params,
@@ -69,36 +80,45 @@ def init_cache_specs(cfg: ModelConfig, batch: int,
     }
 
 
+def cache_axes(cfg: ModelConfig) -> Dict[str, Tuple]:
+    """Logical axes of each decode-cache field."""
+    return {
+        "conv": ("layers", "batch", None, "ssm_inner"),
+        "state": ("layers", "batch", "ssm_heads", None, None),
+        "pos": ("batch",),
+    }
+
+
 def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
-            cache_len: Optional[int] = None
+            cache_len: Optional[int] = None, plan: Optional[ShardingPlan] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """tokens: (B, S) at their exact length → (last-position logits (B, V)
     fp32, cache).  One SSD scan per layer, each returning its fp32 final
     state."""
     B, S = tokens.shape
-    x = Lx.embed(cfg, params["tok_embed"], tokens)
+    x = Lx.embed(cfg, params["tok_embed"], tokens, plan)
     convs, states = [], []
-    for i in range(cfg.num_layers):
-        x, (conv, state) = ssm_block(cfg, x, layer_params(params, i), "",
-                                     collect_state=True)
+    for lp in _blocks(cfg, params, plan):
+        x, (conv, state) = ssm_block(cfg, Lx.constrain(plan, x, ("batch", "seq", None)),
+                                     lp, "", collect_state=True, plan=plan)
         convs.append(conv)
         states.append(state)
     cache = {"conv": torch.stack(convs), "state": torch.stack(states),
              "pos": torch.full((B,), S, dtype=torch.int32, device=tokens.device)}
-    return logits(cfg, params, x[:, -1:, :])[:, 0, :], cache
+    return logits(cfg, params, x[:, -1:, :], plan)[:, 0, :], cache
 
 
 def decode_step(cfg: ModelConfig, params: Params, cache: Dict[str, torch.Tensor],
-                token: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                token: torch.Tensor, plan: Optional[ShardingPlan] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decode step. token: (B, 1) → (logits (B,V) fp32, new cache); the
     conv and SSD states are updated in place."""
-    x = Lx.embed(cfg, params["tok_embed"], token)
+    x = Lx.embed(cfg, params["tok_embed"], token, plan)
     conv, state = cache["conv"], cache["state"]
-    for i in range(cfg.num_layers):
-        x, new_conv, new_state = ssm_block_decode(cfg, x, layer_params(params, i), "",
-                                                  conv[i], state[i])
+    for i, lp in enumerate(_blocks(cfg, params, plan)):
+        x, new_conv, new_state = ssm_block_decode(cfg, x, lp, "", conv[i], state[i], plan)
         conv[i].copy_(new_conv)
         state[i].copy_(new_state)
     new_cache = dict(cache)
     new_cache["pos"] = cache["pos"] + 1
-    return logits(cfg, params, x)[:, 0, :], new_cache
+    return logits(cfg, params, x, plan)[:, 0, :], new_cache

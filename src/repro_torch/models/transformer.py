@@ -159,9 +159,11 @@ _GATHER_AXIS = "embed"  # the FSDP axis
 
 
 def layer_axes(specs: Dict[str, ParamSpec], prefix: str) -> Dict[str, Tuple]:
-    """Per-layer logical axes (the leading 'layers' dim dropped)."""
+    """Per-layer logical axes of the stacked params under ``prefix`` (the
+    leading 'layers' dim dropped; a stack's own final norm is no layer's)."""
     return {path[len(prefix):]: tuple(a for a in s.axes if a != "layers")
-            for path, s in specs.items() if path.startswith(prefix)}
+            for path, s in specs.items()
+            if path.startswith(prefix) and s.axes[:1] == ("layers",)}
 
 
 def _gathered(axes: Tuple) -> Tuple:
@@ -182,12 +184,14 @@ def stacked_gather_constrain(plan: Optional[ShardingPlan], tree: Params,
             for k, v in tree.items()}
 
 
-def _stack_slices(cfg: ModelConfig, params: Params, prefix: str, L: int,
-                  plan: Optional[ShardingPlan]) -> List[Params]:
+def stack_slices(specs: Dict[str, ParamSpec], params: Params, prefix: str, L: int,
+                 plan: Optional[ShardingPlan]) -> List[Params]:
     """The layer slices of one stack at its gather point: the whole stack
-    gathered before the loop (BSP), or each slice as it is reached."""
-    ax = layer_axes(decoder_param_specs(cfg), prefix)
-    stacked = {k: v for k, v in params.items() if k.startswith(prefix)}
+    gathered before the loop (BSP, ``gather_upfront``), or each slice as
+    it is reached (the futurized per-layer gather); ``specs`` are the
+    family's param specs.  Without a mesh the constraints are identities."""
+    ax = layer_axes(specs, prefix)
+    stacked = {k: v for k, v in params.items() if k.startswith(prefix) and k[len(prefix):] in ax}
     if getattr(plan, "gather_upfront", False):
         stacked = stacked_gather_constrain(
             plan, {k[len(prefix):]: v for k, v in stacked.items()}, ax)
@@ -205,7 +209,7 @@ def _ffn(cfg: ModelConfig, x: torch.Tensor, lp: Params, moe_layer: bool,
     if moe_layer:
         ffn, aux = moe_ffn(cfg, h, lp, "moe/", plan=plan)
         return x + ffn, aux
-    return x + Lx.mlp(cfg, h, lp, ""), None
+    return x + Lx.mlp(cfg, h, lp, "", plan), None
 
 
 def _layer_body(cfg: ModelConfig, x: torch.Tensor, lp: Params,
@@ -264,7 +268,7 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     for prefix, L, moe_layer in stacks(cfg):
         body = Lx.remat_wrap(plan, functools.partial(
             _layer_body, cfg, positions=positions, plan=plan, moe_layer=moe_layer))
-        for lp in _stack_slices(cfg, params, prefix, L, plan):
+        for lp in stack_slices(decoder_param_specs(cfg), params, prefix, L, plan):
             x, a, _ = body(x, lp)
             if a is not None:
                 aux = aux + a
@@ -288,7 +292,8 @@ def loss_fn(cfg: ModelConfig, plan: ShardingPlan, params: Params,
 def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             cache_len: Optional[int] = None,
             valid_len: Optional[torch.Tensor] = None,
-            patches: Optional[torch.Tensor] = None
+            patches: Optional[torch.Tensor] = None,
+            plan: Optional[ShardingPlan] = None
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Single-pass forward + KV-cache collection.
 
@@ -297,28 +302,30 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     supports right-padded prompts: logits are taken at ``valid_len - 1``
     and ``pos`` starts there; causality keeps the pad positions inert.
     The VLM family's ``patches`` take the first ``n_patches`` positions.
+    On a mesh, ``plan`` places the layers' gather points and constraints
+    as in training.
     """
     B, S = tokens.shape
     T = cache_len or S
     if T < S:
         raise ValueError(f"cache_len {T} shorter than the prompt {S}")
     dev = tokens.device
-    x = splice_patches(cfg, Lx.embed(cfg, params["tok_embed"], tokens), patches)
+    x = splice_patches(cfg, Lx.embed(cfg, params["tok_embed"], tokens, plan), patches)
     positions = torch.arange(S, dtype=torch.int32, device=dev)
     dt = Lx.cdtype(cfg)
+    specs = decoder_param_specs(cfg)
     cache = {}
     for prefix, L, moe_layer in stacks(cfg):
         ks, vs = [], []
-        for i in range(L):
-            x, _, (k, v) = _layer_body(cfg, x, layer_params(params, i, prefix), positions,
-                                       collect_kv=True, moe_layer=moe_layer)
+        for lp in stack_slices(specs, params, prefix, L, plan):
+            x, _, (k, v) = _layer_body(cfg, x, lp, positions, collect_kv=True,
+                                       plan=plan, moe_layer=moe_layer)
             ks.append(k)
             vs.append(v)
         kn, vn = _cache_keys(prefix)
         cache[kn], cache[vn] = torch.stack(ks).to(dt), torch.stack(vs).to(dt)
-    if T > S:
-        pad = (0, 0, 0, 0, 0, T - S)  # zero-fill positions S..T-1
-        cache = {n: torch.nn.functional.pad(c, pad) for n, c in cache.items()}
+    if T > S:  # zero-fill positions S..T-1
+        cache = {n: Lx.pad_cache(c, T) for n, c in cache.items()}
     if valid_len is None:
         cache["pos"] = torch.full((B,), S, dtype=torch.int32, device=dev)
         x_last = x[:, -1:, :]
@@ -327,7 +334,7 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
         cache["pos"] = vl.clone()
         idx = (vl.long() - 1).clamp(0, S - 1)
         x_last = x[torch.arange(B, device=dev), idx][:, None, :]
-    return logits(cfg, params, x_last)[:, 0, :], cache
+    return logits(cfg, params, x_last, plan)[:, 0, :], cache
 
 
 # -------------------------------------------------------------------- cache
@@ -355,24 +362,27 @@ def cache_axes(cfg: ModelConfig) -> Dict[str, Tuple]:
 
 
 def decode_step(cfg: ModelConfig, params: Params, cache: Dict[str, torch.Tensor],
-                token: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                token: torch.Tensor, plan: Optional[ShardingPlan] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decode step against the dense cache (see init_cache_specs).
     token: (B, 1) → (logits (B,V) fp32, new cache).  The new token's K/V
     are written into the cache in place; the returned cache holds the same
-    tensors and ``pos + 1``."""
+    tensors and ``pos + 1``.  On a mesh, ``plan`` places the layers'
+    gather points, and the cache keeps the placements of
+    :func:`cache_axes`."""
     pos = cache["pos"]
-    x = Lx.embed(cfg, params["tok_embed"], token)
+    x = Lx.embed(cfg, params["tok_embed"], token, plan)
+    specs = decoder_param_specs(cfg)
     for prefix, L, moe_layer in stacks(cfg):
         kc, vc = (cache[n] for n in _cache_keys(prefix))
-        for i in range(L):
-            lp = layer_params(params, i, prefix)
+        for i, lp in enumerate(stack_slices(specs, params, prefix, L, plan)):
             h = Lx.norm(cfg, x, lp["ln1"])
             h, _, _ = Lx.decode_attention(cfg, h, lp, "", kc[i], vc[i], pos,
-                                          window=cfg.window)
-            x, _ = _ffn(cfg, x + h, lp, moe_layer)
+                                          window=cfg.window, plan=plan)
+            x, _ = _ffn(cfg, x + h, lp, moe_layer, plan)
     new_cache = dict(cache)
     new_cache["pos"] = pos + 1
-    return logits(cfg, params, x)[:, 0, :], new_cache
+    return logits(cfg, params, x, plan)[:, 0, :], new_cache
 
 
 def paged_cache_specs(cfg: ModelConfig, num_pages: int, page_size: int,
@@ -394,21 +404,23 @@ def paged_cache_specs(cfg: ModelConfig, num_pages: int, page_size: int,
 
 
 def decode_step_paged(cfg: ModelConfig, params: Params,
-                      cache: Dict[str, torch.Tensor], token: torch.Tensor
+                      cache: Dict[str, torch.Tensor], token: torch.Tensor,
+                      plan: Optional[ShardingPlan] = None
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decode step against the paged cache (see paged_cache_specs).
     token: (B, 1) → (logits (B,V) fp32, new cache).  The new token's K/V
     are written into the pools in place; the returned cache holds the same
     pool tensors and ``pos + 1``."""
     pos, pt = cache["pos"], cache["page_table"]
-    x = Lx.embed(cfg, params["tok_embed"], token)
+    x = Lx.embed(cfg, params["tok_embed"], token, plan)
+    specs = decoder_param_specs(cfg)
     for prefix, L, moe_layer in stacks(cfg):
         kp, vp = (cache[n] for n in _cache_keys(prefix))
-        for i in range(L):
-            lp = layer_params(params, i, prefix)
+        for i, lp in enumerate(stack_slices(specs, params, prefix, L, plan)):
             h = Lx.norm(cfg, x, lp["ln1"])
-            h, _, _ = Lx.paged_decode_attention(cfg, h, lp, "", kp[i], vp[i], pt, pos)
-            x, _ = _ffn(cfg, x + h, lp, moe_layer)
+            h, _, _ = Lx.paged_decode_attention(cfg, h, lp, "", kp[i], vp[i], pt, pos,
+                                                plan=plan)
+            x, _ = _ffn(cfg, x + h, lp, moe_layer, plan)
     new_cache = dict(cache)
     new_cache["pos"] = pos + 1
-    return logits(cfg, params, x)[:, 0, :], new_cache
+    return logits(cfg, params, x, plan)[:, 0, :], new_cache

@@ -56,6 +56,17 @@ def init(params: Params) -> Dict[str, Any]:
     }
 
 
+def abstract_state(param_specs, device="meta") -> Dict[str, Any]:
+    """Stand-ins matching :func:`init` for the dry run (meta tensors, or
+    fake ones under ``FakeTensorMode``)."""
+    def moments():
+        return {p: torch.empty(s.shape, dtype=torch.float32, device=device)
+                for p, s in param_specs.items()}
+
+    return {"m": moments(), "v": moments(),
+            "step": torch.empty((), dtype=torch.int32, device=device)}
+
+
 def state_axes(param_specs) -> Dict[str, Any]:
     """Logical axes for the optimizer state (the params'; ZeRO)."""
     ax = {p: s.axes for p, s in param_specs.items()}

@@ -147,10 +147,19 @@ def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
     return step
 
 
+def _inference(params: Params):
+    """``torch.inference_mode()``, or ``torch.no_grad()`` on a mesh: DTensor
+    views of tensors made outside inference mode cannot be taken inside
+    it."""
+    if any(isinstance(v, DTensor) for v in params.values()):
+        return torch.no_grad()
+    return torch.inference_mode()
+
+
 def make_prefill_step(model: Model) -> Callable:
-    @torch.inference_mode()
     def prefill_step(params, inputs):
-        return model.prefill(params, inputs)
+        with _inference(params):
+            return model.prefill(params, inputs)
 
     return prefill_step
 
@@ -158,10 +167,12 @@ def make_prefill_step(model: Model) -> Callable:
 def make_decode_step(model: Model) -> Callable:
     """Greedy one-token decode (the ``serve_step`` of the decode cells)."""
 
-    @torch.inference_mode()
     def decode_step(params, cache, token):
-        logits, new_cache = model.decode(params, cache, token)
-        next_token = logits.argmax(dim=-1).to(torch.int32)[:, None]
+        with _inference(params):
+            logits, new_cache = model.decode(params, cache, token)
+            # the vocab gathered on a mesh: each rank takes its own rows' argmax
+            logits = model.plan.constrain(logits, ("batch", None))
+            next_token = logits.argmax(dim=-1).to(torch.int32)[:, None]
         return next_token, new_cache
 
     return decode_step

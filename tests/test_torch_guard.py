@@ -56,10 +56,12 @@ _NET_BANNED = re.compile(
     r"|\bos\.fork\b|\bpty\.fork\b"
     r"|\bimport\s+subprocess\b|\bfrom\s+subprocess\s+import)"
 )
-# The one exception: the kernel build runs nvcc, one compiler process per
+# The exceptions: the kernel build runs nvcc, one compiler process per
 # CUDA source, which is a build step and carries no parcel — as the
-# reference's dry-run compiler driver runs its compile cells.
-_NET_ALLOWED_FILES = {PORT / "kernels" / "_build.py"}
+# reference's dry run compiles its cells; and the port's dry run
+# (``launch/dryrun.py --all``) traces each cell in a process of its own,
+# as the reference's does.
+_NET_ALLOWED_FILES = {PORT / "kernels" / "_build.py", PORT / "launch" / "dryrun.py"}
 
 
 def test_no_sockets_or_process_creation_outside_net():

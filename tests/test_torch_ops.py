@@ -615,3 +615,80 @@ def test_ssd_scan_plain_pads_and_carries_like_the_oracle(B, S, H, P, G, N, chunk
     want_y, want_state = ref.ssd(*inputs)
     _close(y, want_y.numpy(), 2e-5, 1e-5)
     _close(state, want_state.numpy(), 2e-5, 1e-5)
+
+
+# ------------------------------------------------ the ops' fake implementations
+def _op_cases():
+    """Per kernel: its wrapper's call on CPU tensors (the plain version)."""
+    g = torch.Generator().manual_seed(0)
+
+    def r(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=g).to(dtype)
+
+    bf = torch.bfloat16
+    q, k = r(2, 24, 4, 16, dtype=bf), r(2, 24, 2, 16, dtype=bf)
+    pages, pt = r(6, 8, 2, 16, dtype=bf), torch.tensor([[1, 2, 3], [4, 5, 0]], dtype=torch.int32)
+    x, dt_, A, Bm = r(2, 24, 4, 8, dtype=bf), r(2, 24, 4), -r(4).abs(), r(2, 24, 1, 16, dtype=bf)
+    return {
+        "flash_attention": lambda: ops.flash_attention(q, k, k),
+        "decode_attention": lambda: ops.decode_attention(
+            q[:, 0], k, k, torch.tensor([5, 24], dtype=torch.int32)),
+        "paged_decode_attention": lambda: ops.paged_decode_attention(
+            q[:, 0], pages, pages, pt, torch.tensor([20, 9], dtype=torch.int32)),
+        "ssd_scan": lambda: ops.ssd_scan(x, dt_, A, Bm, Bm, chunk=8, return_final_state=True),
+        "rglru_scan": lambda: ops.rglru_scan(r(2, 24, 32), r(2, 24, 32)),
+        "stream_triad": lambda: ops.stream_triad(r(1000, dtype=bf), r(1000, dtype=bf)),
+    }
+
+
+@pytest.mark.parametrize("name", list(ops.KERNELS))
+def test_op_fake_implementation_gives_plain_shapes_and_dtypes(name):
+    """Under FakeTensorMode each ``repro_torch::`` op runs its fake
+    implementation: the plain version's output shapes and dtypes, no data,
+    no launch counted; the op is registered under the namespace."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    assert ops.OPS[name] is getattr(torch.ops.repro_torch, name).default
+    call = _op_cases()[name]
+    want = call()
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        got = call()
+    want, got = (want, got) if isinstance(want, tuple) else ((want,), (got,))
+    assert [(tuple(t.shape), t.dtype) for t in got] == [(tuple(t.shape), t.dtype) for t in want]
+    assert ops.launch_counts()[name] == 0
+
+
+@pytest.mark.parametrize("name", list(ops.KERNELS))
+def test_op_flop_formula_counts_the_kernel_tables_bound(name):
+    """``FlopCounterMode`` counts each op by its formula: flash 4·Dh·H·B
+    over the causal pairs, the decode kernels 4·Dh·H over the live K/V
+    rows, the SSD the least of its three ways (recurrence, chunked dual
+    form, the kernel's split products), the RG-LRU 2·B·S·W, the triad 2·N."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as fc:
+        _op_cases()[name]()
+    flops, ways = ops.ssd_flops(2, 24, 4, 8, 16, 8, "bfloat16", final=True)
+    want = {
+        "flash_attention": 4 * 16 * 4 * 2 * (24 * 25 // 2),
+        "decode_attention": 4 * 16 * 4 * (5 + 24),
+        "paged_decode_attention": 4 * 16 * 4 * (20 + 9),
+        "ssd_scan": sum(flops.values()),
+        "rglru_scan": 2 * 2 * 24 * 32,
+        "stream_triad": 2 * 1000,
+    }[name]
+    assert fc.get_total_flops() == want
+    if name == "ssd_scan":
+        assert flops in ways.values() and ways["recurrence"] == {"float32": 5 * 16 * 8 * 24 * 4 * 2}
+
+
+def test_flash_pairs_count_the_unmasked_pairs():
+    """Causal, windowed and valid_len masks, against a brute count."""
+    for S in (1, 5, 17):
+        for causal in (True, False):
+            for window in (0, 3):
+                for valid_len in (0, 4):
+                    K = valid_len if 0 < valid_len < S else S
+                    want = sum((j <= i or not causal) and (window <= 0 or j > i - window)
+                               for i in range(S) for j in range(K))
+                    assert ops.flash_pairs(S, causal, window, valid_len) == want
