@@ -73,6 +73,11 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    internvl2_2b (B=8, pages of 16, mixed lengths); each timed beside SDPA;
    ``flash_attention_bwd`` non-causal against autograd at whisper's encoder
    training shape; and the plain cross-attention's device time beside SDPA.
+   The dense configs' head layouts (Dh 128): flash at qwen25_3b (16 / 2
+   heads, G = 8), starcoder2_15b (48 / 4, G = 12) and granite_34b (MQA, 48
+   / 1, G = 48) at S = 512, granite_34b's also at S = 1000 and with
+   valid_len 700; paged decode at all three (B=8, pages of 16, phase 5e's
+   lengths) and at G = 48 on a ``decode_splits`` edge ± 1; each timed.
 4. Path parity — starcoder2_3b at full width and 2 layers, the same params
    on the card and on the CPU: prefill + 4 paged decode steps; fp32 (TF32
    off) logits and greedy tokens, then bf16 logits.
@@ -91,6 +96,10 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    frames, a prefill, 4 decode steps on the dense slots) and internvl2_2b
    at full width and 2 layers (patches and two prompts right-padded into
    one paged prefill, 4 paged decode steps); exact launch counts.
+4e. The same for the dense configs no other phase runs, fp32: qwen25_3b,
+   starcoder2_15b and granite_34b at full width and 2 layers (params drawn
+   on the card, copied to the CPU), two prompts right-padded into one
+   prefill, 4 paged decode steps; exact launch counts.
 5. Serve — the full 30-layer starcoder2_3b through ``Router.replicate``
    with one engine (random init from seed 0, max_batch 8, cache_len 1024,
    page 16): 16 greedy requests with prompts of 16–512 tokens and 2
@@ -135,6 +144,14 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    internvl2_2b on phase 5's paged engine and traffic, each prompt 256
    image positions longer (seeded patches): 24 flash launches a prefill
    and 24 paged decodes a step, and phase 6's profile.  Reports as 5.
+5e. Serve the dense configs on phase 5's engine: qwen25_3b (36 layers) and
+   starcoder2_15b (40) at full width and depth, granite_34b at full width
+   and 40 of its 88 layers (88 would hold 95.7 GB of serving params, more
+   than the card); 8 greedy requests of 16–512 prompt tokens and 1 sampled
+   (T=0.8, top-k 40), 32 new tokens each, no profile: exactly L flash
+   launches a prefill and L paged decodes a step; tokens/s, TTFT p50,
+   decode-step p50, the setup's peak beside ``_serving_bytes``'s
+   prediction, the serving peak.
 6. Profile — where one decode step (B=8) and one 512-token prefill spend
    their time: wall vs device kernel time (``torch.profiler``), and the
    decode-attention and flash kernels' shares, outside the engine's threads.
@@ -298,10 +315,19 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    loss within ``DRY_LOSS_TOL``) and full recurrentgemma_2b prefill + 8
    decode steps (exact RG-LRU, flash and dense-decode launches, equal
    greedy tokens).  The report lands in ``REPORT["dryrun"]``.
+14. The reference's last entry points, ported: ``examples/quickstart_torch.py``
+   (its printed values as the reference quickstart's) and
+   ``examples/serve_lm_torch.py`` in one process (10 streamed requests over
+   two replicas of the qwen25_3b smoke config; 2 flash launches a request)
+   on the card; then ``examples/tiled_cholesky_torch.py``'s dataflow tiled
+   Cholesky at N = 16,384 in tiles of 1,024, fp32 with TF32 off, against
+   ``torch.linalg.cholesky`` on the same matrix: max|L − L_lib| /
+   max|L_lib| ≤ 1e-5 and exactly 816 tasks executed each call; the median
+   time of each beside the other (reported, not gated).
 
 The second-to-last line of standard output is the ``kernels`` JSON, each
-kernel's launches summed over the paths of phases 5, 5c, 5b, 5d, 7, 8b, 8c,
-8d, 9, 10, 11, 12 and 13(d) (phase 10's summed over its localities); the last
+kernel's launches summed over the paths of phases 5, 5c, 5b, 5d, 5e, 7, 8b,
+8c, 8d, 9, 10, 11, 12, 13(d) and 14 (phase 10's summed over its localities); the last
 is ``{"ok": true, "device": {...}}``.  A fuller report is written to
 ``chiprun_out/chip_smoke.json``.
 """
@@ -527,8 +553,7 @@ def phase_kernels(torch, np):
     from repro_torch.kernels import ops
     from repro_torch.kernels.decode_attention import (paged_decode_attention_plain,
                                                       split_ranges)
-    from repro_torch.kernels.flash_attention import (flash_attention_fwd,
-                                                     flash_attention_plain, flash_plan)
+    from repro_torch.kernels.flash_attention import flash_attention_plain
 
     torch.backends.cuda.matmul.allow_tf32 = False  # fp32 plain versions in fp32
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -682,6 +707,7 @@ def phase_kernels(torch, np):
                    paged_decode_attention_plain(*f32, pt, lengths),
                    paged_decode_attention_plain(*f32, pt, (lengths - 1).clamp_min(1)))
     _check_ops_kernels(torch, gen, rng, record)
+    _check_dense_configs_attention(torch, record)
     _check_flash_bwd(torch, gen)
     _check_scan_bwd(torch, gen)
     REPORT["kernel_checks"] = checks
@@ -712,20 +738,8 @@ def phase_kernels(torch, np):
             (1, WHISPER_FRAMES) + WHISPER_ATTN + (False,), (1, 64) + WHISPER_ATTN + (True,),
             (1, 2048) + WHISPER_ATTN + (True,), (1, 2048) + WHISPER_ATTN + (False,),
             (1, 512) + INTERNVL_ATTN + (True,)):
-        q, k, v = _flash_inputs(torch, gen, B, S, H, KV, Dh, bf16)
-        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        pairs = S * (S + 1) / 2 if causal else S * S
-        timings["flash_attention"].append(_timing(
-            torch, flush, {"B": B, "S": S, "H": H, "KV": KV, "Dh": Dh,
-                           "dtype": "bfloat16", "causal": causal,
-                           "plan": flash_plan(B, S, H, KV, Dh,
-                                              torch.cuda.current_device())._asdict()},
-            lambda: flash_attention_fwd(q, k, v, causal=causal),
-            lambda: flash_attention_plain(q, k, v, causal=causal),
-            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
-                                                   enable_gqa=True),
-            2 * (2 * B * S * H * Dh + 2 * B * S * KV * Dh),  # q, o, k, v
-            {"bfloat16": 4 * Dh * H * B * pairs}))  # the unmasked pairs
+        timings["flash_attention"].append(
+            _flash_timing(torch, F, flush, gen, B, S, H, KV, Dh, causal))
     B, H, KV, Dh, page, maxp = 8, 24, 2, 128, 16, 64
     lens = rng.integers(16, 577, size=B).tolist()   # prompts 16–512 + 64 new
     timings["paged_decode_attention"].append(_paged_timing(
@@ -741,6 +755,7 @@ def phase_kernels(torch, np):
         torch, flush, gen, _internvl_lens(), *INTERNVL_ATTN, page, maxp))
     REPORT["cross_attention_ms"] = _time_cross_attention(torch, F, gen, flush)
     timings.update(_time_ops_kernels(torch, F, gen, flush))
+    _time_dense_configs_attention(torch, F, flush, timings)
     REPORT["kernel_timings"] = timings
     for name, rows in timings.items():
         for r in rows:
@@ -983,7 +998,81 @@ GRANITE_ATTN = (24, 8, 64)
 WHISPER_ATTN = (12, 12, 64)
 WHISPER_FRAMES = 1500
 INTERNVL_ATTN = (16, 8, 128)
+# the dense configs of phases 4e and 5e (H, KV, Dh): qwen25_3b 16 q heads on
+# 2 KV heads (G = 8, one 8-head tile a group), starcoder2_15b 48 on 4 (G =
+# 12, three tiles of 4), granite_34b MQA 48 on 1 (G = 48: six tiles of 8 in
+# flash, three m-tiles of 16 in decode, a grid of B × 1 × 3 blocks a split)
+QWEN_ATTN = (16, 2, 128)
+STARCODER15_ATTN = (48, 4, 128)
+GRANITE34_ATTN = (48, 1, 128)
+DENSE_ATTN = {"qwen25_3b": QWEN_ATTN, "starcoder2_15b": STARCODER15_ATTN,
+              "granite_34b": GRANITE34_ATTN}
 STREAM_N = 2 ** 27            # 512 MiB per fp32 array, > 4× the 50 MB L2
+
+
+def _dense_lens():
+    """Phase 5e's decode lengths, B=8: prompts of 16–512 tokens + up to 32
+    new (their own draw, so that the other cases keep theirs)."""
+    import numpy as np
+
+    return np.random.default_rng(SEED + 13).integers(16, 512 + 33, size=8).tolist()
+
+
+def _check_dense_configs_attention(torch, record):
+    """Phase 3 at the dense configs' head layouts (``DENSE_ATTN``), from a
+    generator of their own: flash at S = 512 for each, granite_34b's also
+    at S = 1000 and with valid_len 700 (its off-by-one checked); paged
+    decode at B=8, pages of 16, phase 5e's lengths; and at granite_34b's G
+    = 48 lengths on an edge of ``decode_splits``'s ranges and ±1."""
+    from repro_torch.kernels.decode_attention import (paged_decode_attention_plain,
+                                                      split_ranges)
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    flash_cases = [((1, 512) + attn, 0) for attn in DENSE_ATTN.values()]
+    flash_cases += [((1, 1000) + GRANITE34_ATTN, 0), ((1, 1000) + GRANITE34_ATTN, 700)]
+    page, maxp = 16, 64
+    paged_cases = [(_dense_lens(), attn) for attn in DENSE_ATTN.values()]
+    H, KV, _ = GRANITE34_ATTN
+    edge = page * split_ranges(maxp, _splits(torch, 8, H, KV, maxp, page))[0][1]
+    paged_cases.append(([edge - 1, edge, edge + 1, 2 * edge - 1, 2 * edge, 2 * edge + 1,
+                         1024 - edge, 1024], GRANITE34_ATTN))
+    for dtype in (torch.float32, torch.bfloat16):
+        for (B, S, H, KV, Dh), vl in flash_cases:
+            q, k, v = _flash_inputs(torch, gen, B, S, H, KV, Dh, dtype)
+            o = torch.ops.repro_torch.flash_attention(q, k, v, True, 0, vl)
+            torch.cuda.synchronize()
+            f32 = [x.float() for x in (q, k, v)]
+            record("flash_attention", [B, S, H, KV, Dh, 1, 0, vl], dtype, o,
+                   flash_attention_plain(q, k, v, causal=True, valid_len=vl),
+                   flash_attention_plain(*f32, causal=True, valid_len=vl),
+                   flash_attention_plain(*f32, causal=True, valid_len=vl - 1) if vl else None)
+        for lens, (H, KV, Dh) in paged_cases:
+            q, kp, vp, pt, lengths = _paged_inputs(torch, gen, lens, H, KV, Dh, page,
+                                                   maxp, dtype)
+            o = torch.ops.repro_torch.paged_decode_attention(q, kp, vp, pt, lengths)
+            torch.cuda.synchronize()
+            f32 = [x.float() for x in (q, kp, vp)]
+            splits = _splits(torch, len(lens), H, KV, maxp, page)
+            record("paged_decode_attention", [len(lens), H, KV, Dh, page, maxp, lens,
+                                              f"splits {splits}"], dtype,
+                   o, paged_decode_attention_plain(q, kp, vp, pt, lengths),
+                   paged_decode_attention_plain(*f32, pt, lengths),
+                   paged_decode_attention_plain(*f32, pt, (lengths - 1).clamp_min(1)))
+
+
+def _time_dense_configs_attention(torch, F, flush, timings):
+    """The dense configs' rows of the kernel table, appended after the
+    others (whose draws they leave alone): flash at S = 512 for each head
+    layout and granite_34b's at S = 1000, beside SDPA; paged decode at
+    phase 5e's lengths for each."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    for S, attn in [(512, a) for a in DENSE_ATTN.values()] + [(1000, GRANITE34_ATTN)]:
+        timings["flash_attention"].append(
+            _flash_timing(torch, F, flush, gen, 1, S, *attn, True))
+    for attn in DENSE_ATTN.values():
+        timings["paged_decode_attention"].append(_paged_timing(
+            torch, flush, gen, _dense_lens(), *attn, 16, 64))
 
 
 def _decode_inputs(torch, gen, B, T, H, KV, Dh, dtype):
@@ -1178,6 +1267,27 @@ def _timing(torch, flush, shape, kernel, plain, library, nbytes, flops):
             "plain_ms": _time_ms(torch, plain, flush),
             "library_ms": None if library is None else _time_ms(torch, library, flush),
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "flops": flops}
+
+
+def _flash_timing(torch, F, flush, gen, B, S, H, KV, Dh, causal):
+    """The flash kernel's timing row, bf16, beside SDPA (GQA)."""
+    from repro_torch.kernels.flash_attention import (flash_attention_fwd,
+                                                     flash_attention_plain, flash_plan)
+
+    q, k, v = _flash_inputs(torch, gen, B, S, H, KV, Dh, torch.bfloat16)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    pairs = S * (S + 1) / 2 if causal else S * S
+    return _timing(
+        torch, flush, {"B": B, "S": S, "H": H, "KV": KV, "Dh": Dh,
+                       "dtype": "bfloat16", "causal": causal,
+                       "plan": flash_plan(B, S, H, KV, Dh,
+                                          torch.cuda.current_device())._asdict()},
+        lambda: flash_attention_fwd(q, k, v, causal=causal),
+        lambda: flash_attention_plain(q, k, v, causal=causal),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                               enable_gqa=True),
+        2 * (2 * B * S * H * Dh + 2 * B * S * KV * Dh),  # q, o, k, v
+        {"bfloat16": 4 * Dh * H * B * pairs})  # the unmasked pairs
 
 
 def _paged_timing(torch, flush, gen, lens, H, KV, Dh, page, maxp):
@@ -1612,6 +1722,45 @@ def phase_parity_encdec_vlm(torch, np):
     REPORT["parity_encdec_vlm"] = out
 
 
+# ----------------------------------------------------------------- phase 4e
+def phase_parity_dense(torch, np):
+    """Phase 4's check for the dense configs no other phase runs, fp32 with
+    TF32 off: qwen25_3b, starcoder2_15b and granite_34b at full width and
+    2 layers, the same params on the card and on the CPU (drawn on the
+    card, where granite_34b's 6.7 GB of fp32 draws take no host time, and
+    copied to the host), two prompts right-padded into one prefill, then 4
+    paged decode steps: logits within phase 4's fp32 limit, equal greedy
+    tokens, exactly 2 flash launches and 2 paged decodes a step."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    steps, out = 4, {}
+    for arch in DENSE_ATTN:
+        t0 = time.perf_counter()
+        cfg = replace(get_config(arch), num_layers=2, dtype="float32")
+        params = {k: v.cpu() for k, v in Model(cfg).init(SEED).items()}
+        torch.cuda.empty_cache()
+        rng = np.random.default_rng(SEED + 15)
+        prompts = [rng.integers(1, cfg.vocab_size, size=n).tolist() for n in (37, 20)]
+        ref = _path(torch, cfg, params, "cpu", prompts, steps)
+        ops.reset_launch_counts()
+        gpu = _path(torch, cfg, params, "cuda", prompts, steps, forced=ref[1])
+        launches = ops.launch_counts()
+        _check_launches(f"parity {arch}", launches,
+                        {"flash_attention": 2, "paged_decode_attention": 2 * steps})
+        out[arch] = _parity_report(
+            torch, f"{arch} (2 layers, {cfg.num_heads}/{cfg.num_kv_heads} heads, d_model "
+                   f"{cfg.d_model}, vocab {cfg.vocab_size})", gpu, ref, launches,
+            layers=2, heads=[cfg.num_heads, cfg.num_kv_heads], prompts=[37, 20],
+            seconds=time.perf_counter() - t0)
+        del params, ref, gpu
+        gc.collect()
+    REPORT["parity_dense"] = out
+
+
 # ------------------------------------------------------------------ phase 5
 def _drive(torch, router, eng, reqs, max_new, card, vocab, slos=None):
     """Run ``reqs`` [(prompt, sampling)] through the router, each streamed
@@ -1800,19 +1949,24 @@ def _serve_slow(eng, n_reqs):
         f"engine's; analysis {analysis_s:.2f} s, with the scrape {out['wall_s']:.2f} s")
 
 
-def _serve_paged(torch, np, card, arch, tag, extra=None, observe=False):
-    """Phases 5, 5c and 5d's VLM: ``arch`` at full width and depth through
-    ``Router.replicate`` with one paged engine and pipelined admission
-    (random init from SEED, made one tensor at a time in bf16; max_batch
-    8, cache_len 1024, page 16): 16 greedy requests with prompts of
-    16–512 tokens and 2 sampled (T=0.8, top-k 40), 64 new tokens each;
+SERVE_TRAFFIC = (16, 2, 64)  # greedy requests, sampled ones, new tokens each
+
+
+def _serve_paged(torch, np, card, arch, tag, extra=None, observe=False, cfg=None,
+                 traffic=SERVE_TRAFFIC, profile=True):
+    """Phases 5, 5c, 5d's VLM and 5e: ``arch`` (``cfg`` when given, else its
+    full config) through ``Router.replicate`` with one paged engine and
+    pipelined admission (random init from SEED, made one tensor at a time
+    in bf16; max_batch 8, cache_len 1024, page 16): ``traffic``'s greedy
+    requests with prompts of 16–512 tokens and its sampled ones (T=0.8,
+    top-k 40), each with its new tokens (16, 2 and 64 but in phase 5e);
     exactly one flash launch per layer a prefill and one paged decode per
-    layer a step; then phase 6's profile of the engine's model.  The vlm
-    family's prompts are ``n_patches`` tokens longer (its image
-    positions), its patches ``extra``.  With ``observe`` the greedy
-    requests are ``interactive`` and the sampled ``batch``, and the run's
-    trace and counters go through ``_serve_slow``.  Returns the path's
-    launches."""
+    layer a step; then, with ``profile``, phase 6's profile of the
+    engine's model.  The vlm family's prompts are ``n_patches`` tokens
+    longer (its image positions), its patches ``extra``.  With ``observe``
+    the greedy requests are ``interactive`` and the sampled ``batch``, and
+    the run's trace and counters go through ``_serve_slow``.  Returns the
+    path's launches."""
     import repro_torch.core as core
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
@@ -1820,8 +1974,8 @@ def _serve_paged(torch, np, card, arch, tag, extra=None, observe=False):
     from repro_torch.serve.router import Router, default_extra_inputs
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_config(arch)
-    max_new = 64
+    cfg = cfg or get_config(arch)
+    n_greedy, n_sampled, max_new = traffic
     core.init(pools={"default": 4, "prefill": 2, "io": 1})
     try:
         torch.cuda.reset_peak_memory_stats()
@@ -1844,15 +1998,16 @@ def _serve_paged(torch, np, card, arch, tag, extra=None, observe=False):
 
         rng = np.random.default_rng(SEED)
         greedy = [rng.integers(1, cfg.vocab_size, size=image + n).tolist()
-                  for n in rng.integers(16, 513, size=16)]
+                  for n in rng.integers(16, 513, size=n_greedy)]
         sampled = [rng.integers(1, cfg.vocab_size, size=image + n).tolist()
-                   for n in rng.integers(16, 513, size=2)]
+                   for n in rng.integers(16, 513, size=n_sampled)]
         hot = SamplingParams(temperature=0.8, top_k=40)
         reqs = [(p, None) for p in greedy] + [(p, hot) for p in sampled]
         slos = (["interactive"] * len(greedy) + ["batch"] * len(sampled)
                 if observe else None)
         serve = _drive(torch, router, eng, reqs, max_new, card, cfg.vocab_size, slos)
-        serve.update(setup_s=setup_s, setup_peak_bytes=setup_peak, arch=arch)
+        serve.update(setup_s=setup_s, setup_peak_bytes=setup_peak, arch=arch,
+                     layers=cfg.num_layers)
         if observe:
             _serve_slow(eng, len(reqs))
         launches, prefills, steps = serve["launches"], serve["prefills"], serve["decode_steps"]
@@ -1863,7 +2018,9 @@ def _serve_paged(torch, np, card, arch, tag, extra=None, observe=False):
         _log_serve(tag, serve)
         log(f"[{tag}] setup {setup_s:.1f} s, peak {setup_peak / 2**30:.2f} GiB; launches "
             f"{launches} = {L} × {prefills} prefills, {L} × {steps} decode steps")
-        phase_profile(torch, np, eng, card, tag.replace("serve", "profile").replace(" ", "_"))
+        if profile:
+            phase_profile(torch, np, eng, card,
+                          tag.replace("serve", "profile").replace(" ", "_"))
         eng.close()
         return launches
     finally:
@@ -1882,6 +2039,67 @@ def phase_serve_moe(torch, np, card):
     on phase 5's traffic: 28 flash launches a prefill, 28 paged decodes a
     step."""
     return _serve_paged(torch, np, card, "deepseek_moe_16b", "serve deepseek_moe_16b")
+
+
+# ----------------------------------------------------------------- phase 5e
+# (arch, layers served: None for the config's own): granite_34b is 47.25 B
+# params, 94.5 GB in bf16, more than one card holds, so it serves at full
+# width and 40 of its 88 layers (the widths set every kernel's shape)
+SERVE_DENSE = (("qwen25_3b", None), ("starcoder2_15b", None), ("granite_34b", 40))
+SERVE_DENSE_TRAFFIC = (8, 1, 32)
+
+
+def _serving_bytes(cfg):
+    """(bytes of the serving params, bytes of the largest fp32 draw) by the
+    port's param specs: each param at the dtype ``compute_params`` gives
+    it (bf16 but the fp32 norms and biases of ``FP32_PARAMS``) and the fp32
+    unembedding beside them; ``init_compute`` draws each param in fp32
+    before the cast, so the setup peaks near their sum."""
+    from repro_torch.models import transformer
+    from repro_torch.models.model import param_specs
+
+    specs = param_specs(cfg)
+    size = {p: math.prod(s.shape) for p, s in specs.items()}
+    held = sum(n * (4 if p.rsplit("/", 1)[-1] in transformer.FP32_PARAMS else 2)
+               for p, n in size.items())
+    held += 4 * size["tok_embed" if cfg.tie_embeddings else "lm_head"]
+    return held, 4 * max(size.values())
+
+
+def phase_serve_dense(torch, np, card):
+    """Phase 5e: qwen25_3b (36 layers) and starcoder2_15b (40) at full width
+    and depth and granite_34b at full width and 40 of 88 layers, each on
+    phase 5's engine (max_batch 8, cache_len 1024, page 16) with 8 greedy
+    requests of 16–512 prompt tokens and 1 sampled (T=0.8, top-k 40), 32 new
+    tokens each, no profile: exactly L flash launches a prefill and L paged
+    decodes a step, token ids in the vocab; tokens/s, TTFT p50, decode-step
+    p50, the setup's and the serving run's peaks beside the param bytes.
+    Returns the launches summed over the three runs."""
+    from repro_torch.configs import get_config
+
+    total, out = {}, {}
+    for arch, layers in SERVE_DENSE:
+        full = get_config(arch)
+        cfg = full if layers is None else replace(full, num_layers=layers)
+        held, draw = _serving_bytes(cfg)
+        cut = ("" if layers is None else
+               f", {layers} of {full.num_layers} layers: all {full.num_layers} hold "
+               f"{_serving_bytes(full)[0] / 1e9:.1f} GB of serving params, more than the "
+               f"card's {torch.cuda.get_device_properties(0).total_memory / 1e9:.1f} GB")
+        log(f"[serve {arch}] full width{cut}; {cfg.num_layers} layers: serving params "
+            f"{held / 1e9:.1f} GB, largest fp32 draw {draw / 1e9:.2f} GB, setup peak "
+            f"predicted ≤ {(held + draw) / 1e9:.1f} GB")
+        tag = f"serve {arch}"
+        launches = _serve_paged(torch, np, card, arch, tag, cfg=cfg,
+                                traffic=SERVE_DENSE_TRAFFIC, profile=False)
+        run = REPORT.pop(tag.replace(" ", "_"))
+        run.update(full_layers=full.num_layers, serving_param_bytes=held,
+                   largest_fp32_draw_bytes=draw)
+        out[arch] = run
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+    REPORT["serve_dense"] = out
+    return total
 
 
 # ----------------------------------------------------------------- phase 5b
@@ -2072,13 +2290,30 @@ PROFILE_GROUPS = (("flash", ("flash_fwd",)), ("decode", ("repro_torch::decode::"
                   ("reduce", ("reduce",)), ("elementwise", ("elementwise",)))
 
 
+def _device_kernels(prof):
+    """[(name, device µs, count)] of a finished ``torch.profiler`` run's
+    device-side events (kernels, copies, fills), summed by name, read from
+    its raw kineto events: the aten ops that launched them would carry
+    the same time again, and ``key_averages()`` first builds a Python
+    event tree, which takes about a minute for a training step's ~10⁵
+    kernels."""
+    from torch.autograd import DeviceType
+
+    by = {}
+    for ev in prof.profiler.kineto_results.events():
+        if (ev.device_type() == DeviceType.CUDA and ev.duration_ns() > 0
+                and not ev.is_hidden_event()):
+            us, count = by.get(ev.name(), (0.0, 0))
+            by[ev.name()] = (us + ev.duration_ns() / 1e3, count + 1)
+    return [(name, us, count) for name, (us, count) in by.items()]
+
+
 def _device_profile(torch, fn, n):
     """Wall time of ``n`` calls of ``fn`` (each ends in a synchronize),
     then the same under torch.profiler with its device kernel time and the
     attention kernels' share of it (decode: the split and combine kernels
     of ``csrc/decode_attention.cuh``; flash: ``csrc/flash_attention.cu``);
     device time None if the profiler saw none."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     t0 = time.perf_counter()
@@ -2086,39 +2321,34 @@ def _device_profile(torch, fn, n):
         fn()
         torch.cuda.synchronize()
     wall_plain = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
             fn()
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    # device-side events only: the aten ops that launched them carry the
-    # same time again as their own device time
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    kernels = _device_kernels(prof)
     out = {"wall_ms": wall_plain * 1e3 / n, "profiled_wall_ms": wall * 1e3 / n}
     if not kernels:
         return {**out, "device_ms": None}
-    device_us = sum(e.self_device_time_total for e in kernels)
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    decode = [e for e in kernels if "repro_torch::decode::" in e.key]
-    flash = [e for e in kernels if "flash_fwd" in e.key]
+    device_us = sum(us for _, us, _ in kernels)
+    top = sorted(kernels, key=lambda k: -k[1])[:6]
+    decode = [k for k in kernels if "repro_torch::decode::" in k[0]]
+    flash = [k for k in kernels if "flash_fwd" in k[0]]
     groups = {}  # device ms by kind of kernel
-    for e in kernels:
-        key = e.key.lower()
+    for name, us, _ in kernels:
+        key = name.lower()
         kind = next((g for g, words in PROFILE_GROUPS if any(w in key for w in words)),
                     "other")
-        groups[kind] = groups.get(kind, 0.0) + e.self_device_time_total / 1e3 / n
+        groups[kind] = groups.get(kind, 0.0) + us / 1e3 / n
     return {**out, "device_ms": device_us / 1e3 / n, "groups_ms": groups,
-            "decode_attention_ms": sum(e.self_device_time_total for e in decode) / 1e3 / n,
-            "decode_attention_kernels": sum(e.count for e in decode) / n,
-            "flash_attention_ms": sum(e.self_device_time_total for e in flash) / 1e3 / n,
-            "flash_attention_kernels": sum(e.count for e in flash) / n,
+            "decode_attention_ms": sum(us for _, us, _ in decode) / 1e3 / n,
+            "decode_attention_kernels": sum(c for _, _, c in decode) / n,
+            "flash_attention_ms": sum(us for _, us, _ in flash) / 1e3 / n,
+            "flash_attention_kernels": sum(c for _, _, c in flash) / n,
             "busy_share": device_us / 1e6 / wall_plain,
-            "kernels_per_call": sum(e.count for e in kernels) / n,
-            "top": [(e.key[:60], e.self_device_time_total / 1e3 / n, e.count / n)
-                    for e in top]}
+            "kernels_per_call": sum(c for _, _, c in kernels) / n,
+            "top": [(name[:60], us / 1e3 / n, c / n) for name, us, c in top]}
 
 
 def phase_profile(torch, np, eng, card, key="profile"):
@@ -5018,6 +5248,165 @@ def phase_dryrun(torch, np, card):
     return launches
 
 
+# ----------------------------------------------------------------- phase 14
+# The reference's last entry points, ported as examples/*_torch.py, on the
+# card.  The tiled Cholesky at the paper's scale for one card: N = 16,384
+# in tiles of 1,024 (16 a side: 16 potrf, 120 trsm, 120 syrk, 560 gemm), fp32
+# with TF32 off, against one torch.linalg.cholesky call on the same matrix,
+# X·Xᵀ + N·I with X standard normal from seed 0 (bench_cholesky.py's).
+CHOLESKY = (16384, 1024)
+CHOLESKY_RTOL = 1e-5          # max|L − L_lib| / max|L_lib|
+CHOLESKY_REPS = 3             # timed calls of each, after one warm-up
+
+
+def _example(name):
+    """``examples/<name>.py`` as a module (examples/ is not a package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _examples_quickstart(torch):
+    """``quickstart_torch.main`` on the card: its values as the reference's."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        _example("quickstart_torch").main([])
+    lines = buf.getvalue().splitlines()
+    for want in ("future chain: 42", "dataflow DAG: 42", "task graph: 10",
+                 "par reduce: 499500", "reduce on the io pool: 499500",
+                 "par_task sort is a Future: [1, 2, 3]", "vec transform_reduce: 332833500",
+                 "parcel result: 32.0"):
+        check(want in lines, f"quickstart: no line {want!r} in {lines}")
+    log(f"[examples] quickstart_torch on cuda: {len(lines)} lines, every value as the "
+        f"reference's")
+    return lines
+
+
+def _examples_serve_lm(torch):
+    """``serve_lm_torch.main`` (one process, two replicas of the qwen25_3b
+    smoke config) on the card: 10 streamed requests of 13 tokens, token ids
+    in the vocab, both engines serving (their token counters, which earlier
+    phases' engines of the same names also moved, read before and after),
+    exactly 2 flash launches a request (2 layers, one prefill each) and
+    paged decodes in pairs, nothing else."""
+    import repro_torch.core as core
+    from repro_torch.kernels import ops
+
+    names = [f"/serve{{engine#{i}}}/tokens/generated" for i in range(2)]
+    before = [dict(core.counters.query(n)).get(n, 0.0) for n in names]
+    ops.reset_launch_counts()  # ← the example's path starts here
+    t0 = time.perf_counter()
+    report = _example("serve_lm_torch").main([])
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()  # ← and ends here
+    served = [core.counters.get_value(n) - b for n, b in zip(names, before)]
+    reqs = report["requests"]
+    check(len(reqs) == 10 and all(len(o) == 13 and all(0 <= t < 512 for t in o)
+                                  for _, _, o in reqs), f"serve_lm: requests {reqs}")
+    check(all(v > 0 for v in served) and sum(served) == 130,
+          f"serve_lm: tokens by engine {served}, not 130 over both")
+    decodes = launches["paged_decode_attention"]
+    check(decodes > 0 and decodes % 2 == 0, f"serve_lm: launches {launches}")
+    _check_launches("serve_lm", launches, {"flash_attention": 20,
+                                           "paged_decode_attention": decodes})
+    log(f"[examples] serve_lm_torch on cuda: 10 requests in {report['seconds']:.2f} s "
+        f"({wall:.2f} s with setup); tokens by engine {served}; launches {launches}")
+    return {"seconds": report["seconds"], "wall_s": wall, "launches": launches,
+            "tokens_by_engine": served}
+
+
+def _examples_cholesky(torch, np, card):
+    """The dataflow tiled Cholesky against ``torch.linalg.cholesky``:
+    max|L − L_lib| / max|L_lib| ≤ CHOLESKY_RTOL and exactly the DAG's 816
+    tasks executed by the default pool, each call; the median host time of
+    CHOLESKY_REPS calls of each, ending in a synchronize, and one dataflow
+    call's device-busy share under torch.profiler (reported)."""
+    import repro_torch.core as core
+
+    mod = _example("tiled_cholesky_torch")
+    N, tile = CHOLESKY
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    X = torch.from_numpy(np.random.default_rng(0).standard_normal((N, N))
+                         .astype(np.float32)).cuda()
+    A = X @ X.T + N * torch.eye(N, device="cuda")
+    del X
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    want_tasks = mod.tile_tasks(N // tile)
+    executed = "/scheduler{default}/tasks/executed"
+
+    def timed(fn):
+        times, out = [], None
+        for _ in range(CHOLESKY_REPS + 1):  # the first a warm-up
+            del out
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        return out, times
+
+    core.init(num_workers=4)
+    try:
+        tasks = []
+
+        def dataflow_call():
+            before = core.counters.get_value(executed)
+            L = mod.tiled_cholesky(A, tile, "cuda")
+            tasks.append(int(core.counters.get_value(executed) - before))
+            return L
+
+        L_lib, lib_s = timed(lambda: torch.linalg.cholesky(A))
+        L, flow_s = timed(dataflow_call)
+        prof = _device_profile(torch, dataflow_call, 1)
+    finally:
+        core.finalize()
+    err = ((L - L_lib).abs().max() / L_lib.abs().max()).item()
+    check(err <= CHOLESKY_RTOL,
+          f"tiled cholesky: max|L − L_lib| / max|L_lib| = {err} (tol {CHOLESKY_RTOL})")
+    check(want_tasks == 816 and tasks == [816] * (CHOLESKY_REPS + 3),
+          f"tiled cholesky: tasks executed {tasks}, not {want_tasks} each")
+    lib, flow = statistics.median(lib_s[1:]), statistics.median(flow_s[1:])
+    gflop = N ** 3 / 3 / 1e9
+    out = {"card": card, "N": N, "tile": tile, "dtype": "float32", "tf32": False,
+           "tasks": tasks, "rel_err": err, "rtol": CHOLESKY_RTOL,
+           "library_s": lib_s, "dataflow_s": flow_s, "library_p50_s": lib,
+           "dataflow_p50_s": flow, "ratio": flow / lib,
+           "library_gflops": gflop / lib, "dataflow_gflops": gflop / flow,
+           "build_matrix_s": build_s, "profile_dataflow": prof}
+    log(f"[cholesky] {card}: N={N}, tile {tile} ({N // tile}² tiles), fp32, TF32 off: "
+        f"dataflow {flow * 1e3:.1f} ms ({gflop / flow:.0f} GFLOP/s, {want_tasks} tasks) vs "
+        f"torch.linalg.cholesky {lib * 1e3:.1f} ms ({gflop / lib:.0f} GFLOP/s), ratio "
+        f"{flow / lib:.3f}; max|L − L_lib| / max|L_lib| {err:.3g} (tol {CHOLESKY_RTOL}); "
+        f"times (warm-up first) {[round(t * 1e3, 1) for t in flow_s]} / "
+        f"{[round(t * 1e3, 1) for t in lib_s]} ms")
+    busy = ("device time not measured (the profiler saw none)" if prof["device_ms"] is None
+            else f"device busy {prof['device_ms']:.1f} ms ({100 * prof['busy_share']:.1f}%), "
+                 f"{prof['kernels_per_call']:.0f} kernels, kinds "
+                 f"{ {g: round(t, 1) for g, t in prof['groups_ms'].items()} }")
+    log(f"[cholesky] one dataflow call: wall {prof['wall_ms']:.1f} ms, {busy}")
+    del A, L, L_lib
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_examples(torch, np, card):
+    """Phase 14: ``quickstart_torch`` and ``serve_lm_torch`` (one process)
+    on the card, then ``tiled_cholesky`` at CHOLESKY against the library
+    call.  Returns the serve_lm path's launches."""
+    out = {"quickstart": _examples_quickstart(torch)}
+    out["serve_lm"] = _examples_serve_lm(torch)
+    out["cholesky"] = _examples_cholesky(torch, np, card)
+    REPORT["examples"] = out
+    return out["serve_lm"]["launches"]
+
+
 def main() -> int:
     # the caching allocator grows segments in place instead of keeping
     # freed blocks of fixed-size segments apart: phase 8c's 16,384-token
@@ -5050,12 +5439,14 @@ def main() -> int:
     timed("4b", phase_parity_families, torch, np)
     timed("4c", phase_parity_moe, torch, np)
     timed("4d", phase_parity_encdec_vlm, torch, np)
+    timed("4e", phase_parity_dense, torch, np)
     # each path's launches (counts set to 0 just before it, read just
     # after), summed over the paths
     paths = [timed("5-6", phase_serve, torch, np, card),
              timed("5c", phase_serve_moe, torch, np, card),
              timed("5b", phase_serve_families, torch, np, card),
              timed("5d", phase_serve_encdec_vlm, torch, np, card),
+             timed("5e", phase_serve_dense, torch, np, card),
              timed("7", phase_ops, torch, np, card, timings)]
     timed("8a", phase_train_parity, torch, np)
     paths.append(timed("8b", phase_train, torch, np, card))
@@ -5073,6 +5464,7 @@ def main() -> int:
         stop_dry_pod_cell()
         raise
     paths.append(timed("13", phase_dryrun, torch, np, card))
+    paths.append(timed("14", phase_examples, torch, np, card))
     log(f"[time] {card}: phase seconds "
         f"{ {k: round(v, 1) for k, v in seconds.items()} }, {sum(seconds.values()):.1f} in all")
     launches = {k: sum(p.get(k, 0) for p in paths) for k in paths[0]}

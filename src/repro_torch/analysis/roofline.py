@@ -16,11 +16,12 @@ FLOPs exposes remat and quadratic-attention overheads.  Every term is a
 prediction from these constants, not a measurement.
 
     PYTHONPATH=src python -m repro_torch.analysis.roofline [pod|multipod] [DIR]
-    PYTHONPATH=src python -m repro_torch.analysis.roofline --cells [all] [DIR]
+    PYTHONPATH=src python -m repro_torch.analysis.roofline --cells [DIR]
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
 from dataclasses import dataclass
@@ -175,12 +176,21 @@ def cell_table(results_dir: Path = RESULTS, plan: str = "futurized") -> str:
     return "\n".join(lines)
 
 
-if __name__ == "__main__":
-    import sys
-
-    args = [a for a in sys.argv[1:] if a != "--cells"]
-    d = Path(args[1]) if len(args) > 1 else RESULTS
-    if "--cells" in sys.argv:
-        print(cell_table(d))
+def main(argv: Optional[List[str]] = None) -> None:
+    """``[MESH] [DIR]``: one mesh's table (``pod`` by default) of the
+    records in ``DIR``; ``--cells [DIR]``: the grid of :func:`cell_table`.
+    ``DIR`` defaults to ``results/dryrun_torch/``."""
+    ap = argparse.ArgumentParser(prog="python -m repro_torch.analysis.roofline")
+    ap.add_argument("--cells", nargs="?", const=RESULTS, type=Path, metavar="DIR",
+                    help="print the arch × shape grid of every record in DIR")
+    ap.add_argument("mesh", nargs="?", default="pod", choices=("pod", "multipod"))
+    ap.add_argument("dir", nargs="?", default=RESULTS, type=Path)
+    args = ap.parse_args(argv)
+    if args.cells is not None:
+        print(cell_table(args.cells))
     else:
-        print(format_table(table(d, mesh=args[0] if args else "pod")))
+        print(format_table(table(args.dir, mesh=args.mesh)))
+
+
+if __name__ == "__main__":
+    main()

@@ -303,13 +303,27 @@ class OpProfiler(TorchDispatchMode):
 
 
 # --------------------------------------------------------------- analysis
+def _is_tensor_entry(a: Any) -> bool:
+    return (isinstance(a, list) and len(a) == 2 and isinstance(a[0], list)
+            and isinstance(a[1], str))
+
+
 def _shape(a: Any) -> Any:
     """A traced argument back as a shape (tensors) or itself (scalars)."""
-    if isinstance(a, list) and len(a) == 2 and isinstance(a[0], list) \
-            and isinstance(a[1], str):
+    if _is_tensor_entry(a):
         return torch.Size(a[0])
     if isinstance(a, list):
         return [_shape(x) for x in a]
+    return a
+
+
+def _meta(a: Any) -> Any:
+    """A traced argument back as a meta tensor of its shape and dtype
+    (tensors) or itself (scalars): what a kernel op's FLOP formula reads."""
+    if _is_tensor_entry(a):
+        return torch.empty(a[0], dtype=getattr(torch, a[1]), device="meta")
+    if isinstance(a, list):
+        return [_meta(x) for x in a]
     return a
 
 
@@ -321,14 +335,14 @@ def record_flops(rec: Dict[str, Any], dots_only: bool = True) -> int:
     from torch.utils.flop_counter import flop_registry
 
     ns, name = rec["op"].split("::")
-    args = [_shape(a) for a in rec["args"]]
     if ns == "repro_torch":
         from repro_torch.kernels import ops
 
         if "live" in rec:
-            _b, H, Dh = args[0]
+            _b, H, Dh = _shape(rec["args"][0])
             return 4 * Dh * H * int(rec["live"])
-        return int(ops.FLOP_FORMULAS[name](*args, out_val=None))
+        return int(ops.FLOP_FORMULAS[name](*[_meta(a) for a in rec["args"]], out_val=None))
+    args = [_shape(a) for a in rec["args"]]
     if ns != "aten" or (dots_only and rec["op"] not in _DOTS):
         return 0
     formula = flop_registry.get(getattr(torch.ops.aten, name))

@@ -290,10 +290,12 @@ def _paged_flops(q, k_pages, v_pages, page_table, lengths, *_, out_val=None, **_
     return 4 * Dh * H * _live_rows(lengths, page_table.shape[1] * k_pages.shape[1])
 
 
-def _ssd_op_flops(x, dt, A, Bm, Cm, chunk, return_final_state, *_, out_shape=None, **__):
-    B, S, H, P = x
-    flops, _ways = ssd_flops(B, S, H, P, Bm[3], min(chunk, S), "bfloat16",
-                             final=return_final_state)
+def _ssd_op_flops(x, dt, A, Bm, Cm, chunk, return_final_state, *_, out_val=None, **__):
+    """Raw (tensor) arguments, so that the count follows x's dtype: an fp32
+    call's C·Bᵀ is fp32 work, as phase 3's bounds count it."""
+    B, S, H, P = x.shape
+    flops, _ways = ssd_flops(B, S, H, P, Bm.shape[3], min(chunk, S),
+                             str(x.dtype).removeprefix("torch."), final=return_final_state)
     return int(sum(flops.values()))
 
 
@@ -312,7 +314,8 @@ FLOP_FORMULAS = {
                                               get_raw=True)(_decode_flops),
     "paged_decode_attention": register_flop_formula(
         torch.ops.repro_torch.paged_decode_attention, get_raw=True)(_paged_flops),
-    "ssd_scan": register_flop_formula(torch.ops.repro_torch.ssd_scan)(_ssd_op_flops),
+    "ssd_scan": register_flop_formula(torch.ops.repro_torch.ssd_scan,
+                                      get_raw=True)(_ssd_op_flops),
     "rglru_scan": register_flop_formula(torch.ops.repro_torch.rglru_scan)(_rglru_flops),
     "stream_triad": register_flop_formula(torch.ops.repro_torch.stream_triad)(_triad_flops),
 }

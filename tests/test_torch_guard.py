@@ -19,7 +19,8 @@ FORBIDDEN = ("jax", "jaxlib")
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + sorted(ROOT.glob("chip_*.py"))
+    return (sorted(PORT.rglob("*.py")) + sorted(ROOT.glob("chip_*.py"))
+            + sorted((ROOT / "examples").glob("*_torch.py")))
 
 
 def _bad_import(name: str) -> bool:
@@ -31,6 +32,9 @@ def test_port_imports_neither_jax_nor_reference():
     files = _port_files()
     assert len(files) > 20 and (PORT / "serve" / "engine.py") in files
     assert ROOT / "chip_smoke.py" in files
+    assert {f.name for f in files if f.parent == ROOT / "examples"} >= {
+        "quickstart_torch.py", "serve_lm_torch.py", "tiled_cholesky_torch.py",
+        "train_lm_torch.py", "elastic_migration_torch.py"}
     bad = []
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), filename=str(f))):
@@ -153,6 +157,24 @@ def test_training_entry_points_refuse_cpu_without_being_asked(no_cuda):
                         "starcoder2_3b", "--smoke", "--steps", "1"],
                        capture_output=True, text=True, env=env, timeout=120)
     assert r.returncode != 0 and "CUDA is not available" in r.stderr
+
+
+@pytest.mark.parametrize("example, argv", [
+    ("quickstart_torch", []), ("serve_lm_torch", []), ("serve_lm_torch", ["--localities", "2"]),
+    ("tiled_cholesky_torch", [])])
+def test_examples_refuse_cpu_without_being_asked(no_cuda, example, argv):
+    """Each example runs on ``cuda`` unless given ``--device cpu``: without
+    CUDA it raises before it starts a runtime or spawns a locality."""
+    import importlib.util
+
+    import repro_torch.core as core
+
+    spec = importlib.util.spec_from_file_location(example, ROOT / "examples" / f"{example}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mod.main(argv)
+    assert core.current_runtime() is None
 
 
 def test_wrappers_never_fall_back(no_cuda):

@@ -682,6 +682,29 @@ def test_op_flop_formula_counts_the_kernel_tables_bound(name):
         assert flops in ways.values() and ways["recurrence"] == {"float32": 5 * 16 * 8 * 24 * 4 * 2}
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_flop_formula_counts_by_the_input_dtype(dtype):
+    """The SSD op's formula reads x's dtype: an fp32 call counts
+    ``ssd_flops(..., "float32")`` (its C·Bᵀ at the fp32 rate), a bf16 one
+    ``"bfloat16"``, through ``FlopCounterMode`` and through the dry run's
+    traced record (``hlo_analysis.record_flops``) alike."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.dist import hlo_analysis
+
+    g = torch.Generator().manual_seed(3)
+    x, dt_ = torch.randn(2, 24, 4, 8, generator=g).to(dtype), torch.rand(2, 24, 4, generator=g)
+    A, Bm = -torch.rand(4, generator=g), torch.randn(2, 24, 1, 16, generator=g).to(dtype)
+    name = str(dtype)[6:]
+    want, _ways = ops.ssd_flops(2, 24, 4, 8, 16, 8, name, final=True)
+    with FlopCounterMode(display=False) as fc:
+        ops.ssd_scan(x, dt_, A, Bm, Bm, chunk=8, return_final_state=True)
+    assert fc.get_total_flops() == sum(want.values())
+    rec = {"op": "repro_torch::ssd_scan",
+           "args": [hlo_analysis._arg(t) for t in (x, dt_, A, Bm, Bm)] + [8, True]}
+    assert hlo_analysis.record_flops(rec) == sum(want.values())
+
+
 def test_flash_pairs_count_the_unmasked_pairs():
     """Causal, windowed and valid_len masks, against a brute count."""
     for S in (1, 5, 17):

@@ -66,3 +66,19 @@ def test_reanalyze_restores_a_record_from_its_trace(tmp_path):
     row = RL.table(tmp_path, mesh="pod")[0]
     assert row.bottleneck in ("compute", "memory", "collective") and row.step_s > 0
     assert "mamba2_780m" in RL.format_table([row])
+
+
+@pytest.mark.parametrize("argv", [["--cells", "{d}"], ["multipod", "{d}"]])
+def test_main_reads_the_directory_it_is_given(tmp_path, capsys, argv):
+    """``--cells DIR`` and ``[MESH] [DIR]`` both read DIR (``--cells DIR``
+    once read the default ``results/dryrun_torch/``)."""
+    rec = _record(memory={"peak_size_in_bytes": 123.4e9})
+    (tmp_path / "deepseek_moe_16b__train_4k__multipod__futurized.json").write_text(
+        json.dumps(rec))
+    RL.main([a.format(d=tmp_path) for a in argv])
+    out = capsys.readouterr().out
+    if argv[0] == "--cells":
+        row = next(line for line in out.splitlines() if line.startswith("| deepseek_moe_16b"))
+        assert row.startswith("| deepseek_moe_16b | ? / 123.4 ✗; ? / compute ")
+    else:
+        assert "deepseek_moe_16b       train_4k       512 " in out

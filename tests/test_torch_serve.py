@@ -82,6 +82,39 @@ def test_engine_matches_reference_greedy(port_rt, served):
         assert o == ref_greedy(p, n), f"prompt {p}"
 
 
+@pytest.mark.parametrize("arch", ["qwen25_3b", "starcoder2_15b", "granite_34b"])
+def test_paged_engine_matches_reference_greedy_on_dense_configs(port_rt, arch):
+    """The three dense configs not otherwise served here, each a head layout
+    of its own: qwen25_3b (GQA with QKV bias, SwiGLU, RMSNorm),
+    starcoder2_15b (GQA, a non-gated GELU MLP, LayerNorm, QKV bias) and
+    granite_34b (MQA, one KV head): the paged engine's greedy tokens equal
+    the reference's manual prefill-and-decode loop, fp32, the reference's
+    params carried across by ``from_reference``."""
+    rcfg = replace(ref_config(arch, smoke=True), dtype="float32")
+    rmodel = ref_build(rcfg, get_plan("futurized"))
+    rparams = rmodel.init(jax.random.PRNGKey(1))
+    cfg = replace(get_config(arch, smoke=True), dtype="float32")
+    params = from_reference({k: np.asarray(v) for k, v in rparams.items()}, cfg, "cpu")
+    prefill = jax.jit(rmodel.prefill, static_argnames=("cache_len",))
+    dec = jax.jit(rmodel.decode)
+    prompts = [[5, 6, 7, 8], [100, 3, 50, 2, 9, 11], [42]]
+    n = 6
+    eng = _engine(Model(cfg, device="cpu"), params, max_batch=2, cache_len=96,
+                  max_new_tokens=n, name=f"{arch}#0")
+    outs = [f.get(timeout=300) for f in [eng.submit(p) for p in prompts]]
+    eng.close()
+    for p, o in zip(prompts, outs):
+        logits, c = prefill(rparams, {"tokens": jnp.asarray(p, jnp.int32)[None, :]},
+                            cache_len=96)
+        want = [int(jnp.argmax(logits, -1)[0])]
+        for _ in range(n):
+            logits, c = dec(rparams, c, jnp.asarray([[want[-1]]], jnp.int32))
+            want.append(int(jnp.argmax(logits, -1)[0]))
+        assert o == want, f"{arch} prompt {p}"
+    assert cfg.num_heads // cfg.num_kv_heads == {"qwen25_3b": 2, "starcoder2_15b": 3,
+                                                 "granite_34b": 4}[arch]
+
+
 def test_engine_more_requests_than_slots(port_rt, served):
     cfg, model, params, ref_greedy = served
     eng = _engine(model, params, max_batch=2, cache_len=64, max_new_tokens=3,
