@@ -31,7 +31,15 @@ and with every length 0 (every block empty: the call's fixed cost).  With
 S=2048, H=48, P=64, G=1, N=128, chunk 256) and the RG-LRU scan at
 recurrentgemma_2b (B=1, S=2048, W=2560), bf16, as phase 3 times them,
 with their host time per call and each kernel's device time per call
-(``torch.profiler``, in the turn's ``*_kernels``).  Two
+(``torch.profiler``, in the turn's ``*_kernels``).  With ``--modes``,
+each turn times flash with its plan's choice and forced to every mode its
+checkout weighs (``flash_attention.flash_modes``; a checkout without it:
+shared and split) at starcoder2_3b's heads (B=1, S=128-2048; B=4,
+S=2048), whisper_small's (B=1, 12/12 heads, Dh 64, S=64, 1500 and 2048,
+causal and not), granite_moe_3b_a800m's (S=2048) and granite_34b's
+(S=1000), with each mode's max error against the fp32 plain version, the
+fastest mode and the choice's ratio to it; the summary holds the plan's
+own time at each shape, A against B.  Two
 versions are compared only within one such call, since cards differ in
 power limit and neighbours.
 
@@ -124,28 +132,47 @@ if SWEEP and hasattr(da, "split_plan"):
         del a
 if MODES:
     from repro_torch.kernels import flash_attention as fa
-    if "split" in getattr(fa, "FlashPlan", tuple)._fields:
-        plan = fa.flash_plan
-        for B, S in ((1, 128), (1, 256), (1, 512), (1, 1000), (1, 2048), (4, 2048)):
-            q, k, v = c._flash_inputs(torch, gen, B, S, 24, 2, 128, bf16)
-            want = fa.flash_attention_plain(q.float(), k.float(), v.float())
-            chosen = plan(B, S, 24, 2, 128, torch.cuda.current_device())
-            row = {"chosen": "split" if chosen.split else "shared"}
+    from repro_torch.kernels.decode_attention import sm_count
+    plan, dev = fa.flash_plan, torch.cuda.current_device()
+    sliced = hasattr(fa, "flash_modes")  # checkouts with kv slices and persistent grids
+
+    def mode_name(p):  # FlashPlan.mode, or its form in a checkout without it
+        return getattr(p, "mode", f"{p.consumers}{'split' if p.split else 'shared'}1")
+
+    shapes = [(B, S, 24, 2, 128, True) for B, S in ((1, 128), (1, 256), (1, 512), (1, 1000),
+                                                  (1, 2048), (4, 2048))]
+    shapes += [(1, S, 12, 12, 64, causal) for S in (64, 1500, 2048)
+               for causal in (False, True)]
+    # granite_moe_3b_a800m's training microbatch and granite_34b's prefill
+    shapes += [(1, 2048, 24, 8, 64, True), (1, 1000, 48, 1, 128, True)]
+    for B, S, H, KV, Dh, causal in shapes:
+        q, k, v = c._flash_inputs(torch, gen, B, S, H, KV, Dh, bf16)
+        want = fa.flash_attention_plain(q.float(), k.float(), v.float(), causal=causal)
+        fn = lambda: fa.flash_attention_fwd(q, k, v, causal=causal)  # noqa: E731
+        if sliced:
+            chosen = plan(B, S, H, KV, Dh, causal, 0, dev)
+            modes = fa.flash_modes(B, S, H, KV, Dh, sm_count(dev))
+        else:
+            chosen = plan(B, S, H, KV, Dh, dev)
+            modes = []
             for split in (False, True):
                 pos = (64 if split else 64 * chosen.consumers) // chosen.group
-                forced = chosen._replace(split=split, positions=pos,
-                                         ptiles=-(-S // pos),
-                                         blocks=-(-S // pos) * B * 2 * (12 // chosen.group))
-                fa.flash_plan = lambda *_, f=forced: f
-                mode = "split" if split else "shared"
-                row[f"{mode}_ms"] = c._time_ms(torch, lambda: fa.flash_attention_fwd(q, k, v),
-                                               flush)
-                row[f"{mode}_blocks"] = forced.blocks
-                row[f"{mode}_max_abs_err"] = (fa.flash_attention_fwd(q, k, v).float()
-                                              - want).abs().max().item()
-                fa.flash_plan = plan
-            out[f"modes_flash_b{B}_s{S}"] = row
-            del q, k, v, want
+                modes.append(chosen._replace(
+                    split=split, positions=pos, ptiles=-(-S // pos),
+                    blocks=-(-S // pos) * B * KV * (H // KV // chosen.group)))
+        row = {"chosen": mode_name(chosen), "ms": c._time_ms(torch, fn, flush)}
+        for m in modes:
+            fa.flash_plan = lambda *_, f=m: f
+            name = mode_name(m)
+            row[f"{name}_ms"] = c._time_ms(torch, fn, flush)
+            row[f"{name}_blocks"] = m.blocks
+            row[f"{name}_max_abs_err"] = (fn().float() - want).abs().max().item()
+            fa.flash_plan = plan
+        forced = {k[:-3]: t for k, t in row.items() if k.endswith("_ms") and k != "ms"}
+        row["fastest"] = min(forced, key=forced.get)
+        row["chosen_over_fastest"] = row["ms"] / forced[row["fastest"]]
+        out[f"modes_flash_b{B}_s{S}_h{H}_kv{KV}_d{Dh}_{'causal' if causal else 'full'}"] = row
+        del q, k, v, want
 if SCANS:
     import re
     from torch.autograd import DeviceType
@@ -210,6 +237,13 @@ def main() -> int:
             b = [t[key] for t in turns if t["turn"] == "B"]
             if None not in a + b:
                 summary[key] = {"A": a, "B": b, "B_over_A": sum(b) / sum(a)}
+        elif key.startswith("modes_"):  # the plan's own time at each --modes shape
+            a = [t[key]["ms"] for t in turns if t["turn"] == "A"]
+            b = [t[key]["ms"] for t in turns if t["turn"] == "B"]
+            summary[key + "_ms"] = {"A": a, "B": b, "B_over_A": sum(b) / sum(a),
+                                    "chosen": [t[key]["chosen"] for t in turns],
+                                    "chosen_over_fastest": [t[key]["chosen_over_fastest"]
+                                                            for t in turns]}
     out = Path(__file__).resolve().parent / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_pair.json").write_text(json.dumps(summary, indent=1))

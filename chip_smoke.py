@@ -78,6 +78,14 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    / 1, G = 48) at S = 512, granite_34b's also at S = 1000 and with
    valid_len 700; paged decode at all three (B=8, pages of 16, phase 5e's
    lengths) and at G = 48 on a ``decode_splits`` edge ± 1; each timed.
+   The flash plan's modes (``flash_attention.py::flash_modes``): each
+   flash timing row names the mode the plan chose and its ratio to SDPA;
+   and the bf16 kernel is held against its plain version with the plan
+   forced to K-range slices (the last slice to finish merging in slice
+   order) and to a persistent grid, at whisper's encoder (with valid_len
+   and its off-by-one), causal with a window and valid_len (rows with no
+   unmasked key give zeros), head_dim 256 and a grid of many items a
+   block (``_check_flash_modes``).
 4. Path parity — starcoder2_3b at full width and 2 layers, the same params
    on the card and on the CPU: prefill + 4 paged decode steps; fp32 (TF32
    off) logits and greedy tokens, then bf16 logits.
@@ -708,6 +716,7 @@ def phase_kernels(torch, np):
                    paged_decode_attention_plain(*f32, pt, (lengths - 1).clamp_min(1)))
     _check_ops_kernels(torch, gen, rng, record)
     _check_dense_configs_attention(torch, record)
+    _check_flash_modes(torch, gen, record)
     _check_flash_bwd(torch, gen)
     _check_scan_bwd(torch, gen)
     REPORT["kernel_checks"] = checks
@@ -1018,6 +1027,68 @@ def _dense_lens():
     return np.random.default_rng(SEED + 13).integers(16, 512 + 33, size=8).tolist()
 
 
+# Forced flash modes: (B, S, H, KV, Dh), causal, window, valid_len, and the
+# mode (split, kv_splits, persistent, consumers) the plan is forced to
+FLASH_MODE_CASES = [
+    ((1, WHISPER_FRAMES) + WHISPER_ATTN, False, 0, 0, (False, 3, True, 2)),
+    ((1, WHISPER_FRAMES) + WHISPER_ATTN, False, 0, WHISPER_FRAMES, (False, 3, True, 2)),
+    ((1, WHISPER_FRAMES) + WHISPER_ATTN, False, 0, WHISPER_FRAMES, (True, 2, False, 2)),
+    ((1, WHISPER_FRAMES) + WHISPER_ATTN, False, 0, WHISPER_FRAMES, (False, 1, False, 3)),
+    ((1, WHISPER_FRAMES) + WHISPER_ATTN, False, 0, WHISPER_FRAMES, (False, 2, True, 3)),
+    ((1, 2048) + WHISPER_ATTN, False, 0, 0, (True, 1, True, 2)),
+    ((1, 2048) + WHISPER_ATTN, True, 0, 0, (False, 2, True, 2)),
+    ((1, 2048) + WHISPER_ATTN, True, 0, 0, (False, 1, False, 3)),
+    ((1, 512, 24, 2, 128), True, 64, 300, (True, 2, False, 2)),
+    ((1, 512, 24, 2, 128), True, 64, 300, (False, 3, True, 2)),
+    ((1, 512, 24, 2, 128), False, 0, 300, (False, 4, False, 2)),
+    ((2, 200, 4, 2, 64), False, 0, 150, (True, 3, True, 2)),
+    ((2, 256, 4, 2, 64), True, 64, 150, (False, 2, True, 3)),
+    ((2, 200, 4, 2, 64), False, 0, 150, (False, 3, False, 3)),
+    ((1, 300, 10, 1, 256), True, 65, 0, (False, 2, True, 1)),
+    ((4, 2048, 24, 2, 128), True, 0, 0, (False, 1, True, 2)),
+]
+
+
+def _check_flash_modes(torch, gen, record):
+    """The bf16 flash kernel with its plan forced to each mode of
+    ``FLASH_MODE_CASES``, against its plain version (``record``: abs and
+    row limits, the off-by-one bound), and three more calls bit-equal to
+    the first (the slices merge in a fixed order, and a race in the ring
+    or the merge would show as a difference); whatever the plan picks at
+    these shapes is held by phase 3's own flash cases."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels.decode_attention import sm_count
+
+    plan = fa.flash_plan
+    sms = sm_count(torch.cuda.current_device())
+    try:
+        for (B, S, H, KV, Dh), causal, window, vl, (split, ks, persistent, n) in \
+                FLASH_MODE_CASES:
+            forced = fa.flash_mode(B, S, H, KV, Dh, split, ks, sms if persistent else 0, n)
+            fa.flash_plan = lambda *_, f=forced: f
+            q, k, v = _flash_inputs(torch, gen, B, S, H, KV, Dh, torch.bfloat16)
+            masks = {"causal": causal, "window": window, "valid_len": vl}
+            o = torch.ops.repro_torch.flash_attention(q, k, v, causal, window, vl)
+            # the merge order is fixed, so every call gives the same bits
+            again = [torch.ops.repro_torch.flash_attention(q, k, v, causal, window, vl)
+                     for _ in range(3)]
+            torch.cuda.synchronize()
+            check(all(torch.equal(o, x) for x in again),
+                  f"flash {forced.mode} {[B, S, H, KV, Dh, causal, window, vl]}: "
+                  f"repeated calls differ")
+            f32 = [x.float() for x in (q, k, v)]
+            moved = None
+            if window or vl:
+                key = "window" if window else "valid_len"
+                moved = fa.flash_attention_plain(*f32, **{**masks, key: masks[key] - 1})
+            record("flash_attention", [B, S, H, KV, Dh, int(causal), window, vl,
+                                       forced.mode], torch.bfloat16,
+                   o, fa.flash_attention_plain(q, k, v, **masks),
+                   fa.flash_attention_plain(*f32, **masks), moved)
+    finally:
+        fa.flash_plan = plan
+
+
 def _check_dense_configs_attention(torch, record):
     """Phase 3 at the dense configs' head layouts (``DENSE_ATTN``), from a
     generator of their own: flash at S = 512 for each, granite_34b's also
@@ -1277,17 +1348,19 @@ def _flash_timing(torch, F, flush, gen, B, S, H, KV, Dh, causal):
     q, k, v = _flash_inputs(torch, gen, B, S, H, KV, Dh, torch.bfloat16)
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     pairs = S * (S + 1) / 2 if causal else S * S
-    return _timing(
+    plan = flash_plan(B, S, H, KV, Dh, causal, 0, torch.cuda.current_device())
+    row = _timing(
         torch, flush, {"B": B, "S": S, "H": H, "KV": KV, "Dh": Dh,
-                       "dtype": "bfloat16", "causal": causal,
-                       "plan": flash_plan(B, S, H, KV, Dh,
-                                          torch.cuda.current_device())._asdict()},
+                       "dtype": "bfloat16", "causal": causal, "mode": plan.mode,
+                       "plan": plan._asdict()},
         lambda: flash_attention_fwd(q, k, v, causal=causal),
         lambda: flash_attention_plain(q, k, v, causal=causal),
         lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                                enable_gqa=True),
         2 * (2 * B * S * H * Dh + 2 * B * S * KV * Dh),  # q, o, k, v
         {"bfloat16": 4 * Dh * H * B * pairs})  # the unmasked pairs
+    row["shape"]["over_library"] = row["ms"] / row["library_ms"]
+    return row
 
 
 def _paged_timing(torch, flush, gen, lens, H, KV, Dh, page, maxp):

@@ -63,8 +63,13 @@ def main(argv=None) -> dict:
     rng = np.random.default_rng(0)
     hot = SamplingParams(temperature=0.8, top_k=40, top_p=0.95)
     report = {"requests": []}
+
+    def generated(i):  # engine#i's tokens so far (the counter outlives an engine)
+        return sum(v for _, v in core.counters.query(f"/serve{{engine#{i}}}/tokens/generated"))
+
     t0 = time.perf_counter()
     if net is None:
+        before = [generated(i) for i in range(2)]
         streams = []
         for i in range(10):  # 10 requests, 2×4 slots → continuous batching
             prompt = rng.integers(1, cfg.vocab_size, size=rng.integers(3, 24)).tolist()
@@ -79,8 +84,7 @@ def main(argv=None) -> dict:
             print(f"{mode} prompt[{len(prompt):2d} toks] → {out}")
             report["requests"].append((prompt, sp.temperature, out))
         dt = time.perf_counter() - t0
-        per_engine = {f"engine#{i}": core.counters.get_value(
-            f"/serve{{engine#{i}}}/tokens/generated") for i in range(2)}
+        per_engine = {f"engine#{i}": generated(i) - before[i] for i in range(2)}
         total = int(sum(per_engine.values()))
         print(f"\n10 requests, {total} tokens in {dt:.2f}s ({total / dt:.1f} tok/s)")
         print("dispatch:", dict(core.counters.query("/serve{router}/dispatch/*")))
