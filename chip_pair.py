@@ -37,9 +37,17 @@ checkout weighs (``flash_attention.flash_modes``; a checkout without it:
 shared and split) at starcoder2_3b's heads (B=1, S=128-2048; B=4,
 S=2048), whisper_small's (B=1, 12/12 heads, Dh 64, S=64, 1500 and 2048,
 causal and not), granite_moe_3b_a800m's (S=2048) and granite_34b's
-(S=1000), with each mode's max error against the fp32 plain version, the
-fastest mode and the choice's ratio to it; the summary holds the plan's
-own time at each shape, A against B.  Two
+(S=1000), qwen25_3b's and starcoder2_15b's prefill (S=64-512) and
+internvl2_2b's (S=256, 512), the shapes the plan's costs were fit to; and,
+held out of that fit, starcoder2_3b's S=64 and B=2 S=256, granite_34b's
+S=64-512, internvl2_2b's S=64 and 128, granite_moe_3b_a800m's S=256 and
+512, whisper_small's encoder at 1000 frames and at B=2, and
+deepseek_moe_16b's (16/16 heads) S=256; with each mode's max error against the fp32
+plain version, the fastest mode, the choice's ratio to it and the host
+time of one uncached plan (``plan_us``); the summary holds the plan's own
+time at each shape, A against B, and the mean and most host time of an
+uncached plan over S=16-512 at the four dense serving configs' heads
+(``plan_serving_*_us``).  Two
 versions are compared only within one such call, since cards differ in
 power limit and neighbours.
 
@@ -132,12 +140,20 @@ if SWEEP and hasattr(da, "split_plan"):
         del a
 if MODES:
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels.decode_attention import sm_count
     plan, dev = fa.flash_plan, torch.cuda.current_device()
-    sliced = hasattr(fa, "flash_modes")  # checkouts with kv slices and persistent grids
+    weighs = hasattr(fa, "flash_modes")  # checkouts whose plan weighs its modes' makespan
 
     def mode_name(p):  # FlashPlan.mode, or its form in a checkout without it
-        return getattr(p, "mode", f"{p.consumers}{'split' if p.split else 'shared'}1")
+        return getattr(p, "mode", f"{p.consumers}{'split' if p.split else 'shared'}")
+
+    def plan_us(B, S, H, KV, Dh, causal, n=5):  # host µs of one uncached plan
+        args = (B, S, H, KV, Dh, causal, 0, dev) if weighs else (B, S, H, KV, Dh, dev)
+        per = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            plan.__wrapped__(*args)
+            per.append((time.perf_counter() - t0) * 1e6)
+        return statistics.median(per)
 
     shapes = [(B, S, 24, 2, 128, True) for B, S in ((1, 128), (1, 256), (1, 512), (1, 1000),
                                                   (1, 2048), (4, 2048))]
@@ -145,13 +161,24 @@ if MODES:
                for causal in (False, True)]
     # granite_moe_3b_a800m's training microbatch and granite_34b's prefill
     shapes += [(1, 2048, 24, 8, 64, True), (1, 1000, 48, 1, 128, True)]
+    # qwen25_3b's, starcoder2_15b's and internvl2_2b's prefill
+    shapes += [(1, S, H, KV, 128, True) for H, KV in ((16, 2), (48, 4))
+               for S in (64, 128, 256, 512)]
+    shapes += [(1, S, 16, 8, 128, True) for S in (256, 512)]
+    # held out of the fit of flash_attention.py's costs
+    shapes += [(1, 64, 24, 2, 128, True), (2, 256, 24, 2, 128, True)]
+    shapes += [(1, S, 48, 1, 128, True) for S in (64, 256, 512)]
+    shapes += [(1, S, 16, 8, 128, True) for S in (64, 128)]
+    shapes += [(1, S, 24, 8, 64, True) for S in (256, 512)]
+    shapes += [(1, 1000, 12, 12, 64, False), (2, 1500, 12, 12, 64, False),
+               (1, 256, 16, 16, 128, True)]
     for B, S, H, KV, Dh, causal in shapes:
         q, k, v = c._flash_inputs(torch, gen, B, S, H, KV, Dh, bf16)
         want = fa.flash_attention_plain(q.float(), k.float(), v.float(), causal=causal)
         fn = lambda: fa.flash_attention_fwd(q, k, v, causal=causal)  # noqa: E731
-        if sliced:
+        if weighs:
             chosen = plan(B, S, H, KV, Dh, causal, 0, dev)
-            modes = fa.flash_modes(B, S, H, KV, Dh, sm_count(dev))
+            modes = fa.flash_modes(B, S, H, KV, Dh)
         else:
             chosen = plan(B, S, H, KV, Dh, dev)
             modes = []
@@ -160,7 +187,8 @@ if MODES:
                 modes.append(chosen._replace(
                     split=split, positions=pos, ptiles=-(-S // pos),
                     blocks=-(-S // pos) * B * KV * (H // KV // chosen.group)))
-        row = {"chosen": mode_name(chosen), "ms": c._time_ms(torch, fn, flush)}
+        row = {"chosen": mode_name(chosen), "ms": c._time_ms(torch, fn, flush),
+               "plan_us": plan_us(B, S, H, KV, Dh, causal)}
         for m in modes:
             fa.flash_plan = lambda *_, f=m: f
             name = mode_name(m)
@@ -173,6 +201,10 @@ if MODES:
         row["chosen_over_fastest"] = row["ms"] / forced[row["fastest"]]
         out[f"modes_flash_b{B}_s{S}_h{H}_kv{KV}_d{Dh}_{'causal' if causal else 'full'}"] = row
         del q, k, v, want
+    serving = [plan_us(1, S, H, KV, 128, True, n=1) for H, KV in
+               ((16, 2), (24, 2), (48, 4), (48, 1)) for S in range(16, 513)]
+    out["plan_serving_mean_us"] = statistics.mean(serving)
+    out["plan_serving_max_us"] = max(serving)
 if SCANS:
     import re
     from torch.autograd import DeviceType
@@ -241,6 +273,7 @@ def main() -> int:
             a = [t[key]["ms"] for t in turns if t["turn"] == "A"]
             b = [t[key]["ms"] for t in turns if t["turn"] == "B"]
             summary[key + "_ms"] = {"A": a, "B": b, "B_over_A": sum(b) / sum(a),
+                                    "plan_us": [t[key]["plan_us"] for t in turns],
                                     "chosen": [t[key]["chosen"] for t in turns],
                                     "chosen_over_fastest": [t[key]["chosen_over_fastest"]
                                                             for t in turns]}

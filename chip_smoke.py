@@ -81,11 +81,10 @@ Phases (any failure exits non-zero; no phase catches its own failure):
    The flash plan's modes (``flash_attention.py::flash_modes``): each
    flash timing row names the mode the plan chose and its ratio to SDPA;
    and the bf16 kernel is held against its plain version with the plan
-   forced to K-range slices (the last slice to finish merging in slice
-   order) and to a persistent grid, at whisper's encoder (with valid_len
-   and its off-by-one), causal with a window and valid_len (rows with no
-   unmasked key give zeros), head_dim 256 and a grid of many items a
-   block (``_check_flash_modes``).
+   forced to each mode (two consumers shared or split, three shared) at
+   whisper's encoder (with valid_len and its off-by-one), causal with a
+   window and valid_len (rows with no unmasked key give zeros) and
+   head_dim 256, each call repeated bit-equal (``_check_flash_modes``).
 4. Path parity — starcoder2_3b at full width and 2 layers, the same params
    on the card and on the CPU: prefill + 4 paged decode steps; fp32 (TF32
    off) logits and greedy tokens, then bf16 logits.
@@ -1028,24 +1027,20 @@ def _dense_lens():
 
 
 # Forced flash modes: (B, S, H, KV, Dh), causal, window, valid_len, and the
-# mode (split, kv_splits, persistent, consumers) the plan is forced to
+# mode (split, consumers) the plan is forced to
 FLASH_MODE_CASES = [
-    ((1, WHISPER_FRAMES) + WHISPER_ATTN, False, 0, 0, (False, 3, True, 2)),
-    ((1, WHISPER_FRAMES) + WHISPER_ATTN, False, 0, WHISPER_FRAMES, (False, 3, True, 2)),
-    ((1, WHISPER_FRAMES) + WHISPER_ATTN, False, 0, WHISPER_FRAMES, (True, 2, False, 2)),
-    ((1, WHISPER_FRAMES) + WHISPER_ATTN, False, 0, WHISPER_FRAMES, (False, 1, False, 3)),
-    ((1, WHISPER_FRAMES) + WHISPER_ATTN, False, 0, WHISPER_FRAMES, (False, 2, True, 3)),
-    ((1, 2048) + WHISPER_ATTN, False, 0, 0, (True, 1, True, 2)),
-    ((1, 2048) + WHISPER_ATTN, True, 0, 0, (False, 2, True, 2)),
-    ((1, 2048) + WHISPER_ATTN, True, 0, 0, (False, 1, False, 3)),
-    ((1, 512, 24, 2, 128), True, 64, 300, (True, 2, False, 2)),
-    ((1, 512, 24, 2, 128), True, 64, 300, (False, 3, True, 2)),
-    ((1, 512, 24, 2, 128), False, 0, 300, (False, 4, False, 2)),
-    ((2, 200, 4, 2, 64), False, 0, 150, (True, 3, True, 2)),
-    ((2, 256, 4, 2, 64), True, 64, 150, (False, 2, True, 3)),
-    ((2, 200, 4, 2, 64), False, 0, 150, (False, 3, False, 3)),
-    ((1, 300, 10, 1, 256), True, 65, 0, (False, 2, True, 1)),
-    ((4, 2048, 24, 2, 128), True, 0, 0, (False, 1, True, 2)),
+    ((1, WHISPER_FRAMES) + WHISPER_ATTN, False, 0, 0, (False, 3)),
+    ((1, WHISPER_FRAMES) + WHISPER_ATTN, False, 0, WHISPER_FRAMES, (False, 3)),
+    ((1, WHISPER_FRAMES) + WHISPER_ATTN, False, 0, WHISPER_FRAMES, (True, 2)),
+    ((1, WHISPER_FRAMES) + WHISPER_ATTN, False, 0, WHISPER_FRAMES, (False, 2)),
+    ((1, 2048) + WHISPER_ATTN, False, 0, 0, (True, 2)),
+    ((1, 2048) + WHISPER_ATTN, True, 0, 0, (False, 3)),
+    ((1, 512, 24, 2, 128), True, 64, 300, (True, 2)),
+    ((1, 512, 24, 2, 128), False, 0, 300, (False, 2)),
+    ((2, 256, 4, 2, 64), True, 64, 150, (False, 3)),
+    ((2, 200, 4, 2, 64), False, 0, 150, (True, 2)),
+    ((2, 200, 4, 2, 64), False, 0, 150, (False, 3)),
+    ((1, 300, 10, 1, 256), True, 65, 0, (False, 1)),
 ]
 
 
@@ -1053,23 +1048,19 @@ def _check_flash_modes(torch, gen, record):
     """The bf16 flash kernel with its plan forced to each mode of
     ``FLASH_MODE_CASES``, against its plain version (``record``: abs and
     row limits, the off-by-one bound), and three more calls bit-equal to
-    the first (the slices merge in a fixed order, and a race in the ring
-    or the merge would show as a difference); whatever the plan picks at
-    these shapes is held by phase 3's own flash cases."""
+    the first (a race in the ring or the split merge would show as a
+    difference); whatever the plan picks at these shapes is held by phase
+    3's own flash cases."""
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels.decode_attention import sm_count
 
     plan = fa.flash_plan
-    sms = sm_count(torch.cuda.current_device())
     try:
-        for (B, S, H, KV, Dh), causal, window, vl, (split, ks, persistent, n) in \
-                FLASH_MODE_CASES:
-            forced = fa.flash_mode(B, S, H, KV, Dh, split, ks, sms if persistent else 0, n)
+        for (B, S, H, KV, Dh), causal, window, vl, (split, n) in FLASH_MODE_CASES:
+            forced = fa.flash_mode(B, S, H, KV, Dh, split, n)
             fa.flash_plan = lambda *_, f=forced: f
             q, k, v = _flash_inputs(torch, gen, B, S, H, KV, Dh, torch.bfloat16)
             masks = {"causal": causal, "window": window, "valid_len": vl}
             o = torch.ops.repro_torch.flash_attention(q, k, v, causal, window, vl)
-            # the merge order is fixed, so every call gives the same bits
             again = [torch.ops.repro_torch.flash_attention(q, k, v, causal, window, vl)
                      for _ in range(3)]
             torch.cuda.synchronize()

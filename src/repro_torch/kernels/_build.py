@@ -27,10 +27,9 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("flash_attention.cu", "flash_attention_general.cu", "paged_decode_attention.cu",
-           "decode_attention.cu", "ssd_scan.cu", "rglru_scan.cu", "stream.cu")
-HEADERS = ("common.cuh", "mma.cuh", "wgmma.cuh", "decode_attention.cuh",
-           "flash_attention.cuh")
+SOURCES = ("flash_attention.cu", "paged_decode_attention.cu", "decode_attention.cu",
+           "ssd_scan.cu", "rglru_scan.cu", "stream.cu")
+HEADERS = ("common.cuh", "mma.cuh", "wgmma.cuh", "decode_attention.cuh")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                        "-Xptxas", "-v"]
@@ -44,9 +43,9 @@ HEAD_DIMS = (16, 32, 64, 128, 256)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # q, k, v, o, ws, counters, B, S, H, KV, Dh, causal, window, valid_len,
-    # group, consumers, split, kv_splits, blocks, dtype, stream
-    "repro_flash_attention_fwd": [_P] * 6 + [_I] * 14 + [_P],
+    # q, k, v, o, B, S, H, KV, Dh, causal, window, valid_len, group,
+    # consumers, split, dtype, stream
+    "repro_flash_attention_fwd": [_P, _P, _P, _P] + [_I] * 12 + [_P],
     # q, k_pages, v_pages, page_table, lengths, ws, o, B, H, KV, Dh, page,
     # maxp, splits, tps, dtype, stream
     "repro_paged_decode_attention_fwd": [_P] * 7 + [_I] * 9 + [_P],
@@ -171,12 +170,9 @@ def check_tensors(what: str, like: torch.Tensor, named, dtype=None) -> None:
                             f"{dtype} (floats: float32 or bfloat16)")
 
 
-# (device index, raw stream, thread) -> the kernels' fp32 scratch, and the
-# flash kernel's int32 counters
+# (device index, raw stream, thread) -> the kernels' fp32 scratch
 _workspaces: Dict[Tuple[int, int, int], torch.Tensor] = {}
-_counters: Dict[Tuple[int, int, int], torch.Tensor] = {}
 WORKSPACE = object()  # stands in :func:`launch`'s args for the scratch pointer
-COUNTERS = object()   # ... and for the counters' pointer
 
 
 def workspace(device_index: int, stream: int, numel: int) -> int:
@@ -187,34 +183,19 @@ def workspace(device_index: int, stream: int, numel: int) -> int:
     order, so a call's last kernel has read its scratch before the next
     call's first kernel writes there, and each thread has its own buffer,
     since two threads' launches on one stream may interleave."""
-    return _scratch(_workspaces, torch.empty, torch.float32, device_index, stream, numel)
-
-
-def counters(device_index: int, stream: int, numel: int) -> int:
-    """A pointer to ``numel`` int32 counters that are 0 between calls: one
-    ``torch.zeros`` per (device, stream, thread), kept and grown as
-    :func:`workspace`, and used by the flash kernel alone, which sets
-    each counter back to 0 when the last of a position tile's slices has
-    counted on it."""
-    return _scratch(_counters, torch.zeros, torch.int32, device_index, stream, numel)
-
-
-def _scratch(cache, make, dtype, device_index: int, stream: int, numel: int) -> int:
     key = (device_index, stream, threading.get_ident())
-    buf = cache.get(key)
-    if buf is None or buf.numel() < numel:
-        buf = make(numel, dtype=dtype, device=f"cuda:{device_index}")
-        cache[key] = buf
-    return buf.data_ptr()
+    ws = _workspaces.get(key)
+    if ws is None or ws.numel() < numel:
+        ws = torch.empty(numel, dtype=torch.float32, device=f"cuda:{device_index}")
+        _workspaces[key] = ws
+    return ws.data_ptr()
 
 
-def launch(entry: str, what: str, like: torch.Tensor, *args, ws_floats: int = 0,
-           n_counters: int = 0) -> None:
+def launch(entry: str, what: str, like: torch.Tensor, *args, ws_floats: int = 0) -> None:
     """Call the C entry point with ``args`` and PyTorch's current stream,
     on ``like``'s device, with :data:`WORKSPACE` in ``args`` replaced by
-    the :func:`workspace` pointer to ``ws_floats`` floats and
-    :data:`COUNTERS` by the :func:`counters` pointer to ``n_counters``
-    counters; raise if the launch returned a CUDA error."""
+    the :func:`workspace` pointer to ``ws_floats`` floats; raise if the
+    launch returned a CUDA error."""
     fn = getattr(library(), entry)
     dev = like.get_device()
     with torch.cuda.device(dev):
@@ -222,9 +203,6 @@ def launch(entry: str, what: str, like: torch.Tensor, *args, ws_floats: int = 0,
         if ws_floats:
             ptr = workspace(dev, stream, ws_floats)
             args = tuple(ptr if a is WORKSPACE else a for a in args)
-        if n_counters:
-            ptr = counters(dev, stream, n_counters)
-            args = tuple(ptr if a is COUNTERS else a for a in args)
         err = fn(*args, stream)
     check(err, what)
 

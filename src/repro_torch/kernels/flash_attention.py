@@ -3,8 +3,7 @@ its plain PyTorch version; and its backward as PyTorch math
 (:func:`flash_attention_bwd`), which ``ops.flash_attention_trainable``
 pairs with the kernel forward for training.
 
-The kernel (``csrc/flash_attention.cu``, its bf16 body in
-``csrc/flash_attention.cuh``) replaces the reference's TPU
+The kernel (``csrc/flash_attention.cu``) replaces the reference's TPU
 kernel ``repro/kernels/flash_attention.py::flash_attention_fwd``.  Unlike
 the TPU kernel it takes the public layouts directly — q (B, S, H, Dh), k/v
 (B, S, KV, Dh) — routes each q head to its KV head (kv = h // G) in its
@@ -21,25 +20,17 @@ v over the tiles it walked there, which depends on its tiling.
 
 The bf16 body packs ``group`` q heads of one KV group into the 64 rows of
 a consumer warpgroup, row r = (position p0 + r // group, head h0 + r %
-group), so each K/V tile it reads serves all of them.  A work item is
-one position tile of one head group, or one of ``kv_splits`` contiguous
-slices of that tile's K range.  Within an item a block's consumers (two;
-one at head_dim 256; two or three at head_dim 64) either hold
-consecutive rows and share its K/V tiles (shared), or, two of them, hold
-the same rows, cut its K tiles between them and merge their softmax
-states (split).  The slices of one position tile write fp32 partials
-(m, l, acc), and the last of them to finish merges all of them in slice
-order.  A block walks the items blockIdx.x, blockIdx.x + blocks, …: the
-grid is one block per item, or one per SM (persistent), where the
-producer loads the next item's tiles while the consumers finish the
-last; whole items one block each run an instantiation without the slice
-and loop code (``flash_attention.cu``), the rest the general one
-(``flash_attention_general.cu``).  :func:`flash_grid` picks the mode
-whose predicted makespan is least (:func:`makespan`).  What the kernel decides
-per item is written out here (:func:`flash_grid`, :func:`work_item`,
-:func:`kv_tiles`, :func:`tile_masked`, :func:`split_tiles`,
-:func:`consumer_tiles`, :func:`block_items`) and mirrored line for line in
-the CUDA source; the CPU tests hold it against :func:`_mask`.
+group), so each K/V tile it reads serves all of them.  A block is one
+work item, one position tile of one head group; its consumers (two; one
+at head_dim 256; two or three at head_dim 64) either hold consecutive
+rows and share its K/V tiles (shared), or, two of them, hold the same
+rows, cut its K tiles between them and merge their softmax states
+(split).  :func:`flash_grid` picks the mode whose predicted makespan is
+least (:func:`makespan`).  What the kernel decides per block is written
+out here (:func:`flash_grid`, :func:`work_item`, :func:`kv_tiles`,
+:func:`tile_masked`, :func:`split_tiles`, :func:`ring_tiles`,
+:func:`consumer_tiles`) and mirrored line for line in the CUDA source; the
+CPU tests hold it against :func:`_mask`.
 """
 
 from __future__ import annotations
@@ -58,21 +49,21 @@ NEG_INF = -1e30
 BK = 64               # csrc: K/V positions per tile
 WG_ROWS = 64          # csrc: rows of one consumer warpgroup (one wgmma M)
 GROUPS = (8, 4, 2, 1)  # heads packed per tile, largest first
-KV_SPLITS = (1, 2, 3, 4, 6, 8)  # slices of a position tile's K range the plan tries
 
 # The makespan model's costs, in K-tile steps of one consumer (64 rows ×
 # 64 keys) at head_dim 64, fit to ``chip_pair.py --modes`` (every mode
-# forced at 14 shapes, NVIDIA H100 80GB HBM3, 700 W): a block's start and
-# end on an SM's first block (launch, the first tiles' arrival, the
-# epilogue) and on each later one; a further item of a persistent block;
-# an item that writes a partial; one partial read by the merge; a step's
-# time with three consumers on the SM against two; and a step's time by
-# head dim (a step at 64 took 0.74 µs, at 128 1.33 µs, on that card).
+# forced at starcoder2_3b's, whisper_small's, granite_moe_3b_a800m's,
+# granite_34b's, qwen25_3b's, starcoder2_15b's and internvl2_2b's shapes,
+# NVIDIA H100 80GB HBM3, 700 W): a block's start and end on an SM's first
+# block (launch, the first tiles' arrival, the epilogue) and on each later
+# one; each warpgroup of rows in range, for its Q and its output, in
+# steps at its head dim (any value from 0.5 to 3 picks the same modes
+# there); a step's time with three consumers on the SM against two; and a
+# step's time by head dim (a step at 64 took 0.74 µs, at 128 1.33 µs, on
+# that card).
 BLOCK_STEPS = 4.0
 REFILL_STEPS = 6.0
-ITEM_STEPS = 3.0
-PARTIAL_STEPS = 1.0
-MERGE_STEPS = 1.0
+ROW_STEPS = 1.0
 STEP_COST = {1: 1.0, 2: 1.0, 3: 1.6}
 HEAD_DIM_STEPS = {16: 0.4, 32: 0.6, 64: 1.0, 128: 1.8, 256: 3.4}
 
@@ -87,9 +78,9 @@ def consumer_counts(Dh: int) -> Tuple[int, ...]:
     at head_dim 256 one, since its 64×256 fp32 output needs more
     registers than a thread of a 384-thread block has; at head_dim 64 also
     three, whose 64×64 outputs fit the 128 registers a thread of a
-    512-thread block enters with, so a K/V tile serves 192 rows.  Split
-    consumers need a ring of a multiple of their count (each stage's
-    entries one consumer's: see :func:`ring_tiles`), so three run
+    512-thread block enters with, so a K/V tile serves 192 rows.  Only two
+    split: split consumers need a ring of a multiple of their count (each
+    stage's entries one consumer's: see :func:`ring_tiles`), and three run
     shared."""
     return (1,) if Dh == 256 else (2, 3) if Dh == 64 else (2,)
 
@@ -100,109 +91,78 @@ class FlashPlan(NamedTuple):
     so each K/V tile it reads serves ``group`` heads.  Shared
     (``split`` False): the block's ``consumers`` warpgroups hold
     consecutive rows and read the same K/V tiles, ``positions`` =
-    64·consumers / group.  Split: they hold the same 64 rows and cut the
-    item's K tiles between them, ``positions`` = 64 / group.  ``ptiles``
-    position tiles cover S; each tile's K range is cut into ``kv_splits``
-    slices, one item each: ``items`` = ptiles × B × KV × heads per group ×
-    kv_splits.  ``blocks`` is the grid: ``items``, or fewer (persistent),
-    each block walking every ``blocks``-th item."""
+    64·consumers / group.  Split: two of them hold the same 64 rows and
+    cut the block's K tiles between them, ``positions`` = 64 / group.
+    ``ptiles`` position tiles cover S; ``blocks`` = ptiles × B × KV ×
+    heads per group is the grid, one block an item."""
     group: int
     consumers: int
     split: bool
     positions: int
     ptiles: int
-    kv_splits: int
-    items: int
     blocks: int
 
     @property
     def mode(self) -> str:
-        """E.g. ``2shared1``, ``3shared2p``: consumers, how they hold an
-        item's rows, slices, and ``p`` where the grid is persistent."""
-        return (f"{self.consumers}{'split' if self.split else 'shared'}{self.kv_splits}"
-                f"{'p' if self.blocks < self.items else ''}")
+        """E.g. ``2shared``, ``2split``, ``3shared``: consumers, and how
+        they hold a block's rows."""
+        return f"{self.consumers}{'split' if self.split else 'shared'}"
 
 
-def flash_mode(B: int, S: int, H: int, KV: int, Dh: int, split: bool, kv_splits: int,
-               blocks: int = 0, consumers: int = 2) -> FlashPlan:
-    """The plan of one mode: ``split`` or shared, ``kv_splits`` slices,
-    ``blocks`` blocks (0: one per item) of ``consumers`` consumer
-    warpgroups (where the head dim allows them; else the first it does).
-    ``group`` is the largest of 8, 4, 2, 1 that divides the q heads per KV
-    head; one or three consumers never split."""
+def flash_mode(B: int, S: int, H: int, KV: int, Dh: int, split: bool,
+               consumers: int = 2) -> FlashPlan:
+    """The plan of one mode: ``split`` or shared, with ``consumers``
+    consumer warpgroups (where the head dim allows them; else the first it
+    does).  ``group`` is the largest of 8, 4, 2, 1 that divides the q
+    heads per KV head; only two consumers split."""
     G = H // KV
     group = next(g for g in GROUPS if G % g == 0)
     counts = consumer_counts(Dh)
     n = consumers if consumers in counts else counts[0]
-    split = split and n > 1 and ring_stages(Dh) % n == 0
+    split = split and n == 2
     positions = (WG_ROWS if split else WG_ROWS * n) // group
     ptiles = -(-S // positions)
-    items = ptiles * B * KV * (G // group) * kv_splits
-    return FlashPlan(group, n, split, positions, ptiles, kv_splits, items,
-                     min(blocks, items) if blocks > 0 else items)
+    return FlashPlan(group, n, split, positions, ptiles, ptiles * B * KV * (G // group))
 
 
-def flash_modes(B: int, S: int, H: int, KV: int, Dh: int, sms: int) -> List[FlashPlan]:
+def flash_modes(B: int, S: int, H: int, KV: int, Dh: int) -> List[FlashPlan]:
     """Every mode :func:`flash_grid` weighs, in its order of preference on
     a tie: two consumers before three, shared before split (a K/V tile
-    read serves all the block's rows), fewer slices before more, one
-    block per item before persistent.  Slices are tried only where the
-    unsliced grid has fewer than 4 × ``sms`` items (past that, the last
-    round wastes at most a fifth), and at most one a K tile."""
-    most = -(-S // BK)
-    modes = []
-    for n in consumer_counts(Dh):
-        for split in ((False, True) if n > 1 and ring_stages(Dh) % n == 0 else (False,)):
-            few = flash_mode(B, S, H, KV, Dh, split, 1, 0, n).items < 4 * sms
-            modes += [flash_mode(B, S, H, KV, Dh, split, ks, blocks, n)
-                      for ks in KV_SPLITS if ks == 1 or (few and ks <= most)
-                      for blocks in (0, sms)]
-    return modes
+    read serves all the block's rows)."""
+    return [flash_mode(B, S, H, KV, Dh, split, n) for n in consumer_counts(Dh)
+            for split in ((False, True) if n == 2 else (False,))]
 
 
-def item_steps(S: int, p0: int, plan: FlashPlan, causal: bool, window: int,
-               s: int) -> int:
-    """K-tile steps of item slice ``s`` at position ``p0``: its busiest
-    consumer's tiles (``valid_len`` taken as S)."""
-    return max(t1 - t0 for _, _, t0, t1 in
-               consumer_tiles(S, p0, plan, causal, window, S, s))
-
-
-@functools.lru_cache(maxsize=4096)
-def _item_costs(plan: FlashPlan, S: int, Dh: int, causal: bool,
-                window: int) -> Tuple[float, ...]:
-    """Each item's steps, in item order, with a cut tile's partial and
-    merge (the same for either grid of a mode)."""
-    ks = plan.kv_splits
-    extra = PARTIAL_STEPS + MERGE_STEPS * ks if ks > 1 else 0.0
+def block_steps(S: int, Dh: int, plan: FlashPlan, causal: bool,
+                window: int) -> List[float]:
+    """Each block's steps, in the order the kernel issues them: its
+    busiest consumer's K tiles (``valid_len`` taken as S), each scaled by
+    the head dim and the consumer count, and :data:`ROW_STEPS` for each
+    warpgroup of its rows that lies in range (split consumers hold one)."""
     step = STEP_COST[plan.consumers] * HEAD_DIM_STEPS[Dh]
-    per_tile = plan.items // (plan.ptiles * ks)
-    costs = []
+    per = plan.blocks // plan.ptiles
+    out = []
     for p in (range(plan.ptiles - 1, -1, -1) if causal else range(plan.ptiles)):
-        costs += [item_steps(S, p * plan.positions, plan, causal, window, s) * step + extra
-                  for s in range(ks)] * per_tile
-    return tuple(costs)
+        wgs = consumer_tiles(S, p * plan.positions, plan, causal, window, S)
+        rows = 1 if plan.split else sum(first < S for first, _, _, _ in wgs)
+        out += [max(t1 - t0 for _, _, t0, t1 in wgs) * step
+                + ROW_STEPS * rows * HEAD_DIM_STEPS[Dh]] * per
+    return out
 
 
 def makespan(plan: FlashPlan, S: int, Dh: int, causal: bool, window: int, sms: int) -> float:
     """The predicted time of the last SM to finish, in K-tile steps.
 
-    An item costs its busiest consumer's tiles (each step scaled by the
-    head dim and the consumer count), plus, where its tile is cut, a
-    partial written and its share of the merge.  One block per item: blocks
-    start in item order on whichever SM frees first, the greedy list
-    schedule, an SM's first paying :data:`BLOCK_STEPS` and each later one
-    :data:`REFILL_STEPS`.  Persistent: block j walks items j, j + blocks, …
-    and pays :data:`BLOCK_STEPS` once and :data:`ITEM_STEPS` for each
-    further item.  Non-causal items without a window are equal, so the
-    schedule reduces to ⌈items / sms⌉ rounds of one item."""
-    costs = _item_costs(plan._replace(blocks=plan.items), S, Dh, causal, window)
-    if plan.blocks < plan.items:  # persistent
-        return BLOCK_STEPS - ITEM_STEPS + max(
-            sum(c + ITEM_STEPS for c in costs[j::plan.blocks]) for j in range(plan.blocks))
-    if not causal and window == 0:  # equal items: rounds of one item an SM
-        return BLOCK_STEPS - REFILL_STEPS + -(-plan.items // sms) * (max(costs) + REFILL_STEPS)
-    free = [BLOCK_STEPS - REFILL_STEPS] * min(sms, plan.items)
+    Blocks start in issue order on whichever SM frees first, the greedy
+    list schedule (one block fits an SM), an SM's first block paying
+    :data:`BLOCK_STEPS` besides its steps and each later one
+    :data:`REFILL_STEPS`.  Where the blocks fit the card at once, or are
+    equal, the schedule reduces to ⌈blocks / sms⌉ rounds of the costliest
+    block."""
+    costs = block_steps(S, Dh, plan, causal, window)
+    if plan.blocks <= sms or len(set(costs)) == 1:
+        return BLOCK_STEPS - REFILL_STEPS + -(-plan.blocks // sms) * (max(costs) + REFILL_STEPS)
+    free = [BLOCK_STEPS - REFILL_STEPS] * min(sms, plan.blocks)
     for c in costs:
         heapq.heapreplace(free, free[0] + c + REFILL_STEPS)
     return max(free)
@@ -213,7 +173,7 @@ def flash_grid(B: int, S: int, H: int, KV: int, Dh: int, sms: int, causal: bool 
     """The launch of the bf16 body on a card of ``sms`` SMs, from static
     shapes only: the mode of :func:`flash_modes` whose :func:`makespan`
     is least, the first of them on a tie."""
-    return min(flash_modes(B, S, H, KV, Dh, sms),
+    return min(flash_modes(B, S, H, KV, Dh),
                key=lambda p: makespan(p, S, Dh, causal, window, sms))
 
 
@@ -226,29 +186,23 @@ def flash_plan(B: int, S: int, H: int, KV: int, Dh: int, causal: bool, window: i
 
 
 def work_item(i: int, B: int, H: int, KV: int, plan: FlashPlan,
-              causal: bool) -> Tuple[int, int, int, int, int]:
-    """Item ``i`` → (b, kv head, first q head, first position, slice).
+              causal: bool) -> Tuple[int, int, int, int]:
+    """Block ``i`` → (b, kv head, first q head, first position).
 
-    The slices of one position tile are consecutive items.  Tiles go in
-    item order heavy first: under a causal mask a later position walks
-    more K tiles, so position tiles run from the last to the first;
-    without one a window's lower edge only shortens the walk of later
-    positions, so they run from the first.  (A causal window with
-    ``valid_len`` < S is the one case where neither order is heaviest
-    first: positions past ``valid_len`` walk fewer tiles.)"""
-    r, s = divmod(i, plan.kv_splits)
+    Blocks start in order of index, so the order is heavy first: under a
+    causal mask a later position walks more K tiles, so position tiles run
+    from the last to the first; without one a window's lower edge only
+    shortens the walk of later positions, so they run from the first.  (A
+    causal window with ``valid_len`` < S is the one case where neither
+    order is heaviest first: positions past ``valid_len`` walk fewer
+    tiles.)"""
     heads = H // KV // plan.group
     per = B * KV * heads
-    ptile = plan.ptiles - 1 - r // per if causal else r // per
-    r = r % per
+    ptile = plan.ptiles - 1 - i // per if causal else i // per
+    r = i % per
     hg, r = r % heads, r // heads
     kv, b = r % KV, r // KV
-    return b, kv, kv * (H // KV) + hg * plan.group, ptile * plan.positions, s
-
-
-def block_items(j: int, plan: FlashPlan) -> range:
-    """The items block ``j`` walks, in order."""
-    return range(j, plan.items, plan.blocks)
+    return b, kv, kv * (H // KV) + hg * plan.group, ptile * plan.positions
 
 
 def kv_tiles(S: int, first: int, count: int, causal: bool, window: int,
@@ -278,20 +232,16 @@ def tile_masked(S: int, first: int, count: int, t: int, causal: bool, window: in
 
 
 def split_tiles(t0: int, t1: int, n: int) -> List[Tuple[int, int]]:
-    """The cut of K tiles [t0, t1) into ``n`` contiguous parts that differ
-    by at most one tile, the larger first (empty at t1 where there are
-    fewer tiles than parts).  It cuts a position tile's range into its
-    slices, and a split item's slice between its consumers; the producer
-    loads a split item's tiles in turns — consumer w's j-th tile is ring
-    entry j·n + w, which the larger-first cut keeps true — so all walk at
-    once."""
-    q, r = divmod(t1 - t0, n)
-    starts = [t0 + w * q + min(w, r) for w in range(n + 1)]
-    return list(zip(starts, starts[1:]))
+    """The cut of a block's K tiles [t0, t1) between its ``n`` consumers:
+    consumer w walks [t0 + w·a, min(t0 + (w+1)·a, t1)) with a = ⌈(t1 − t0)
+    / n⌉ (empty where that starts past t1).  The producer loads them in
+    turns (:func:`ring_tiles`), so all walk at once."""
+    a = -(-(t1 - t0) // n)
+    return [(t0 + w * a, max(t0 + w * a, min(t0 + (w + 1) * a, t1))) for w in range(n)]
 
 
-def ring_tiles(c0: int, c1: int, plan: FlashPlan) -> List[int]:
-    """The K tile of each ring entry of an item whose slice is [c0, c1),
+def ring_tiles(t0: int, t1: int, plan: FlashPlan) -> List[int]:
+    """The K tile of each ring entry of a block whose range is [t0, t1),
     in the order the producer loads them: in order when shared, every
     consumer waiting for every entry; split, entry j is tile j // n of
     consumer j % n (n consumers), so with a ring of a multiple of n
@@ -299,29 +249,24 @@ def ring_tiles(c0: int, c1: int, plan: FlashPlan) -> List[int]:
     parity wait on a stage never sees a phase two back."""
     n = plan.consumers
     if not plan.split:
-        return list(range(c0, c1))
-    starts = [a for a, _ in split_tiles(c0, c1, n)]
-    return [starts[j % n] + j // n for j in range(c1 - c0)]
+        return list(range(t0, t1))
+    a = -(-(t1 - t0) // n)
+    return [t0 + (j % n) * a + j // n for j in range(t1 - t0)]
 
 
 def consumer_tiles(S: int, p0: int, plan: FlashPlan, causal: bool, window: int,
-                   valid_len: int, s: int = 0) -> List[Tuple[int, int, int, int]]:
-    """Per consumer of slice ``s`` of the position tile at ``p0``: (first
-    position, positions, t0, t1), the K tiles [t0, t1) it walks, t0 = t1
-    where none; ``valid_len`` resolved (0 → S).  The item's ring holds
-    its slice of the tile's K range, in order."""
+                   valid_len: int) -> List[Tuple[int, int, int, int]]:
+    """Per consumer of the block at position ``p0``: (first position,
+    positions, t0, t1), the K tiles [t0, t1) it walks; ``valid_len``
+    resolved (0 → S)."""
     n = plan.consumers
-    c0, c1 = split_tiles(*kv_tiles(S, p0, plan.positions, causal, window, valid_len),
-                         plan.kv_splits)[s]
     if plan.split:
-        return [(p0, plan.positions, a, b) for a, b in split_tiles(c0, c1, n)]
+        t0, t1 = kv_tiles(S, p0, plan.positions, causal, window, valid_len)
+        return [(p0, plan.positions, a, b) for a, b in split_tiles(t0, t1, n)]
     wpos = plan.positions // n
-    out = []
-    for w in range(n):
-        a, b = kv_tiles(S, p0 + w * wpos, wpos, causal, window, valid_len)
-        a, b = max(a, c0), min(b, c1)
-        out.append((p0 + w * wpos, wpos, a, max(a, b)))
-    return out
+    return [(p0 + w * wpos, wpos,
+             *kv_tiles(S, p0 + w * wpos, wpos, causal, window, valid_len))
+            for w in range(n)]
 
 
 def _band(q0: int, q1: int, t0: int, t1: int, causal: bool, window: int,
@@ -416,21 +361,6 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq.reshape(B, S, H, Dh).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def partial_floats(plan: FlashPlan, Dh: int) -> int:
-    """The fp32 partials of a plan with ``kv_splits`` > 1: per item and
-    per warpgroup holding its rows, each thread's Dh/2 accumulators and
-    its two rows' m and l (csrc: the accumulator layout, thread-major)."""
-    row_wgs = 1 if plan.split else plan.consumers
-    return plan.items * row_wgs * 128 * (Dh // 2 + 4)
-
-
-def partial_counters(plan: FlashPlan) -> int:
-    """The counters of a plan with ``kv_splits`` > 1: one per position
-    tile and warp holding its rows (csrc: each warp counts and merges its
-    own rows)."""
-    return plan.items // plan.kv_splits * (1 if plan.split else plan.consumers) * 4
-
-
 def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  window: int, valid_len: int) -> None:
     """Raise on anything the kernel does not take."""
@@ -463,13 +393,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     KV = k.shape[2]
     plan = flash_plan(B, S, H, KV, Dh, causal, window, q.get_device())
     o = torch.empty_like(q)
-    cut = plan.kv_splits > 1 and q.dtype == torch.bfloat16
     _build.launch("repro_flash_attention_fwd", "flash_attention_fwd", q,
                   q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                  _build.WORKSPACE if cut else None, _build.COUNTERS if cut else None,
                   B, S, H, KV, Dh, int(causal), window, valid_len or S,
-                  plan.group, plan.consumers, int(plan.split), plan.kv_splits, plan.blocks,
-                  _build.DTYPES[q.dtype],
-                  ws_floats=partial_floats(plan, Dh) if cut else 0,
-                  n_counters=partial_counters(plan) if cut else 0)
+                  plan.group, plan.consumers, int(plan.split), _build.DTYPES[q.dtype])
     return o

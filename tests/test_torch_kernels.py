@@ -29,12 +29,12 @@ from repro_torch.kernels.decode_attention import (BLOCKS_PER_SM, CHUNK, DENSE_TI
                                                   decode_attention_plain, decode_splits,
                                                   split_ranges, tiles_per_split)
 from repro_torch.kernels import flash_attention as tflash
-from repro_torch.kernels.flash_attention import (BK, WG_ROWS, _mask, block_items,
-                                                 consumer_tiles, flash_attention_bwd,
+from repro_torch.kernels.flash_attention import (BK, HEAD_DIM_STEPS, STEP_COST, WG_ROWS,
+                                                 _mask, consumer_tiles, flash_attention_bwd,
                                                  flash_attention_plain, flash_grid,
                                                  flash_mode, flash_modes, kv_tiles,
                                                  makespan, ring_stages, ring_tiles,
-                                                 split_tiles, tile_masked, work_item)
+                                                 tile_masked, work_item)
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -149,43 +149,36 @@ def test_flash_attention_row_without_keys_gives_zeros(dtype, causal):
 def _walk(B, S, H, KV, Dh, causal, window, valid_len, sms):
     """The bf16 flash body's decisions on a card of ``sms`` SMs, as
     ``flash_attention.py`` writes them out and the kernel mirrors: per
-    block, in its order, each item it walks: the item's place and slice,
-    and per consumer warpgroup its positions, its K tiles and which of
-    them take the elementwise mask.  ``sms`` is an int (the plan
-    :func:`flash_grid` picks) or a :class:`FlashPlan` to walk."""
+    block, its work item, and per consumer warpgroup its positions, its K
+    tiles and which of them take the elementwise mask.  ``sms`` is an int
+    (the plan :func:`flash_grid` picks) or a :class:`FlashPlan` to walk."""
     plan = sms if isinstance(sms, tuple) else flash_grid(B, S, H, KV, Dh, sms, causal,
                                                          window)
     vl = valid_len or S
-    for j in range(plan.blocks):
-        for i in block_items(j, plan):
-            b, kv, h0, p0, s = work_item(i, B, H, KV, plan, causal)
-            wgs = [(first, count, w0, w1,
-                    {t: tile_masked(S, first, count, t, causal, window, vl)
-                     for t in range(w0, w1)})
-                   for first, count, w0, w1 in consumer_tiles(S, p0, plan, causal, window,
-                                                              vl, s)]
-            yield plan, i, (b, kv, h0, p0, s), wgs
+    for i in range(plan.blocks):
+        b, kv, h0, p0 = work_item(i, B, H, KV, plan, causal)
+        wgs = [(first, count, w0, w1,
+                {t: tile_masked(S, first, count, t, causal, window, vl)
+                 for t in range(w0, w1)})
+               for first, count, w0, w1 in consumer_tiles(S, p0, plan, causal, window, vl)]
+        yield plan, (b, kv, h0, p0), wgs
 
 
 # Plans the tile tests walk: what flash_grid picks on 1 SM (the grid always
-# covers the card: two consumers, shared, one slice, one block per item)
-# and on 132; and modes forced: split, split into 3 slices, shared into 2
-# slices on a persistent grid of 5 blocks, and three consumers (head_dim
-# 64 only; else two), and three into 2 slices on a persistent grid
-# (head_dim 256 has one consumer; three consumers never split)
-SMS = [1, 132, "split", "split3", "shared2p", "3shared", "3shared2p"]
-SMS_COVER = [1, 132, "split", "shared2p", "3shared2p"]  # the mask sweep's: 840 cases each
+# covers the card: two consumers, shared) and on 132; and modes forced:
+# split, and three consumers (head_dim 64 only; else two; head_dim 256 has
+# one consumer, and three never split)
+SMS = [1, 132, "split", "3shared"]
 
 
 def _plan(B, S, H, KV, Dh, causal, window, sms):
-    forced = {"split": (True, 1, 0), "split3": (True, 3, 0), "shared2p": (False, 2, 5),
-              "3shared": (False, 1, 0, 3), "3shared2p": (False, 2, 5, 3)}
+    forced = {"split": (True, 2), "3shared": (False, 3)}
     if sms in forced:
         return flash_mode(B, S, H, KV, Dh, *forced[sms])
     return flash_grid(B, S, H, KV, Dh, sms, causal, window)
 
 
-@pytest.mark.parametrize("sms", SMS_COVER)
+@pytest.mark.parametrize("sms", SMS)
 @pytest.mark.parametrize("H,KV,Dh", [(24, 2, 128), (4, 4, 64), (4, 1, 32), (10, 1, 256)])
 @pytest.mark.parametrize("vl_kind", ["S", "S-1", "150"])
 @pytest.mark.parametrize("window", [0, 1, 64, 128, 200])
@@ -194,74 +187,61 @@ def _plan(B, S, H, KV, Dh, causal, window, sms):
 def test_flash_tile_plan_covers_the_mask(S, causal, window, vl_kind, H, KV, Dh, sms):
     """Against ``_mask``: every unmasked (q, k) pair lies in a tile that a
     consumer warpgroup holding its row walks; a walked tile left without
-    the elementwise mask is wholly unmasked; the blocks walk every item
-    exactly once and their rows cover every (b, head, position) exactly
-    once in each slice; the slices cut the position tile's range in order,
-    split consumers cut their slice in order, none walked twice; rows pack
+    the elementwise mask is wholly unmasked; the blocks' rows cover every
+    (b, head, position) exactly once; split consumers cut the block's tiles
+    in order, none walked twice, each its own ring entries; rows pack
     ``group`` heads of one KV group; and the order is heavy first (no
-    position tile walks more K tiles than one before it, give or take the
-    one tile a window's edge can add), except for a causal window with
-    ``valid_len`` < S (see ``work_item``)."""
+    block of a whole position tile walks more K tiles than one before it,
+    give or take the one tile a window's edge can add), except for a
+    causal window with ``valid_len`` < S (see ``work_item``)."""
     B = 2
     valid_len = {"S": 0, "S-1": S - 1, "150": min(150, S)}[vl_kind]
     vl = valid_len or S
     ok = _mask(S, causal, window, valid_len, torch.device("cpu")).expand(S, S).numpy()
     G = H // KV
-    plan = _plan(B, S, H, KV, Dh, causal, window, sms)
-    covered = np.zeros((plan.kv_splits, B, H, S), np.int64)
+    covered = np.zeros((B, H, S), np.int64)
     walked = np.zeros((S, -(-S // BK)), bool)  # [position, K tile]
-    seen = np.zeros(plan.items, np.int64)
-    spans = {}  # position tile → its slices' K ranges
-    for plan, i, (b, kv, h0, p0, s), wgs in _walk(B, S, H, KV, Dh, causal, window,
-                                                  valid_len, plan):
-        seen[i] += 1
+    work = []
+    for plan, (b, kv, h0, p0), wgs in _walk(B, S, H, KV, Dh, causal, window, valid_len,
+                                            _plan(B, S, H, KV, Dh, causal, window, sms)):
         assert G % plan.group == 0 and len(wgs) == plan.consumers
         assert plan.positions * plan.group == WG_ROWS * (1 if plan.split else plan.consumers)
         assert kv * G <= h0 and h0 + plan.group <= (kv + 1) * G
-        assert 0 <= p0 < S and p0 % plan.positions == 0 and 0 <= s < plan.kv_splits
-        t0, t1 = kv_tiles(S, p0, plan.positions, causal, window, vl)
-        c0, c1 = split_tiles(t0, t1, plan.kv_splits)[s]
-        assert all(c0 <= w0 <= w1 <= max(c0, c1) for _, _, w0, w1, _ in wgs)
-        ring = ring_tiles(c0, c1, plan)
+        assert 0 <= p0 < S and p0 % plan.positions == 0
+        spans = [(w0, w1) for _, _, w0, w1, _ in wgs if w0 < w1]
+        t0, t1 = (min(a for a, _ in spans), max(e for _, e in spans)) if spans else (0, 0)
+        ring = ring_tiles(t0, t1, plan)
         if plan.split:
+            assert (t0, t1) == kv_tiles(S, p0, plan.positions, causal, window, vl) or not spans
             cuts = [(w0, w1) for _, _, w0, w1, _ in wgs]
-            assert cuts[0][0] == c0 and sum(w1 - w0 for w0, w1 in cuts) == c1 - c0
+            assert all(w0 <= w1 for w0, w1 in cuts)
+            assert sum(w1 - w0 for w0, w1 in cuts) == t1 - t0
             assert all(c[1] == d[0] or d[0] == d[1] for c, d in zip(cuts, cuts[1:]))
             # consumer w's j-th tile is ring entry j·consumers + w, and no
             # entry is another's
             n = plan.consumers
-            stages = ring_stages(Dh)
-            assert stages % n == 0  # entries e and e + stages are one consumer's
+            assert ring_stages(Dh) % n == 0  # entries e and e + stages are one consumer's
             assert sorted(j * n + w for w, (w0, w1) in enumerate(cuts)
                           for j in range(w1 - w0)) == list(range(len(ring)))
             assert all(ring[j * n + w] == w0 + j for w, (w0, w1) in enumerate(cuts)
                        for j in range(w1 - w0))
         else:
-            assert ring == list(range(c0, c1))
+            assert ring == list(range(t0, t1))
         for w, (first, count, w0, w1, masked) in enumerate(wgs):
             rows = slice(first, min(first + count, S))
             if not plan.split or w == 0:
-                covered[s, b, h0:h0 + plan.group, rows] += 1
+                covered[b, h0:h0 + plan.group, rows] += 1
             assert w1 <= walked.shape[1]
             for t, m in masked.items():
                 walked[rows, t] = True
                 if not m:
                     k0, k1 = t * BK, (t + 1) * BK
                     assert k1 <= vl and ok[rows, k0:k1].all(), (first, t)
-        spans.setdefault(i // plan.kv_splits, []).append((s, c0, c1, p0, [
-            (w0, w1) for _, _, w0, w1, _ in wgs if w0 < w1]))
-    assert (seen == 1).all() and (covered == 1).all()
+        if p0 + plan.positions <= S:  # a ragged last position tile may walk fewer
+            work.append(t1 - t0)
+    assert (covered == 1).all()
     q, k = np.nonzero(ok)
     assert walked[q, k // BK].all()
-    work = []
-    for tile in sorted(spans):
-        slices = sorted(spans[tile])
-        assert [c for _, c, _, _, _ in slices][0] == slices[0][1]
-        assert all(a[2] == b[1] or b[1] == b[2] for a, b in zip(slices, slices[1:]))
-        p0 = slices[0][3]
-        walks = [r for *_, rs in slices for r in rs]
-        if p0 + plan.positions <= S:  # a ragged last position tile may walk fewer
-            work.append(max(e for _, e in walks) - min(a for a, _ in walks) if walks else 0)
     if not (causal and window and vl < S):
         # a window's edges fall anywhere in a tile: one tile of jitter
         later = np.maximum.accumulate(np.asarray(work[::-1] or [0]))[::-1]
@@ -288,9 +268,8 @@ def _tile_walk(q, k, v, causal, window, valid_len, sms):
     """The bf16 flash body's arithmetic in plain PyTorch (fp32): each
     consumer warpgroup walks its K tiles in order with an online softmax,
     masking only the tiles ``tile_masked`` marks (with −inf; a row max of
-    −inf is taken as 0); split consumers' (m, l, O) are merged; the
-    slices' (m, l, O) are merged in slice order; O is divided by
-    max(l, 1e-20)."""
+    −inf is taken as 0); split consumers' (m, l, O) are merged; O is
+    divided by max(l, 1e-20)."""
     B, S, H, Dh = q.shape
     KV = k.shape[2]
     scale = 1.0 / Dh ** 0.5
@@ -306,10 +285,8 @@ def _tile_walk(q, k, v, causal, window, valid_len, sms):
         w0, w1 = torch.exp((m - m_use) * scale), torch.exp((m1 - m_use) * scale)
         return m_new, l * w0 + l1 * w1, acc * w0[..., None] + acc1 * w1[..., None]
 
-    partials = {}  # (position tile, rows) → each slice's state
-    plan = _plan(B, S, H, KV, Dh, causal, window, sms)
-    for plan, i, (b, kv, h0, p0, sl), wgs in _walk(B, S, H, KV, Dh, causal, window,
-                                                   valid_len, plan):
+    for plan, (b, kv, h0, p0), wgs in _walk(B, S, H, KV, Dh, causal, window, valid_len,
+                                            _plan(B, S, H, KV, Dh, causal, window, sms)):
         states = []
         for w, (first, count, w0, w1, masked) in enumerate(wgs):
             if first >= S:
@@ -338,15 +315,8 @@ def _tile_walk(q, k, v, causal, window, valid_len, sms):
             for _, _, st1 in states[1:]:
                 st = merge(st, st1)
             states = [(0, pos, st)]
-        for w, pos, st in states:
-            partials.setdefault((i // plan.kv_splits, w), {})[sl] = (b, h0, pos, st)
-    for slices in partials.values():
-        assert sorted(slices) == list(range(plan.kv_splits))
-        b, h0, pos, st = slices[0]
-        for sl in range(1, plan.kv_splits):
-            st = merge(st, slices[sl][3])
-        _, l, acc = st
-        o[b, pos, h0:h0 + plan.group] = acc / l.clamp_min(1e-20)[..., None]
+        for _, pos, (_, l, acc) in states:
+            o[b, pos, h0:h0 + plan.group] = acc / l.clamp_min(1e-20)[..., None]
     return o
 
 
@@ -359,13 +329,12 @@ def _tile_walk(q, k, v, causal, window, valid_len, sms):
     (1, 200, 10, 1, 256, True, 0, 90),   # head_dim 256: one warpgroup per block
     (1, 190, 2, 2, 64, False, 0, 0),     # whisper's encoder: MHA, non-causal, off the tile
     (1, 200, 4, 2, 128, True, 0, 150),   # internvl2_2b: G = 2 at head_dim 128, bucketed
-    (1, 300, 2, 2, 64, True, 64, 100),   # rows with no unmasked key: zeros in every slice
+    (1, 300, 2, 2, 64, True, 64, 100),   # rows with no unmasked key: zeros
 ])
 def test_flash_tile_walk_matches_reference(B, S, H, KV, Dh, causal, window, valid_len,
                                            sms):
-    """The tile walk (edge tiles masked, interior tiles not; consumers
-    sharing K/V tiles, or cutting them and merging; a position tile's K
-    range cut into slices merged in order) gives the reference's Pallas
+    """The tile walk (edge tiles masked, interior tiles not; two or three
+    consumers sharing K/V tiles, or two cutting them and merging) gives the reference's Pallas
     kernel's output (interpret mode, K/V repeated per GQA group), fp32,
     at 4 × test_kernels.py's tolerance; rows with no unmasked key give
     zeros, as the plain version does (the reference's value there
@@ -409,27 +378,33 @@ def _walk_case(B, S, H, KV, Dh, causal, window, valid_len):
     (4, 2048, 24, 2, 128, True, 0),
     (1, 1000, 48, 1, 128, True, 0),     # granite_34b's (G = 48)
     (1, 2048, 10, 1, 256, True, 2048),  # recurrentgemma_2b's local attention
-    (1, 1500, 1, 1, 64, False, 0),      # one head: 12 position tiles, slices pay
-    (2, 300, 4, 2, 64, False, 100),     # a non-causal window: unequal items
+    (1, 256, 16, 2, 128, True, 0),      # qwen25_3b's prefill
+    (2, 300, 4, 2, 64, False, 100),     # a non-causal window: unequal blocks
 ])
 def test_flash_grid_picks_the_least_makespan(B, S, H, KV, Dh, causal, window, sms):
-    """``flash_grid``'s plan has a predicted makespan no larger than any
-    other mode's, and every mode is a grid that walks its items once
-    (``test_flash_tile_plan_covers_the_mask`` walks them).  At whisper's
-    encoder on 132 SMs it is not the 144-block shared grid, whose second
-    wave holds 12 blocks."""
+    """``makespan`` is the greedy list schedule of every mode's blocks, as
+    simulated here from the blocks the kernel walks in its order (each the
+    steps of its busiest consumer and a cost for each warpgroup of rows in
+    range, an SM's first block paying the start and each later one the
+    refill), its shortcuts for one round and for equal blocks included;
+    ``flash_grid`` picks one of ``flash_modes``.  At whisper's
+    encoder on 132 SMs it does not pick the 144-block shared grid, whose
+    second wave holds 12 blocks, but 96 blocks of three consumers."""
     plan = flash_grid(B, S, H, KV, Dh, sms, causal, window)
-    best = makespan(plan, S, Dh, causal, window, sms)
-    modes = flash_modes(B, S, H, KV, Dh, sms)
-    assert plan in modes
+    modes = flash_modes(B, S, H, KV, Dh)
+    assert plan in modes and len(set(modes)) == len(modes)
     for m in modes:
-        assert best <= makespan(m, S, Dh, causal, window, sms)
-        assert 1 <= m.blocks <= m.items and m.blocks in (m.items, sms)
+        step = STEP_COST[m.consumers] * HEAD_DIM_STEPS[Dh]
+        free = [tflash.BLOCK_STEPS - tflash.REFILL_STEPS] * min(sms, m.blocks)
+        for _, _, wgs in _walk(B, S, H, KV, Dh, causal, window, 0, m):
+            sm = free.index(min(free))
+            rows = 1 if m.split else sum(first < S for first, *_ in wgs)
+            free[sm] += (max(w1 - w0 for _, _, w0, w1, _ in wgs) * step + tflash.REFILL_STEPS
+                         + tflash.ROW_STEPS * rows * HEAD_DIM_STEPS[Dh])
+        assert makespan(m, S, Dh, causal, window, sms) == pytest.approx(max(free), abs=1e-9)
     if (B, S, H, KV, Dh, causal, sms) == (1, 1500, 12, 12, 64, False, 132):
-        assert plan != flash_mode(B, S, H, KV, Dh, False, 1)
-        assert flash_mode(B, S, H, KV, Dh, False, 1).blocks == 144
-    if (B, S, H, KV, Dh, sms) == (1, 1500, 1, 1, 64, 132):
-        assert plan.kv_splits > 1  # 12 position tiles of 24 K tiles on 132 SMs
+        assert flash_mode(B, S, H, KV, Dh, False).blocks == 144
+        assert plan.mode == "3shared" and plan.blocks == 96
 
 
 def _paged_inputs(B, H, KV, Dh, page, maxp, seed=8):
