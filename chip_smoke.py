@@ -1871,11 +1871,8 @@ def _drive(torch, router, eng, reqs, max_new, card, vocab, slos=None):
         check(streamed == res, f"serve: request {i} streamed {streamed} != {res}")
     check(prefills == len(reqs), f"serve: {prefills} prefills for {len(reqs)} requests")
     evs = trace.events()
-    begins = {e[5]: e[3] for e in evs if e[0] == "b" and e[1] == "request"}
-    first = {}
-    for e in evs:
-        if e[0] == "n" and e[1] == "token" and e[5] not in first:
-            first[e[5]] = e[3]
+    begins = {e[6]["req"]: e[3] for e in evs if e[0] == "b" and e[1] == "request"}
+    first = _first_token_at((e[1], e[3], e[6]) for e in evs if e[0] == "X")
     ttft = [first[a] - begins[a] for a in begins if a in first]
     step_s = [e[4] for e in evs if e[0] == "X" and e[1] == "decode_step"]
     prefill_s = [e[4] for e in evs if e[0] == "X" and e[1] == "prefill"]
@@ -1894,6 +1891,19 @@ def _drive(torch, router, eng, reqs, max_new, card, vocab, slos=None):
         "prompt_lengths": [len(p) for p, _ in reqs],
         "decode_signatures": eng.decode_compile_count(),
     }
+
+
+def _first_token_at(spans):
+    """Request tag → when its first token was handed over, from
+    time-ordered (name, start, args) of complete spans: the engine admits
+    a request and emits its prefill's token just before the first
+    ``decode_step`` that holds it starts."""
+    first = {}
+    for name, start, args in spans:
+        if name == "decode_step":
+            for tag in args["reqs"]:
+                first.setdefault(tag, start)
+    return first
 
 
 def _log_serve(tag, serve):
@@ -1932,8 +1942,9 @@ def _serve_slow(eng, n_reqs):
     clamps under 1 % of its wall time; the SLOW report must hold both
     tiers; the scrape, parsed strictly, must read the engine's own
     counters.  Reports the p50 over requests of each class's share of the
-    request's wall time and of its TTFT window (its intervals cut at its
-    first ``token`` instant)."""
+    request's wall time and of its TTFT window (its intervals cut where
+    its first token was handed over: the start of its first
+    ``decode_step``)."""
     from repro_torch.net.httpd import http_get
     from repro_torch.obs import attribution, export
     from repro_torch.obs import critical_path as cpm
@@ -1945,13 +1956,8 @@ def _serve_slow(eng, n_reqs):
     idx = cpm.TraceIndex(tr)
     tags = cpm.request_ids(idx)
     check(len(tags) == n_reqs, f"serve slow: {len(tags)} requests in the trace, not {n_reqs}")
-    aid = {}  # request tag → its async id, shared by its token instants
-    first = {}  # async id → first token's timestamp (events sorted by ts)
-    for e in tr["traceEvents"]:
-        if e["ph"] == "b" and e["name"] == "request":
-            aid[e["args"]["req"]] = e["id"]
-        elif e["ph"] == "n" and e["name"] == "token":
-            first.setdefault(e["id"], e["ts"])
+    first = _first_token_at(sorted(((e["name"], e["ts"], e["args"]) for e in tr["traceEvents"]
+                                    if e["ph"] == "X"), key=lambda s: s[1]))
     cps, whole, ttft = {}, [], []
     for tag in tags:
         cp = cpm.critical_path(idx, tag)
@@ -1962,10 +1968,10 @@ def _serve_slow(eng, n_reqs):
               f"serve slow: {tag}'s path leaves a gap in [{cp.t0}, {cp.t1}]")
         check(cp.clamped_us < 0.01 * cp.total_us,
               f"serve slow: {tag} clamps {cp.clamped_us:.1f} of {cp.total_us:.1f} µs")
-        check(aid.get(tag) in first, f"serve slow: {tag} has no token instant")
+        check(tag in first, f"serve slow: {tag} has no decode step")
         cps[tag] = cp
         whole.append(_slow_shares(ivs, cp.t1))
-        ttft.append(_slow_shares(ivs, first[aid[tag]]))
+        ttft.append(_slow_shares(ivs, first[tag]))
     report = attribution.slow_report(idx, cps)
     check({"interactive", "batch"} <= set(report["tiers"]),
           f"serve slow: tiers {sorted(report['tiers'])}")

@@ -11,9 +11,9 @@ the instrumented subsystems append to —
 - parcelport: serialize/send/recv/execute spans with wire byte counts,
   and *flow events* stitching a parcel's send span to its remote
   execution span;
-- serve engine: per-request async spans (admission → prefill → every
-  decode step → finish) so TTFT and inter-token latency fall out of the
-  trace with no extra bookkeeping;
+- serve engine: per-request async spans (admission → finish), a span
+  per prefill and per decode step, each split into the host's enqueue
+  and its wait for the device;
 - trainer step loop and segmented-algorithm per-segment actions.
 
 Cost model (the observability contract):
@@ -211,20 +211,28 @@ class with_context:
 # ---------------------------------------------------------------- recording
 class _Span:
     __slots__ = ("name", "cat", "args", "flow_in", "flow_out",
-                 "t0", "sid", "prev")
+                 "t0", "t1", "sid", "prev", "cpu", "c0")
 
-    def __init__(self, name, cat, flow_in, flow_out, args):
+    def __init__(self, name, cat, flow_in, flow_out, args, cpu=False):
         self.name = name
         self.cat = cat
         self.flow_in = flow_in
         self.flow_out = flow_out
         self.args = args
+        self.cpu = cpu
+
+    def set(self, **args: Any) -> None:
+        """Add arguments known only once the span's work has run; they are
+        recorded at its exit."""
+        self.args = {**(self.args or {}), **args}
 
     def __enter__(self) -> "_Span":
         self.prev = getattr(_tls, "ctx", None)
         self.sid = new_id()
         _tls.ctx = self.sid
         self.t0 = time.perf_counter()
+        if self.cpu:  # inside the wall interval, so cpu_s never exceeds it
+            self.c0 = time.thread_time()
         # flow markers share the span's start timestamp so they bind to
         # this slice in Perfetto (binding point "enclosing slice")
         if self.flow_in is not None:
@@ -236,23 +244,32 @@ class _Span:
         return self
 
     def __exit__(self, *exc) -> bool:
-        t1 = time.perf_counter()
+        cpu_s = time.thread_time() - self.c0 if self.cpu else None
+        self.t1 = t1 = time.perf_counter()
         _tls.ctx = self.prev
         if _enabled:  # disabled mid-span: drop silently
             args = self.args
-            if self.prev is not None:
+            if self.prev is not None or cpu_s is not None:
                 args = dict(args) if args else {}
+            if self.prev is not None:
                 args["parent"] = f"{self.prev[0]}:{self.prev[1]}"
+            if cpu_s is not None:
+                args["cpu_s"] = cpu_s
             _buf().append(("X", self.name, self.cat, self.t0, t1 - self.t0,
                            self.sid, args))
         return False
 
 
 class _NullSpan:
-    """Shared no-op returned while disabled: __enter__/__exit__ do nothing."""
+    """Shared no-op returned while disabled: __enter__/__exit__ do nothing,
+    ``set`` drops its arguments, and its bounds read 0."""
 
     __slots__ = ()
     sid = None
+    t0 = t1 = 0.0
+
+    def set(self, **args: Any) -> None:
+        pass
 
     def __enter__(self) -> "_NullSpan":
         return self
@@ -266,14 +283,20 @@ _NULL = _NullSpan()
 
 def span(name: str, cat: str = "task",
          flow_in: Optional[Tuple[int, int]] = None,
-         flow_out: Optional[Tuple[int, int]] = None, **args: Any):
+         flow_out: Optional[Tuple[int, int]] = None, *, cpu: bool = False,
+         **args: Any):
     """Context manager recording one complete span (Chrome ``"X"``).
 
     ``flow_in``/``flow_out`` additionally record a flow finish/start bound
-    to this span — the cross-locality arrow.  Disabled → shared no-op."""
+    to this span — the cross-locality arrow.  ``cpu=True`` also records
+    ``args["cpu_s"]``, the thread's CPU time inside the span
+    (``time.thread_time``): its wall time less ``cpu_s`` is the time the
+    thread spent off the CPU, waiting for the interpreter's lock or
+    blocked in a system call.  The span's bounds (``t0``, ``t1``) stay
+    readable after its exit.  Disabled → shared no-op."""
     if not _enabled:
         return _NULL
-    return _Span(name, cat, flow_in, flow_out, args or None)
+    return _Span(name, cat, flow_in, flow_out, args or None, cpu)
 
 
 def instant(name: str, cat: str = "task", **args: Any) -> None:

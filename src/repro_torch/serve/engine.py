@@ -36,6 +36,18 @@ Engine work runs on scheduler threads, and autograd's grad mode is
 thread-local, so each prefill task and each decode step enters
 ``torch.inference_mode()`` itself.
 
+Tracing (:mod:`repro_torch.obs.trace`, category ``serve``): a request's
+lifetime is an async ``request`` span; each ``prefill`` span carries
+``queue_s``, the request's wait from ``submit`` to the prefill's start,
+and holds ``prefill.launch`` (the token upload and the forward's
+enqueue) and ``prefill.wait`` (the logits' read back); each
+``decode_step`` span carries ``cpu_s``, the decode thread's CPU time in
+it, and holds ``decode.inputs`` (the page table, positions and tokens
+uploaded), ``decode.launch`` (the forward and the sampling enqueued) and
+``decode.wait`` (the host blocked on the device for the tokens).  Each
+parent also carries its children's walls (``inputs_s``, ``launch_s``,
+``wait_s``).  With tracing off the step tests one flag.
+
 PyTorch runs eagerly and compiles nothing, so the counterpart of the
 reference's decode compile count is :meth:`Engine.decode_compile_count`:
 the distinct (shape, dtype) signatures the decode step has been called
@@ -610,11 +622,33 @@ class Engine:
         """Compute the request's KV cache + first token (any thread)."""
         if _trace._enabled:
             with _trace.span("prefill", "serve", rid=req.rid, req=req.tag,
-                             prompt_len=len(req.prompt)):
-                return self._run_prefill_body(req)
+                             prompt_len=len(req.prompt),
+                             queue_s=time.perf_counter() - req.submit_t) as sp:
+                return self._run_prefill_body(req, sp)
         return self._run_prefill_body(req)
 
-    def _run_prefill_body(self, req: _Request):
+    def _prefill_forward(self, prompt: List[int]):
+        """Upload the prompt and enqueue the prefill → (the last position's
+        logits, fp32, on the device; the one-row cache)."""
+        if self._bucketed:
+            bucket = self._bucket_for(len(prompt))
+            toks = np.zeros((1, bucket), np.int64)
+            toks[0, : len(prompt)] = prompt
+            logits, cache1 = self.model.prefill(
+                self.params,
+                {"tokens": torch.from_numpy(toks).to(self.device), **self.prefill_inputs},
+                cache_len=bucket if self.paged else self.scfg.cache_len,
+                valid_len=torch.tensor([len(prompt)], dtype=torch.int32,
+                                       device=self.device))
+        else:
+            toks = torch.tensor([prompt], dtype=torch.int64, device=self.device)
+            logits, cache1 = self.model.prefill(
+                self.params, {"tokens": toks, **self.prefill_inputs},
+                cache_len=self.scfg.cache_len)
+        return logits[0].float(), cache1
+
+    def _run_prefill_body(self, req: _Request, sp=None):
+        """``sp``: the open ``prefill`` span, which the traced path splits."""
         prompt = req.prompt
         cfg = self.model.cfg
         if cfg.family == "vlm" and len(prompt) < cfg.n_patches:
@@ -623,22 +657,17 @@ class Engine:
             raise ValueError(f"vlm prompt needs ≥ {cfg.n_patches} tokens, "
                              f"got {len(prompt)}")
         with torch.inference_mode():
-            if self._bucketed:
-                bucket = self._bucket_for(len(prompt))
-                toks = np.zeros((1, bucket), np.int64)
-                toks[0, : len(prompt)] = prompt
-                logits, cache1 = self.model.prefill(
-                    self.params,
-                    {"tokens": torch.from_numpy(toks).to(self.device), **self.prefill_inputs},
-                    cache_len=bucket if self.paged else self.scfg.cache_len,
-                    valid_len=torch.tensor([len(prompt)], dtype=torch.int32,
-                                           device=self.device))
+            if sp is None:
+                logits, cache1 = self._prefill_forward(prompt)
+                host_logits = logits.cpu().numpy()
             else:
-                toks = torch.tensor([prompt], dtype=torch.int64, device=self.device)
-                logits, cache1 = self.model.prefill(
-                    self.params, {"tokens": toks, **self.prefill_inputs},
-                    cache_len=self.scfg.cache_len)
-            host_logits = logits[0].float().cpu().numpy()
+                with _trace.span("prefill.launch", "serve", rid=req.rid,
+                                 req=req.tag) as a:
+                    logits, cache1 = self._prefill_forward(prompt)
+                with _trace.span("prefill.wait", "serve", rid=req.rid,
+                                 req=req.tag) as b:
+                    host_logits = logits.cpu().numpy()
+                sp.set(launch_s=a.t1 - a.t0, wait_s=b.t1 - b.t0)
         with self._lock:
             self.prefill_count += 1
         rng = np.random.default_rng((self.scfg.seed << 20) ^ req.rid)
@@ -686,9 +715,6 @@ class Engine:
     def _emit(self, req: _Request, tok: int) -> None:
         req.generated.append(tok)
         self.c_tok.increment()
-        if _trace._enabled:  # inter-token latency = gaps between these
-            _trace.async_instant("token", req.rid, "serve",
-                                 n=len(req.generated))
         if not req.first_token_t:
             req.first_token_t = time.perf_counter()
             self.t_first.add(req.first_token_t - req.submit_t)
@@ -828,6 +854,37 @@ class Engine:
                 self._running = False
             raise
 
+    def _step_inputs(self):
+        """The step's cache (the paged backend uploads its page table and
+        positions) and the batch's last tokens, on the device."""
+        return self.backend.device_cache(), torch.from_numpy(self._tokens).to(self.device)
+
+    def _step_launch(self, cache: Dict[str, torch.Tensor],
+                     token: torch.Tensor) -> torch.Tensor:
+        """Enqueue the forward and the sampling → the next tokens, on the
+        device.  The step writes the new tokens' K/V and states into the
+        backend's cache in place."""
+        logits, new_cache = self._decode(cache, token)
+        self.backend.commit(new_cache)
+        return sample_logits(logits, self._gen, torch.from_numpy(self._temp),
+                             torch.from_numpy(self._topk), torch.from_numpy(self._topp))
+
+    def _decode_sample(self, sp=None) -> np.ndarray:
+        """One decode + sample step of the whole batch → its tokens on the
+        host.  ``sp``: the open ``decode_step`` span, which the traced path
+        splits into its three children."""
+        with self.t_step.time(), torch.inference_mode():
+            if sp is None:
+                return self._step_launch(*self._step_inputs()).cpu().numpy()
+            with _trace.span("decode.inputs", "serve") as a:
+                inputs = self._step_inputs()
+            with _trace.span("decode.launch", "serve") as b:
+                nxt = self._step_launch(*inputs)
+            with _trace.span("decode.wait", "serve") as c:
+                toks = nxt.cpu().numpy()
+            sp.set(inputs_s=a.t1 - a.t0, launch_s=b.t1 - b.t0, wait_s=c.t1 - c.t0)
+            return toks
+
     def _step_body(self) -> None:
         if self.scfg.pipeline_admission:
             self._pump_prefills()
@@ -847,20 +904,13 @@ class Engine:
             self._loop_exec.post(self._step)
             return
 
-        step_args: Dict[str, Any] = {"batch": len(active)}
         if _trace._enabled:
-            step_args["reqs"] = [self.slots[i].tag for i in active]
-        with _trace.span("decode_step", "serve", **step_args), \
-                self.t_step.time(), torch.inference_mode():
-            # the step writes the new tokens' K/V and states into the
-            # backend's cache in place
-            logits, new_cache = self._decode(
-                self.backend.device_cache(), torch.from_numpy(self._tokens).to(self.device))
-            self.backend.commit(new_cache)
-            nxt = sample_logits(logits, self._gen, torch.from_numpy(self._temp),
-                                torch.from_numpy(self._topk),
-                                torch.from_numpy(self._topp))
-            toks = nxt.cpu().numpy()
+            # ends at the host's read of the tokens
+            with _trace.span("decode_step", "serve", cpu=True, batch=len(active),
+                             reqs=[self.slots[i].tag for i in active]) as sp:
+                toks = self._decode_sample(sp)
+        else:
+            toks = self._decode_sample()
         self.step_count += 1
         self.backend.step_bookkeeping(active)
         self._tokens[:, 0] = toks
